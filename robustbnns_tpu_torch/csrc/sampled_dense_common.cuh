@@ -1,0 +1,88 @@
+// Shared pieces of the sampled-dense kernels: the counter-based noise and the
+// tile constants.
+//
+// eps[s, i, o] is a pure function of (seed, s, i, o): Philox4x32-10 with
+// key = (seed, 0) and counter = (o >> 2, i, s, 0) gives four 32-bit words, which
+// turn into the four normals of o = 4q .. 4q+3 by the JAX kernel's mantissa
+// splice (sampled_dense.py:86-88) and a full Box-Muller pair per two words.
+// Row i = I is the bias row. Because the stream does not depend on the tiling,
+// the forward and the backward kernels tile differently and still regenerate
+// the same eps. The plain PyTorch twin (ops/sampled_dense.py) computes the same
+// words with int64 tensor arithmetic.
+//
+// The weight W = loc + softplus(rho) * eps is formed with __fmul_rn/__fadd_rn,
+// so nvcc contracts nothing into an FMA there and the draw rounds exactly as
+// the twin's two tensor operations do.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace sampled_dense {
+
+constexpr int kThreads = 256;  // 8 warps per block
+constexpr int kRows = 128;     // batch rows per block
+constexpr int kCols = 16;      // output columns per block (o forward, i backward)
+constexpr int kChunk = 64;     // depth of one shared-memory stage of the contraction
+constexpr float kTwoPi = 6.283185307179586f;
+
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t lo0 = 0xD2511F53u * c[0];
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]);
+    const uint32_t lo1 = 0xCD9E8D57u * c[2];
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]);
+    c[0] = hi1 ^ c[1] ^ k0;
+    c[1] = lo1;
+    c[2] = hi0 ^ c[3] ^ k1;
+    c[3] = lo0;
+  }
+}
+
+// A float in [1, 2) from the top 23 bits of a word.
+__device__ __forceinline__ float unit_from_bits(uint32_t r) {
+  return __uint_as_float((r >> 9) | 0x3F800000u);
+}
+
+__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float& z0, float& z1) {
+  const float u1 = 2.0f - unit_from_bits(a);  // (0, 1]: log-safe
+  const float rad = sqrtf(-2.0f * logf(u1));
+  const float theta = kTwoPi * (unit_from_bits(b) - 1.0f);
+  z0 = rad * cosf(theta);
+  z1 = rad * sinf(theta);
+}
+
+// The four normals eps[s, i, 4q .. 4q+3].
+__device__ __forceinline__ float4 normal4(uint32_t seed, uint32_t s, uint32_t i, uint32_t q) {
+  uint32_t c[4] = {q, i, s, 0u};
+  philox4x32_10(c, seed, 0u);
+  float4 z;
+  box_muller(c[0], c[1], z.x, z.y);
+  box_muller(c[2], c[3], z.z, z.w);
+  return z;
+}
+
+__device__ __forceinline__ float component(const float4& v, int j) {
+  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
+}
+
+// softplus(x) = max(x, 0) + log1p(exp(-|x|)), the form of jax.nn.softplus.
+__device__ __forceinline__ float softplus(float x) {
+  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
+}
+
+__device__ __forceinline__ float draw(float loc, float scale, float eps) {
+  return __fadd_rn(loc, __fmul_rn(scale, eps));
+}
+
+// Blocks of the sample axis: ceil(S / s_per_block).
+inline int sample_groups(int S, int s_per_block) {
+  return (S + s_per_block - 1) / s_per_block;
+}
+
+}  // namespace sampled_dense

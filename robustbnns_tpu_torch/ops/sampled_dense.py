@@ -1,0 +1,363 @@
+"""Sampled dense layers with in-kernel noise (port of ``robustbnns_tpu/ops/sampled_dense.py``).
+
+``y[s] = x @ W_s + b_s`` with ``W_s = loc + softplus(rho)·eps_s`` and
+``b_s = bloc + softplus(brho)·eps_{b,s}``: S reparameterized draws of a dense
+layer applied to a batch, without the ``(S, I, O)`` sampled weights ever
+reaching device memory. The per-sample-input variant takes ``xs`` (S, B, I),
+as the hidden layers of the fused predictive do.
+
+Four hand-written CUDA kernels carry the attack path (``csrc/``):
+
+=========================  ============================  ===========================
+wrapper                    replaces (Pallas)             computes
+=========================  ============================  ===========================
+``sampled_dense_fwd``      ``_fwd_kernel`` ``:99``       out[s] = x @ W_s + b_s
+``sampled_dense_dx``       ``_bwd_dx_kernel`` ``:114``   dx = Σ_s g_s W_sᵀ
+``sampled_dense_xs_fwd``   ``_fwd_kernel_xs`` ``:347``   out[s] = xs[s] @ W_s + b_s
+``sampled_dense_xs_dx``    ``_bwd_xs_dx_kernel`` ``:362``  dxs[s] = g_s W_sᵀ
+=========================  ============================  ===========================
+
+Noise: ``eps[s, i, o]`` is a pure function of (seed, s, i, o) — Philox4x32-10
+with key (seed, 0) and counter (o >> 2, i, s, 0), the JAX kernel's mantissa
+splice into uniforms and a full Box-Muller pair per two words — with the bias
+at row ``i = I``. The stream is not the TPU's (that one depends on its tiling);
+it is the same in every kernel here and in the plain twins, which compute it
+with int64 tensor arithmetic.
+
+Each wrapper launches its kernel for CUDA tensors (or raises), and runs its
+plain PyTorch twin for CPU tensors only. Each counts its kernel launches in
+``<wrapper>.launches``. The parameter gradients (Pallas ``_bwd_dparams_kernel``
+and ``_bwd_xs_dparams_kernel``) belong to ELBO training and are not ported yet:
+asking for them raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from robustbnns_tpu_torch.ops.build import library
+
+_MASK = 0xFFFFFFFF
+_TWO_PI_F32 = float(np.float32(6.283185307179586))
+_COLS, _ROWS = 16, 128  # output tile of one block (csrc/sampled_dense_common.cuh)
+_PARAM_GRAD_MSG = (
+    "gradients of loc/rho/bloc/brho need the dparams kernels (Pallas "
+    "_bwd_dparams_kernel / _bwd_xs_dparams_kernel), which are still to be ported "
+    "with SVI training (ROADMAP.md, Queue 2)"
+)
+
+# --------------------------------------------------------------------------- #
+# Plain PyTorch twins: the same noise and arithmetic as the kernels
+# --------------------------------------------------------------------------- #
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 (Random123) on int64 tensors holding uint32 words.
+
+    The 32x32 -> 64-bit products wrap in signed int64; the high word is then
+    ``(p >> 32) & 0xFFFFFFFF`` and the low word ``p & 0xFFFFFFFF``.
+    """
+    for r in range(10):
+        if r:
+            k0 = (k0 + 0x9E3779B9) & _MASK
+            k1 = (k1 + 0xBB67AE85) & _MASK
+        p0 = c0 * 0xD2511F53
+        p1 = c2 * 0xCD9E8D57
+        c0, c1, c2, c3 = (
+            ((p1 >> 32) & _MASK) ^ c1 ^ k0,
+            p1 & _MASK,
+            ((p0 >> 32) & _MASK) ^ c3 ^ k1,
+            p0 & _MASK,
+        )
+    return c0, c1, c2, c3
+
+
+def _unit_from_bits(r: torch.Tensor) -> torch.Tensor:
+    """[1, 2) floats from the top 23 bits of each word (``sampled_dense.py:86-87``)."""
+    return ((r >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+
+
+def _box_muller(a, b):
+    u1 = 2.0 - _unit_from_bits(a)  # (0, 1]: log-safe
+    rad = torch.sqrt(-2.0 * torch.log(u1))
+    theta = _TWO_PI_F32 * (_unit_from_bits(b) - 1.0)
+    return rad * torch.cos(theta), rad * torch.sin(theta)
+
+
+def sampled_noise(seed: int, n_samples: int, n_rows: int, o_dim: int, device) -> torch.Tensor:
+    """``eps[s, i, o]`` for ``i < n_rows``, shape (S, n_rows, O). Row ``I`` of an
+    (I, O) layer is its bias row, so the forward asks for ``I + 1`` rows."""
+    quads = -(-o_dim // 4)
+    shape = (n_samples, n_rows, quads)
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
+    c0 = ar(quads).view(1, 1, -1).expand(shape)
+    c1 = ar(n_rows).view(1, -1, 1).expand(shape)
+    c2 = ar(n_samples).view(-1, 1, 1).expand(shape)
+    c3 = torch.zeros(shape, dtype=torch.int64, device=device)
+    r0, r1, r2, r3 = philox4x32_10(c0, c1, c2, c3, int(seed) & _MASK, 0)
+    z0, z1 = _box_muller(r0, r1)
+    z2, z3 = _box_muller(r2, r3)
+    return torch.stack([z0, z1, z2, z3], dim=-1).reshape(n_samples, n_rows, 4 * quads)[..., :o_dim]
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``max(x, 0) + log1p(exp(-|x|))``, the form of ``jax.nn.softplus`` and of the kernels."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def sampled_weights(loc, rho, bloc, brho, n_samples: int, seed: int):
+    """The S draws ``(W (S, I, O), b (S, O))`` the kernels generate on chip."""
+    i_dim, o_dim = loc.shape
+    eps = sampled_noise(seed, n_samples, i_dim + 1, o_dim, loc.device)
+    return loc + softplus(rho) * eps[:, :i_dim], bloc + softplus(brho) * eps[:, i_dim]
+
+
+def _sampled_w(loc, rho, n_samples: int, seed: int):
+    eps = sampled_noise(seed, n_samples, loc.shape[0], loc.shape[1], loc.device)
+    return loc + softplus(rho) * eps
+
+
+def sampled_dense_fwd_plain(x, loc, rho, bloc, brho, n_samples: int, seed: int):
+    w, b = sampled_weights(loc, rho, bloc, brho, n_samples, seed)
+    return torch.matmul(x, w) + b[:, None, :]
+
+
+def sampled_dense_dx_plain(g, loc, rho, n_samples: int, seed: int):
+    return torch.matmul(g, _sampled_w(loc, rho, n_samples, seed).transpose(1, 2)).sum(0)
+
+
+# torch.matmul broadcasts a shared (B, I) input and a per-sample (S, B, I) one alike
+sampled_dense_xs_fwd_plain = sampled_dense_fwd_plain
+
+
+def sampled_dense_xs_dx_plain(g, loc, rho, n_samples: int, seed: int):
+    return torch.matmul(g, _sampled_w(loc, rho, n_samples, seed).transpose(1, 2))
+
+
+# --------------------------------------------------------------------------- #
+# Kernel wrappers
+# --------------------------------------------------------------------------- #
+
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+_SIGNATURES = {
+    "sampled_dense_fwd": ("sampled_dense_fwd.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_xs_fwd": ("sampled_dense_fwd.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_dx": ("sampled_dense_dx.cu", [_P] * 4 + [_I] * 4 + [_U, _P]),
+    "sampled_dense_xs_dx": ("sampled_dense_dx.cu", [_P] * 4 + [_I] * 4 + [_U, _I, _P]),
+}
+
+
+def _kernel(name: str):
+    source, argtypes = _SIGNATURES[name]
+    fn = getattr(library(source), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """Whether the call is the plain twin's (CPU tensors); all must share one device."""
+    device = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != device:
+            raise ValueError(f"all tensors must be on {device}, got one on {t.device}")
+    return device.type == "cpu"
+
+
+def _check_cuda(*tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the sampled-dense kernels take float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the sampled-dense kernels take contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError("the sampled-dense kernels take 16-byte aligned tensors")
+
+
+def _check_params(loc, rho, bloc=None, brho=None) -> None:
+    if loc.dim() != 2 or rho.shape != loc.shape:
+        raise ValueError(f"loc/rho must be (I, O) of one shape, got {loc.shape}, {rho.shape}")
+    for v in (bloc, brho):
+        if v is not None and v.shape != loc.shape[1:]:
+            raise ValueError(f"bloc/brho must be (O,) = {loc.shape[1:]}, got {v.shape}")
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch on ``device``'s current stream, with ``device`` current for the runtime."""
+    with torch.cuda.device(device):
+        err = _kernel(name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed to launch: cudaError {err}")
+
+
+def _samples_per_block(n_samples: int, tiles: int, device) -> int:
+    """Spread samples over blocks until the tiles fill the card's SMs once."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    groups = max(1, min(n_samples, sms // max(1, tiles)))
+    return -(-n_samples // groups)
+
+
+def _tiles(rows: int, cols: int) -> int:
+    return -(-rows // _ROWS) * -(-cols // _COLS)
+
+
+def sampled_dense_fwd(x, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
+    """Pallas ``_fwd_kernel`` (``robustbnns_tpu/ops/sampled_dense.py:99``) ->
+    ``csrc/sampled_dense_fwd.cu``. (B, I) -> (S, B, O).
+
+    Bound on the H100: S·B·I·O exact-f32 FMAs on the FFMA pipe (2.06 GFLOP at
+    the first layer of fc2-1024, B=128, S=10); the design keeps softplus(rho) on
+    chip across samples and the sampled weights out of device memory.
+    """
+    _check_params(loc, rho, bloc, brho)
+    if x.dim() != 2 or x.shape[1] != loc.shape[0]:
+        raise ValueError(f"x must be (B, I={loc.shape[0]}), got {tuple(x.shape)}")
+    if _on_cpu(x, loc, rho, bloc, brho):
+        return sampled_dense_fwd_plain(x, loc, rho, bloc, brho, n_samples, seed)
+    _check_cuda(x, loc, rho, bloc, brho)
+    (b_dim, i_dim), o_dim = x.shape, loc.shape[1]
+    out = torch.empty((n_samples, b_dim, o_dim), device=x.device, dtype=torch.float32)
+    spb = _samples_per_block(n_samples, _tiles(b_dim, o_dim), x.device)
+    _launch("sampled_dense_fwd", x.device, x.data_ptr(), loc.data_ptr(), rho.data_ptr(),
+            bloc.data_ptr(), brho.data_ptr(), out.data_ptr(), n_samples, b_dim, i_dim, o_dim,
+            seed & _MASK, spb)
+    sampled_dense_fwd.launches += 1
+    return out
+
+
+def sampled_dense_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
+    """Pallas ``_bwd_dx_kernel`` (``sampled_dense.py:114``) ->
+    ``csrc/sampled_dense_dx.cu``. g (S, B, O) -> dx (B, I) = Σ_s g_s W_sᵀ.
+
+    Bound on the H100: S·B·I·O exact-f32 FMAs on the FFMA pipe; the sum over
+    samples is a loop inside each block (deterministic, no atomics).
+    """
+    _check_params(loc, rho)
+    if g.dim() != 3 or g.shape[0] != n_samples or g.shape[2] != loc.shape[1]:
+        raise ValueError(f"g must be (S={n_samples}, B, O={loc.shape[1]}), got {tuple(g.shape)}")
+    if _on_cpu(g, loc, rho):
+        return sampled_dense_dx_plain(g, loc, rho, n_samples, seed)
+    _check_cuda(g, loc, rho)
+    (_, b_dim, o_dim), i_dim = g.shape, loc.shape[0]
+    dx = torch.empty((b_dim, i_dim), device=g.device, dtype=torch.float32)
+    _launch("sampled_dense_dx", g.device, g.data_ptr(), loc.data_ptr(), rho.data_ptr(),
+            dx.data_ptr(), n_samples, b_dim, i_dim, o_dim, seed & _MASK)
+    sampled_dense_dx.launches += 1
+    return dx
+
+
+def sampled_dense_xs_fwd(xs, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
+    """Pallas ``_fwd_kernel_xs`` (``sampled_dense.py:347``) ->
+    ``csrc/sampled_dense_fwd.cu``. (S, B, I) -> (S, B, O).
+
+    Bound on the H100: S·B·I·O exact-f32 FMAs on the FFMA pipe (2.68 GFLOP at
+    the hidden layer of fc2-1024); same design as :func:`sampled_dense_fwd`.
+    """
+    _check_params(loc, rho, bloc, brho)
+    if xs.dim() != 3 or xs.shape[0] != n_samples or xs.shape[2] != loc.shape[0]:
+        raise ValueError(f"xs must be (S={n_samples}, B, I={loc.shape[0]}), got {tuple(xs.shape)}")
+    if _on_cpu(xs, loc, rho, bloc, brho):
+        return sampled_dense_xs_fwd_plain(xs, loc, rho, bloc, brho, n_samples, seed)
+    _check_cuda(xs, loc, rho, bloc, brho)
+    (_, b_dim, i_dim), o_dim = xs.shape, loc.shape[1]
+    out = torch.empty((n_samples, b_dim, o_dim), device=xs.device, dtype=torch.float32)
+    spb = _samples_per_block(n_samples, _tiles(b_dim, o_dim), xs.device)
+    _launch("sampled_dense_xs_fwd", xs.device, xs.data_ptr(), loc.data_ptr(), rho.data_ptr(),
+            bloc.data_ptr(), brho.data_ptr(), out.data_ptr(), n_samples, b_dim, i_dim, o_dim,
+            seed & _MASK, spb)
+    sampled_dense_xs_fwd.launches += 1
+    return out
+
+
+def sampled_dense_xs_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
+    """Pallas ``_bwd_xs_dx_kernel`` (``sampled_dense.py:362``) ->
+    ``csrc/sampled_dense_dx.cu``. g (S, B, O) -> dxs (S, B, I) = g_s W_sᵀ.
+
+    Bound on the H100: S·B·I·O exact-f32 FMAs on the FFMA pipe; samples are
+    spread over blocks to fill the SMs, softplus(rho) stays on chip within one.
+    """
+    _check_params(loc, rho)
+    if g.dim() != 3 or g.shape[0] != n_samples or g.shape[2] != loc.shape[1]:
+        raise ValueError(f"g must be (S={n_samples}, B, O={loc.shape[1]}), got {tuple(g.shape)}")
+    if _on_cpu(g, loc, rho):
+        return sampled_dense_xs_dx_plain(g, loc, rho, n_samples, seed)
+    _check_cuda(g, loc, rho)
+    (_, b_dim, o_dim), i_dim = g.shape, loc.shape[0]
+    dxs = torch.empty((n_samples, b_dim, i_dim), device=g.device, dtype=torch.float32)
+    spb = _samples_per_block(n_samples, _tiles(b_dim, i_dim), g.device)
+    _launch("sampled_dense_xs_dx", g.device, g.data_ptr(), loc.data_ptr(), rho.data_ptr(),
+            dxs.data_ptr(), n_samples, b_dim, i_dim, o_dim, seed & _MASK, spb)
+    sampled_dense_xs_dx.launches += 1
+    return dxs
+
+
+KERNEL_WRAPPERS = (sampled_dense_fwd, sampled_dense_dx, sampled_dense_xs_fwd, sampled_dense_xs_dx)
+for _wrapper in KERNEL_WRAPPERS:
+    _wrapper.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for wrapper in KERNEL_WRAPPERS:
+        wrapper.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {wrapper.__name__: wrapper.launches for wrapper in KERNEL_WRAPPERS}
+
+
+# --------------------------------------------------------------------------- #
+# Autograd glue (replaces the JAX custom VJPs, sampled_dense.py:320 and :525)
+# --------------------------------------------------------------------------- #
+
+
+class SampledDense(torch.autograd.Function):
+    """``sampled_dense`` with a dx-only backward that regenerates the noise.
+
+    Saves (x, loc, rho, brho, seed), never the sampled weights.
+    """
+
+    @staticmethod
+    def forward(ctx, x, loc, rho, bloc, brho, n_samples: int, seed: int):
+        x, loc, rho, bloc, brho = (t.contiguous() for t in (x, loc, rho, bloc, brho))
+        ctx.save_for_backward(x, loc, rho, brho)
+        ctx.n_samples, ctx.seed = n_samples, seed
+        return sampled_dense_fwd(x, loc, rho, bloc, brho, n_samples, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        if any(ctx.needs_input_grad[1:5]):
+            raise NotImplementedError(_PARAM_GRAD_MSG)
+        _, loc, rho, _ = ctx.saved_tensors
+        dx = sampled_dense_dx(g.contiguous(), loc, rho, ctx.n_samples, ctx.seed)
+        return dx, None, None, None, None, None, None
+
+
+class SampledDenseXs(torch.autograd.Function):
+    """``sampled_dense_xs`` with a dxs-only backward that regenerates the noise."""
+
+    @staticmethod
+    def forward(ctx, xs, loc, rho, bloc, brho, n_samples: int, seed: int):
+        xs, loc, rho, bloc, brho = (t.contiguous() for t in (xs, loc, rho, bloc, brho))
+        ctx.save_for_backward(xs, loc, rho, brho)
+        ctx.n_samples, ctx.seed = n_samples, seed
+        return sampled_dense_xs_fwd(xs, loc, rho, bloc, brho, n_samples, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        if any(ctx.needs_input_grad[1:5]):
+            raise NotImplementedError(_PARAM_GRAD_MSG)
+        _, loc, rho, _ = ctx.saved_tensors
+        dxs = sampled_dense_xs_dx(g.contiguous(), loc, rho, ctx.n_samples, ctx.seed)
+        return dxs, None, None, None, None, None, None
+
+
+def sampled_dense(x, loc, rho, bloc, brho, n_samples: int, seed: int = 0) -> torch.Tensor:
+    """``(S, B, O)`` outputs of S sampled dense layers. ``x``: (B, I);
+    ``loc``/``rho``: (I, O); ``bloc``/``brho``: (O,); ``seed``: a Python int."""
+    return SampledDense.apply(x, loc, rho, bloc, brho, n_samples, int(seed))
+
+
+def sampled_dense_xs(xs, loc, rho, bloc, brho, n_samples: int, seed: int = 0) -> torch.Tensor:
+    """Per-sample-input sampled dense: ``y[s] = xs[s] @ W_s + b_s``; ``xs``: (S, B, I)."""
+    return SampledDenseXs.apply(xs, loc, rho, bloc, brho, n_samples, int(seed))

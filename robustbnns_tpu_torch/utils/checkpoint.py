@@ -1,0 +1,144 @@
+"""Checkpointing: parameter trees <-> ``.npz`` files keyed by flattened paths
+(port of ``robustbnns_tpu/utils/checkpoint.py``, npz backend).
+
+The on-disk layout is the JAX package's: one compressed ``.npz`` holding every
+leaf under its '/'-joined tree path (``_path_to_str``, ``checkpoint.py:242``),
+plus a JSON meta blob under ``__robustbnns_meta__``. A mean-field posterior's
+leaves are ``loc/0/b``, ``loc/0/w``, ..., ``rho/2/w``. So a posterior saved by
+either package loads in the other unchanged.
+
+The JAX package's Orbax backend (``ROBUSTBNNS_CKPT_BACKEND=orbax``) is JAX-only
+and is left out: the port reads and writes npz only.
+"""
+from __future__ import annotations
+
+import json
+import os
+import warnings
+from typing import Any, Iterator, Optional
+
+import numpy as np
+import torch
+
+_META_KEY = "__robustbnns_meta__"
+
+
+def _flatten_with_names(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
+    """(name, leaf) pairs in JAX's flatten order: NamedTuple fields and sequence
+    indices in order, dict keys sorted."""
+    join = (lambda p: f"{prefix}/{p}") if prefix else str
+    if hasattr(tree, "_fields"):
+        for field in tree._fields:
+            yield from _flatten_with_names(getattr(tree, field), join(field))
+    elif isinstance(tree, (tuple, list)):
+        for i, sub in enumerate(tree):
+            yield from _flatten_with_names(sub, join(i))
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flatten_with_names(tree[k], join(k))
+    else:
+        yield (prefix or "__root__"), tree
+
+
+def _rebuild(template: Any, leaves: Iterator[Any]) -> Any:
+    """A tree shaped like ``template`` whose leaves come from ``leaves`` in order."""
+    if hasattr(template, "_fields"):
+        return type(template)(*(_rebuild(getattr(template, f), leaves) for f in template._fields))
+    if isinstance(template, (tuple, list)):
+        return type(template)(_rebuild(sub, leaves) for sub in template)
+    if isinstance(template, dict):
+        rebuilt = {k: _rebuild(template[k], leaves) for k in sorted(template)}
+        return {k: rebuilt[k] for k in template}
+    return next(leaves)
+
+
+def _surrogate_meta() -> dict:
+    from robustbnns_tpu_torch.data.datasets import surrogate_fingerprint
+
+    return surrogate_fingerprint() or {}
+
+
+def _warn_surrogate_mismatch(path: str) -> None:
+    from robustbnns_tpu_torch.data.datasets import SURROGATE_VERSION
+
+    try:
+        meta = load_meta(path)
+    except (OSError, ValueError):
+        return
+    v = meta.get("surrogate_version")
+    if v is not None and v != SURROGATE_VERSION:
+        warnings.warn(
+            f"checkpoint {path} was trained on synthetic-surrogate data version "
+            f"{v}, but this process generates version {SURROGATE_VERSION} — the "
+            "distributions differ, so evaluating this model on the current "
+            "surrogate will score ~chance. Retrain, or check out the matching "
+            "code version.",
+            stacklevel=3,
+        )
+
+
+def _npz_path(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def save_pytree(tree: Any, path: str, meta: Optional[dict] = None) -> str:
+    """Save a tree of tensors or arrays to ``path`` (``.npz`` appended if missing).
+
+    Saves from a process that served synthetic surrogate data are tagged with the
+    surrogate generator version.
+    """
+    meta = {**_surrogate_meta(), **(meta or {})}
+    path = _npz_path(path)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    arrays = {
+        name: (leaf.detach().cpu().numpy() if torch.is_tensor(leaf) else np.asarray(leaf))
+        for name, leaf in _flatten_with_names(tree)
+    }
+    arrays[_META_KEY] = np.frombuffer(json.dumps(meta).encode("utf-8"), dtype=np.uint8)
+    np.savez_compressed(path, **arrays)
+    return path
+
+
+def load_pytree(template: Any, path: str, device="cpu") -> Any:
+    """Load a file written by :func:`save_pytree` (either package) into the
+    structure of ``template``, as float tensors on ``device``.
+
+    Warns when the checkpoint's synthetic-surrogate version differs from this
+    process's generator.
+    """
+    _warn_surrogate_mismatch(path)
+    path = _npz_path(path)
+    leaves = []
+    with np.load(path, allow_pickle=False) as data:
+        for name, leaf in _flatten_with_names(template):
+            if name not in data:
+                raise KeyError(f"checkpoint {path} is missing leaf {name!r}")
+            arr = data[name]
+            if hasattr(leaf, "shape") and tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(
+                    f"checkpoint leaf {name!r} has shape {arr.shape}, "
+                    f"expected {tuple(leaf.shape)}"
+                )
+            leaves.append(torch.as_tensor(arr, device=device))
+    return _rebuild(template, iter(leaves))
+
+
+def load_meta(path: str) -> dict:
+    with np.load(_npz_path(path), allow_pickle=False) as data:
+        if _META_KEY not in data:
+            return {}
+        return json.loads(bytes(data[_META_KEY]).decode("utf-8"))
+
+
+def meanfield_from_numpy(loc, rho, device="cpu"):
+    """The JAX posterior's numpy leaves (two trees of ``{"w", "b"}`` dicts) as
+    the port's :class:`MeanFieldPosterior` of float32 tensors on ``device``."""
+    from robustbnns_tpu_torch.inference.svi import MeanFieldPosterior
+
+    def convert(tree):
+        return tuple(
+            {k: torch.tensor(np.asarray(v, np.float32), device=device) for k, v in layer.items()}
+            for layer in tree
+        )
+
+    return MeanFieldPosterior(loc=convert(loc), rho=convert(rho))

@@ -1,0 +1,135 @@
+"""The port's CUDA sampled-dense kernels against their plain PyTorch twins, on the card.
+
+Every test here needs an NVIDIA card and the CUDA toolkit: the module carries
+the ``cuda`` marker and each test skips without a card. On the card::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+(``--noconftest``: the suite's conftest sets JAX up, and nothing here uses JAX.)
+
+Tolerance: a kernel and its twin draw the same Philox words and form the same
+weights, but sum the products in another order (up to S·O terms of f32) and may
+round ``log``/``sin``/``cos`` an ulp apart, so results agree to 1e-4 relative
+plus 1e-4 of the largest entry. The noise itself is compared entry by entry to
+1e-5 absolute: a few ulps of an O(1) normal.
+"""
+import importlib
+import math
+
+import numpy as np
+import pytest
+import torch
+
+# the module, not the op of the same name that robustbnns_tpu_torch.ops exports
+sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [  # (B, I, O, S)
+    (8, 24, 20, 3),  # O not a multiple of the 16-column tile
+    (130, 37, 10, 5),  # two row tiles, I not a multiple of 4, the 10-class head
+    (128, 784, 1024, 10),  # model_7's first layer at the attack batch
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and the CUDA toolkit")
+    from robustbnns_tpu_torch.utils.device import exact_f32
+
+    exact_f32()
+    return torch.device("cuda")
+
+
+def layer(b, i, o, s, device):
+    rng = np.random.default_rng(b * 7919 + i * 31 + o)
+
+    def normal(*shape, scale=1.0, shift=0.0):
+        a = rng.normal(size=shape) * scale + shift
+        return torch.tensor(a.astype(np.float32), device=device)
+
+    return {
+        "x": normal(b, i), "xs": normal(s, b, i), "g": normal(s, b, o),
+        "loc": normal(i, o, scale=0.1), "rho": normal(i, o, scale=0.5, shift=-3.0),
+        "bloc": normal(o, scale=0.1), "brho": normal(o, scale=0.5, shift=-3.0),
+    }
+
+
+def assert_close(got, ref):
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B{}_I{}_O{}_S{}".format(*s))
+def test_kernels_match_plain_twins(cuda, shape):
+    b, i, o, s = shape
+    p = layer(b, i, o, s, cuda)
+    params, seed = (p["loc"], p["rho"], p["bloc"], p["brho"]), 2026
+    cases = [
+        (sd.sampled_dense_fwd, sd.sampled_dense_fwd_plain, (p["x"], *params)),
+        (sd.sampled_dense_xs_fwd, sd.sampled_dense_xs_fwd_plain, (p["xs"], *params)),
+        (sd.sampled_dense_dx, sd.sampled_dense_dx_plain, (p["g"], p["loc"], p["rho"])),
+        (sd.sampled_dense_xs_dx, sd.sampled_dense_xs_dx_plain, (p["g"], p["loc"], p["rho"])),
+    ]
+    for kernel, plain, args in cases:
+        before = kernel.launches
+        got = kernel(*args, s, seed)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert got.is_cuda and torch.isfinite(got).all()
+        assert_close(got, plain(*args, s, seed))
+
+
+def test_kernel_noise_is_the_twins_noise(cuda):
+    """With loc = 0 and softplus(rho) = 1 the forward returns its own eps: an
+    identity input reads weight row b, a zero input reads the bias row I."""
+    i_dim, o_dim, s, seed = 40, 20, 3, 77
+    rho = torch.full((i_dim, o_dim), math.log(math.expm1(1.0)), device=cuda)
+    brho = torch.full((o_dim,), math.log(math.expm1(1.0)), device=cuda)
+    zeros = torch.zeros((i_dim, o_dim), device=cuda)
+    bzeros = torch.zeros((o_dim,), device=cuda)
+    eps = sd.sampled_noise(seed, s, i_dim + 1, o_dim, cuda)
+    bias_only = sd.sampled_dense_fwd(torch.zeros((5, i_dim), device=cuda), zeros, rho, bzeros, brho, s, seed)
+    torch.testing.assert_close(bias_only, eps[:, i_dim : i_dim + 1].expand(s, 5, o_dim), rtol=0, atol=1e-5)
+    out = sd.sampled_dense_fwd(torch.eye(i_dim, device=cuda), zeros, rho, bzeros, brho, s, seed)
+    torch.testing.assert_close(out - bias_only[:, :1], eps[:, :i_dim], rtol=0, atol=1e-5)
+
+
+def test_autograd_runs_the_dx_kernels(cuda):
+    b, i, o, s = 16, 48, 32, 4
+    p = layer(b, i, o, s, cuda)
+    params = (p["loc"], p["rho"], p["bloc"], p["brho"])
+    for op, dx_plain, x in (
+        (sd.sampled_dense, sd.sampled_dense_dx_plain, p["x"]),
+        (sd.sampled_dense_xs, sd.sampled_dense_xs_dx_plain, p["xs"]),
+    ):
+        xr = x.clone().requires_grad_(True)
+        (op(xr, *params, s, 9) * p["g"]).sum().backward()
+        assert_close(xr.grad, dx_plain(p["g"], p["loc"], p["rho"], s, 9))
+    loc = p["loc"].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="dparams"):
+        sd.sampled_dense(p["x"], loc, *params[1:], s, 9).sum().backward()
+
+
+def test_seeds_select_the_draws(cuda):
+    b, i, o, s = 8, 24, 20, 3
+    p = layer(b, i, o, s, cuda)
+    args = (p["x"], p["loc"], p["rho"], p["bloc"], p["brho"], s)
+    a, again, other = (sd.sampled_dense_fwd(*args, seed) for seed in (5, 5, 6))
+    assert torch.equal(a, again) and not torch.equal(a, other)
+    assert torch.equal(sd.sampled_dense_fwd(*args, -1), sd.sampled_dense_fwd(*args, 0xFFFFFFFF))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    b, i, o, s = 8, 24, 20, 3
+    p = layer(b, i, o, s, cuda)
+    params = (p["loc"], p["rho"], p["bloc"], p["brho"])
+    with pytest.raises(TypeError):
+        sd.sampled_dense_fwd(p["x"].double(), *params, s, 0)
+    with pytest.raises(ValueError):
+        sd.sampled_dense_fwd(p["x"].t().contiguous().t(), *params, s, 0)  # not contiguous
+    with pytest.raises(ValueError):
+        sd.sampled_dense_fwd(p["x"].cpu(), *params, s, 0)  # mixed devices
+    wide = torch.zeros((4000, o), device=cuda)  # softplus(rho) tile beyond shared memory
+    with pytest.raises(RuntimeError, match="launch"):
+        sd.sampled_dense_fwd(torch.zeros((b, 4000), device=cuda), wide, wide, *params[2:], s, 0)

@@ -1,0 +1,198 @@
+"""The port's sampled-dense ops against the JAX package's (Pallas in interpret mode).
+
+On the CPU every wrapper runs its plain PyTorch twin, which draws the same
+Philox noise as the CUDA kernel; the kernels themselves are held to the twins
+on the card by ``tests/test_torch_kernels.py`` and ``chip_smoke.py``. Inputs
+come from numpy.
+
+Tolerances: zero-scale results are f32 products of <= 64-term sums, compared
+with another f32 implementation, so 1e-5 absolute on O(1) values; gradients
+chain two such products, 1e-4. Noise moments at S = 256 concentrate to a few
+percent, as in ``tests/test_ops.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from robustbnns_tpu.ops import sampled_dense as jax_sampled_dense
+from robustbnns_tpu.ops import sampled_dense_reference
+from robustbnns_tpu.ops import sampled_dense_xs as jax_sampled_dense_xs
+from robustbnns_tpu_torch.ops.sampled_dense import (
+    philox4x32_10,
+    sampled_dense,
+    sampled_dense_dx,
+    sampled_dense_fwd,
+    sampled_dense_xs,
+    sampled_dense_xs_dx,
+    sampled_dense_xs_fwd,
+    sampled_noise,
+    softplus,
+)
+
+B, I, O, S = 8, 24, 20, 3  # O = 20: not a multiple of the 16-column tile
+
+
+@pytest.fixture
+def layer():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(B, I)).astype(np.float32)
+    loc = (rng.normal(size=(I, O)) * 0.1).astype(np.float32)
+    rho = (rng.normal(size=(I, O)) - 1.0).astype(np.float32)
+    bloc = (rng.normal(size=(O,)) * 0.1).astype(np.float32)
+    brho = (rng.normal(size=(O,)) - 1.0).astype(np.float32)
+    return x, loc, rho, bloc, brho
+
+
+def t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize(
+    "words,key,expected",
+    [
+        ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+        ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ],
+)
+def test_philox_known_answers(words, key, expected):
+    """Random123's known-answer vectors for Philox4x32-10."""
+    ctr = [torch.tensor([w], dtype=torch.int64) for w in words]
+    out = philox4x32_10(*ctr, *key)
+    assert tuple(int(v) for v in out) == expected
+
+
+def test_noise_is_a_function_of_seed_sample_row_column():
+    """eps[s, i, o] does not depend on the shape asked for, so any tiling regenerates it."""
+    big = sampled_noise(5, 4, 30, 24, "cpu")
+    small = sampled_noise(5, 2, 10, 10, "cpu")
+    torch.testing.assert_close(small, big[:2, :10, :10], rtol=0, atol=0)
+    assert abs(float(big.mean())) < 0.1 and abs(float(big.std()) - 1.0) < 0.1
+    assert not torch.equal(sampled_noise(6, 4, 30, 24, "cpu"), big)
+
+
+def test_softplus_matches_jax():
+    x = np.linspace(-40, 40, 401, dtype=np.float32)
+    np.testing.assert_allclose(softplus(t(x)).numpy(), np.asarray(jax.nn.softplus(x)), rtol=1e-6, atol=1e-30)
+
+
+@pytest.mark.parametrize("variant", ["x", "xs"])
+def test_zero_scale_forward_matches_jax(layer, variant):
+    """With rho -> -inf the op is a plain dense layer, in both packages."""
+    x, loc, _, bloc, _ = layer
+    neg, negb = np.full_like(loc, -30.0), np.full_like(bloc, -30.0)
+    if variant == "x":
+        ours = sampled_dense(t(x), t(loc), t(neg), t(bloc), t(negb), S, 0)
+        ref = jax_sampled_dense(x, loc, neg, bloc, negb, S, 0)
+    else:
+        xs = np.stack([x * (s + 1) for s in range(S)])
+        ours = sampled_dense_xs(t(xs), t(loc), t(neg), t(bloc), t(negb), S, 0)
+        ref = jax_sampled_dense_xs(xs, loc, neg, bloc, negb, S, 0)
+    assert ours.shape == (S, B, O)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["x", "xs"])
+def test_zero_scale_input_gradient_matches_jax_grad(layer, variant):
+    """The dx/dxs twins against ``jax.grad`` through the Pallas custom VJP."""
+    x, loc, _, bloc, _ = layer
+    neg, negb = np.full_like(loc, -30.0), np.full_like(bloc, -30.0)
+    xin = x if variant == "x" else np.stack([x, 0.5 * x, -x])
+    op_t = sampled_dense if variant == "x" else sampled_dense_xs
+    op_j = jax_sampled_dense if variant == "x" else jax_sampled_dense_xs
+
+    g_ref = jax.grad(lambda a: jnp.sum(op_j(a, loc, neg, bloc, negb, S, 0) ** 2))(xin)
+    xr = t(xin).clone().requires_grad_(True)
+    (op_t(xr, t(loc), t(neg), t(bloc), t(negb), S, 0) ** 2).sum().backward()
+    np.testing.assert_allclose(xr.grad.numpy(), np.asarray(g_ref), rtol=1e-4, atol=1e-4)
+
+
+def test_dx_twins_match_the_weights_they_regenerate(layer):
+    """dx = Σ_s g_s W_sᵀ and dxs[s] = g_s W_sᵀ with W_s from the forward's own noise."""
+    _, loc, rho, _, _ = layer
+    g = np.random.default_rng(1).normal(size=(S, B, O)).astype(np.float32)
+    eps = sampled_noise(11, S, I, O, "cpu").numpy().astype(np.float64)
+    w = loc + np.log1p(np.exp(rho.astype(np.float64))) * eps
+    dxs_ref = np.einsum("sbo,sio->sbi", g, w)
+    np.testing.assert_allclose(sampled_dense_xs_dx(t(g), t(loc), t(rho), S, 11).numpy(), dxs_ref, atol=1e-5)
+    np.testing.assert_allclose(sampled_dense_dx(t(g), t(loc), t(rho), S, 11).numpy(), dxs_ref.sum(0), atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["x", "xs"])
+def test_explicit_eps_forward_matches_numpy_formula(layer, variant):
+    """out[s] = x @ (loc + softplus(rho)·eps_s) + (bloc + softplus(brho)·eps_b,s)."""
+    x, loc, rho, bloc, brho = layer
+    seed = 12345
+    eps = sampled_noise(seed, S, I + 1, O, "cpu").numpy().astype(np.float64)
+    sp = lambda a: np.log1p(np.exp(a.astype(np.float64)))  # noqa: E731
+    w = loc + sp(rho) * eps[:, :I]
+    b = bloc + sp(brho) * eps[:, I]
+    if variant == "x":
+        ours = sampled_dense_fwd(t(x), t(loc), t(rho), t(bloc), t(brho), S, seed)
+        ref = np.einsum("bi,sio->sbo", x, w) + b[:, None, :]
+    else:
+        xs = np.stack([x, -x, 2 * x])
+        ours = sampled_dense_xs_fwd(t(xs), t(loc), t(rho), t(bloc), t(brho), S, seed)
+        ref = np.einsum("sbi,sio->sbo", xs, w) + b[:, None, :]
+    np.testing.assert_allclose(ours.numpy(), ref, atol=1e-5)
+
+
+def test_noise_moments_match_the_jax_reference(layer):
+    """Across S = 256 draws, the global mean and the mean per-entry std agree with
+    the JAX package's XLA reference (its noise is threefry, ours Philox)."""
+    x, loc, rho, bloc, brho = layer
+    n = 256
+    ours = sampled_dense(t(x), t(loc), t(rho), t(bloc), t(brho), n, 123).numpy()
+    ref = np.asarray(sampled_dense_reference(x, loc, rho, bloc, brho, n, jax.random.key(9)))
+    assert float(ours.mean()) == pytest.approx(float(ref.mean()), abs=0.05)
+    assert float(ours.std(0).mean()) == pytest.approx(float(ref.std(0).mean()), rel=0.05)
+
+
+def test_seed_sensitivity(layer):
+    """Same seed -> same draws; another seed -> other draws; samples differ."""
+    args = tuple(t(a) for a in layer)
+    o1 = sampled_dense(*args, S, 7)
+    o2 = sampled_dense(*args, S, 7)
+    o3 = sampled_dense(*args, S, 8)
+    assert torch.equal(o1, o2)
+    assert not torch.equal(o1, o3)
+    assert not torch.equal(o1[0], o1[1])
+    # a negative int32 seed is the same draw as its uint32 bit pattern
+    assert torch.equal(sampled_dense(*args, S, -1), sampled_dense(*args, S, 0xFFFFFFFF))
+
+
+@pytest.mark.parametrize("variant", ["x", "xs"])
+def test_finite_difference_with_noise(layer, variant):
+    """The backward regenerates the forward's noise: a directional derivative
+    matches central differences (f32 FD at step 1e-3: 2e-2 relative, as in
+    ``tests/test_ops.py``)."""
+    x, loc, rho, bloc, brho = (t(a) for a in layer)
+    xin = x if variant == "x" else torch.stack([x, 0.5 * x, -x])
+    op = sampled_dense if variant == "x" else sampled_dense_xs
+    f = lambda a: (op(a, loc, rho, bloc, brho, S, 5) ** 2).sum()  # noqa: E731
+    xr = xin.clone().requires_grad_(True)
+    f(xr).backward()
+    v = torch.from_numpy(np.random.default_rng(4).normal(size=xin.shape).astype(np.float32))
+    step = 1e-3
+    fd = (f(xin + step * v) - f(xin - step * v)) / (2 * step)
+    analytic = (xr.grad * v).sum()
+    assert abs(float(fd - analytic)) / (abs(float(fd)) + 1e-6) < 2e-2
+
+
+def test_parameter_gradients_raise(layer):
+    """dloc/drho wait for the dparams kernels; asking for them must not fall back."""
+    x, loc, rho, bloc, brho = (t(a) for a in layer)
+    loc.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="dparams"):
+        sampled_dense(x, loc, rho, bloc, brho, S, 0).sum().backward()
+
+
+def test_wrappers_check_shapes(layer):
+    x, loc, rho, bloc, brho = (t(a) for a in layer)
+    with pytest.raises(ValueError):
+        sampled_dense_fwd(x[:, :-1], loc, rho, bloc, brho, S, 0)
+    with pytest.raises(ValueError):
+        sampled_dense_xs_fwd(x, loc, rho, bloc, brho, S, 0)
+    with pytest.raises(ValueError, match="all tensors"):  # never a twin on mixed devices
+        sampled_dense_fwd(x, loc.to("meta"), rho, bloc, brho, S, 0)

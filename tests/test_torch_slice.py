@@ -1,0 +1,147 @@
+"""The port's first slice as a whole: Bayesian FGSM/PGD on an SVI fc2 posterior.
+
+* the port imports neither JAX nor the JAX package;
+* a posterior saved by the port drives both packages' attack flows, which must
+  agree at zero posterior scale (where every draw is the mean, so the noise
+  streams do not matter) up to bounded sign flips of f32-level gradients;
+* the attack CLI runs end to end on the CPU at ``model_7``'s full width.
+"""
+import ast
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from robustbnns_tpu.attacks import attack as jax_attack
+from robustbnns_tpu.attacks import attack_evaluation as jax_attack_evaluation
+from robustbnns_tpu.config import BNNConfig as JaxBNNConfig
+from robustbnns_tpu.models import BNN as JaxBNN
+from robustbnns_tpu_torch import config
+from robustbnns_tpu_torch.attacks import attack, attack_evaluation
+from robustbnns_tpu_torch.cli import attacks as cli
+from robustbnns_tpu_torch.inference.svi import MeanFieldPosterior
+from robustbnns_tpu_torch.models.bnn import BNN
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "robustbnns_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_port_never_imports_jax():
+    """Importing every module of the port (and chip_smoke) leaves JAX out."""
+    modules = [
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT_FILES
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'robustbnns_tpu.'))"
+        " or m == 'robustbnns_tpu']\n"
+        "print(len(sys.modules)); sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_sources_import_no_jax(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "robustbnns_tpu"), f"{path}: imports {name}"
+
+
+CFG = config.BNNConfig("mnist", 32, "leaky", "fc2", "svi", epochs=1, lr=0.01)
+
+
+@pytest.fixture(scope="module")
+def saved_posterior(tmp_path_factory):
+    """A zero-scale fc2-32 posterior for 28x28 MNIST, saved by the port."""
+    rel = str(tmp_path_factory.mktemp("ckpt"))
+    bnn = BNN.from_config(CFG, (28, 28, 1), 10, device="cpu")
+    loc = bnn.arch.init(torch.Generator().manual_seed(0))
+    rho = tuple({k: torch.full_like(v, -30.0) for k, v in layer.items()} for layer in loc)
+    bnn.posterior = MeanFieldPosterior(loc, rho)
+    bnn.save(rel_path=rel)
+    return rel
+
+
+@pytest.mark.parametrize("method", ["fgsm", "pgd"])
+def test_attack_flow_matches_jax_at_zero_scale(saved_posterior, method):
+    """Load the port's checkpoint into both packages, attack and evaluate.
+
+    The JAX side runs FGSM through its fused Pallas predictive (interpret mode)
+    and PGD through its unfused one (40 interpret-mode steps would take
+    minutes); the port runs both fused.
+    """
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(16, 28, 28, 1)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)]
+
+    ours = BNN.from_config(CFG, (28, 28, 1), 10, device="cpu").load(rel_path=saved_posterior)
+    ref = JaxBNN.from_config(JaxBNNConfig(**dataclasses.asdict(CFG)), (28, 28, 1), 10)
+    ref.load(rel_path=saved_posterior)
+
+    xa = attack(ours, x, y, method=method, n_samples=4, fused=True, batch_size=8, verbose=False)
+    xa_ref = jax_attack(ref, x, y, method=method, n_samples=4, fused=method == "fgsm",
+                        batch_size=8, key=jax.random.key(0), save=False, verbose=False)
+    assert (np.abs(xa.numpy() - np.asarray(xa_ref)) > 1e-6).mean() <= 0.02
+
+    clean, adv, rob = attack_evaluation(ours, x, xa, y, n_samples=4, verbose=False)
+    clean_ref, adv_ref, rob_ref = jax_attack_evaluation(ref, x, xa.numpy(), y, n_samples=4, verbose=False)
+    assert clean == clean_ref and adv == adv_ref
+    np.testing.assert_allclose(rob.numpy(), np.asarray(rob_ref), atol=1e-5)
+    assert adv <= clean
+
+
+def test_cli_runs_model_7_on_the_cpu(monkeypatch, tmp_path):
+    """The attack CLI at model_7's full width (fc2-1024), fused, on 8 images."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("ROBUSTBNNS_SYNTH_CACHE", str(tmp_path / "synthetic"))
+    monkeypatch.setattr(config, "DATA", str(tmp_path / "data") + "/")
+    bnn = BNN.from_config(config.saved_BNNs["model_7"], (28, 28, 1), 10, device="cpu")
+    loc = bnn.arch.init(torch.Generator().manual_seed(7))
+    rho = tuple({k: torch.full_like(v, -6.0) for k, v in layer.items()} for layer in loc)
+    bnn.posterior = MeanFieldPosterior(loc, rho)
+    bnn.save(rel_path=config.DATA)
+
+    out = cli.main(["--model_type=bnn", "--model_idx=7", "--fused=True", "--train=False",
+                    "--test=False", "--n_inputs=8", "--device=cpu", "--attack_method=fgsm"])
+    x, xa = torch.as_tensor(out["x_test"]), out["x_attack"]
+    assert xa.shape == (8, 28, 28, 1) and bool(torch.isfinite(xa).all())
+    assert float((xa - x).abs().max()) <= 0.3 + 1e-6
+    assert float(((xa - x).abs() > 0).float().mean()) > 0.2
+    assert 0.0 <= out["adversarial_accuracy"] <= 100.0
+    assert os.path.exists(tmp_path / "data" / bnn.name / f"{bnn.name}_fgsm_attackSamp=10_attack.npz")
+
+
+@pytest.mark.parametrize(
+    "flags,error",
+    [
+        (["--model_type=nn", "--device=cpu"], NotImplementedError),
+        (["--model_type=bnn", "--bf16=True"], NotImplementedError),
+        (["--model_type=bnn", "--mesh=auto", "--device=cpu"], NotImplementedError),
+    ],
+)
+def test_cli_refuses_what_is_not_ported(flags, error):
+    with pytest.raises(error):
+        cli.main(flags)
+
+
+def test_cli_refuses_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["--model_type=bnn", "--model_idx=7", "--train=False"])
