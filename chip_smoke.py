@@ -9,14 +9,28 @@ Phases, each fatal on failure:
 
 1. device: a CUDA card, its name and power limit, exact f32 (no TF32);
 2. build: every kernel under ``robustbnns_tpu_torch/csrc`` with nvcc;
-3. kernels: each sampled-dense kernel against its plain PyTorch twin on the
-   card, at the shapes the ``model_7`` (fc2-1024) attack gives it, with times;
+3. kernels: each of the six sampled-dense kernels against its plain PyTorch
+   twin on the card, at the shapes ``model_7`` (fc2-1024) gives it, with times;
 4. predictive: the fused fc2-1024 predictive and its input gradient through the
    kernels against the plain twins composed the same way;
-5. main path: Bayesian FGSM and 40-step PGD on ``model_7`` through the attack
+5. parameter gradient: the gradient of the fused predictive's cross-entropy
+   with respect to all 12 posterior leaves, through the dparams kernels,
+   against the composed twins at S = 10; and at S = 1 the fused gradient of
+   -sum log p(y | x, w) against autograd of the materialised network on the
+   same noise, the identity that ties the kernels to SVI training; the
+   dparams kernels must launch and the dx kernel of the unasked input must not;
+6. main path: Bayesian FGSM and 40-step PGD on ``model_7`` through the attack
    CLI with ``--fused=True``, on a seeded random posterior written with the
-   port's own ``save``; every kernel must launch;
-6. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
+   port's own ``save``; the four attack kernels must launch, the dparams
+   kernels must not;
+7. training: ``model_7`` trained at full width for its 5 configured epochs on
+   60,000 surrogate MNIST images through the attack CLI with ``--train=True``,
+   then attacked by PGD: a finite, falling loss, a posterior that moved and
+   carries no ``requires_grad``, and no dparams launch during the attack;
+   then the wall and device time of 20 SVI steps (``torch.profiler``);
+8. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
+   ``launches`` counts the dparams kernels over phase 5 and the others over
+   phase 6.
 
 Imports nothing of JAX. Writes only under a temporary directory and the
 kernel build directory ``build/kernels``.
@@ -47,6 +61,7 @@ RTOL, ATOL_OF_MAX = 1e-4, 1e-4
 # relative error can grow through the activations, so the end results are held
 # to 1e-3 of their largest entry.
 E2E_TOL_OF_MAX = 1e-3
+DPARAMS = ("sampled_dense_dparams", "sampled_dense_xs_dparams")
 
 
 def fail(message: str) -> None:
@@ -128,8 +143,13 @@ def phase_kernels(torch) -> dict:
     results = {}
 
     def record(name, route_src, replaces, shape, got, ref, run, plain, lib, flops, nbytes):
-        atol = ATOL_OF_MAX * float(ref.abs().max())
-        err = check_close(f"{name} {shape}", got, ref, RTOL, atol)
+        if torch.is_tensor(got):
+            got, ref = (got,), (ref,)
+        atol = err = 0.0
+        for k, (got_k, ref_k) in enumerate(zip(got, ref)):
+            atol_k = ATOL_OF_MAX * float(ref_k.abs().max())
+            err = max(err, check_close(f"{name} {shape} output {k}", got_k, ref_k, RTOL, atol_k))
+            atol = max(atol, atol_k)
         ms, plain_ms, lib_ms = time_ms(torch, run), time_ms(torch, plain), time_ms(torch, lib)
         b_ms, b_by = bound_ms(flops, nbytes)
         print(f"[kernel] {name} {shape}: max|err| {err:.3e} (tol {atol:.3e} + {RTOL:.0e}|ref|) "
@@ -148,6 +168,10 @@ def phase_kernels(torch) -> dict:
 
     fwd_src = "robustbnns_tpu_torch/csrc/sampled_dense_fwd.cu"
     dx_src = "robustbnns_tpu_torch/csrc/sampled_dense_dx.cu"
+    dp_src = "robustbnns_tpu_torch/csrc/sampled_dense_dparams.cu"
+    # dparams: reads g, the input, rho and brho once; writes dloc, drho, dbloc, dbrho
+    dp_bytes = lambda x_numel, i_dim, o_dim: 4.0 * (  # noqa: E731
+        S * B * o_dim + x_numel + 3 * i_dim * o_dim + 3 * o_dim)
     pallas = "robustbnns_tpu/ops/sampled_dense.py"
     for li, (i_dim, o_dim) in enumerate(LAYERS):
         loc, rho, bloc, brho = _layer_inputs(torch, gen, i_dim, o_dim)
@@ -169,6 +193,14 @@ def phase_kernels(torch) -> dict:
                    lambda: sd.sampled_dense_dx(*dargs), lambda: sd.sampled_dense_dx_plain(*dargs),
                    lambda: torch.einsum("sbo,sio->bi", g, w),
                    flops, 4.0 * (S * B * o_dim + 2 * i_dim * o_dim + B * i_dim))
+            pargs = (g, x, rho, brho, S, seed)
+            xt = x.t().expand(S, i_dim, B)
+            record("sampled_dense_dparams", dp_src, f"{pallas}:137", shape,
+                   sd.sampled_dense_dparams(*pargs), sd.sampled_dense_dparams_plain(*pargs),
+                   lambda: sd.sampled_dense_dparams(*pargs),
+                   lambda: sd.sampled_dense_dparams_plain(*pargs),
+                   lambda: torch.bmm(xt, g),  # the S products dW_s, without the epilogue
+                   flops, dp_bytes(B * i_dim, i_dim, o_dim))
         else:
             xs = torch.nn.functional.leaky_relu(
                 torch.randn((S, B, i_dim), generator=gen, device="cuda"), 0.01)
@@ -186,20 +218,31 @@ def phase_kernels(torch) -> dict:
                    lambda: sd.sampled_dense_xs_dx_plain(*dargs),
                    lambda: torch.bmm(g, w.transpose(1, 2)),
                    flops, 4.0 * (S * B * o_dim + 2 * i_dim * o_dim + S * B * i_dim))
+            pargs = (g, xs, rho, brho, S, seed)
+            xst = xs.transpose(1, 2)
+            record("sampled_dense_xs_dparams", dp_src, f"{pallas}:383", shape,
+                   sd.sampled_dense_xs_dparams(*pargs), sd.sampled_dense_xs_dparams_plain(*pargs),
+                   lambda: sd.sampled_dense_xs_dparams(*pargs),
+                   lambda: sd.sampled_dense_xs_dparams_plain(*pargs),
+                   lambda: torch.bmm(xst, g),  # the S products dW_s, without the epilogue
+                   flops, dp_bytes(S * B * i_dim, i_dim, o_dim))
     torch.cuda.synchronize()
     return results
 
 
-def model7_posterior(torch, arch):
+def model7_posterior(torch, arch, rel_scale: float = 1e-2, rho_spread: float = 0.0):
     """A seeded random posterior at model_7's widths: loc from the torch-default
-    init, softplus(rho) = 1e-2 of each layer's init bound. The reference's
-    N(0, 1) init (``init_meanfield``) saturates the softmax of an untrained
-    fc2-1024, and the attack gradients then vanish."""
+    init, softplus(rho) = ``rel_scale`` of each layer's init bound, rho spread
+    by ``rho_spread``·N(0, 1). The reference's N(0, 1) init (``init_meanfield``)
+    saturates the softmax of an untrained fc2-1024, and the attack gradients
+    then vanish."""
     from robustbnns_tpu_torch.inference.svi import MeanFieldPosterior
 
-    loc = arch.init(torch.Generator(device="cuda").manual_seed(7))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    loc = arch.init(gen)
     rho = tuple(
-        {k: torch.full_like(v, math.log(math.expm1(1e-2 / math.sqrt(i_dim)))) for k, v in layer.items()}
+        {k: math.log(math.expm1(rel_scale / math.sqrt(i_dim)))
+         + rho_spread * torch.randn(v.shape, generator=gen, device="cuda") for k, v in layer.items()}
         for layer, (i_dim, _) in zip(loc, arch.dims)
     )
     return MeanFieldPosterior(loc=loc, rho=rho)
@@ -247,6 +290,84 @@ def phase_predictive(torch) -> None:
     check_close("predictive input gradient", g_k, g_p, 0.0, E2E_TOL_OF_MAX * float(g_p.abs().max()))
 
 
+def phase_param_grad(torch) -> dict:
+    """The posterior-parameter gradient of the fused predictive, through the
+    dparams kernels: against the composed twins at S = 10, and at S = 1
+    against the ELBO likelihood term's gradient on the materialised draw."""
+    from robustbnns_tpu_torch.attacks.gradient_attacks import ce_on_outputs
+    from robustbnns_tpu_torch.inference.svi import categorical_loglik_sum, sample_meanfield_eps
+    from robustbnns_tpu_torch.models.architectures import ACTIVATIONS, build_architecture
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    from robustbnns_tpu_torch.ops.fused_predict import fused_logits, layer_seed, svi_predict_fused
+    from robustbnns_tpu_torch.utils.pytree import tree_leaves
+
+    arch = build_architecture("fc2", "leaky", (28, 28, 1), 10, 1024, "mnist")
+    post = model7_posterior(torch, arch, rel_scale=0.5, rho_spread=0.3)
+    act = ACTIVATIONS["leaky"]
+    seed = 4242
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.rand((B, 28, 28, 1), generator=gen, device="cuda")
+    labels = torch.randint(0, 10, (B,), generator=gen, device="cuda")
+
+    def plain(p, n_samples):
+        loc, rho = p.loc, p.rho
+        h = sd.sampled_dense_fwd_plain(x.reshape(B, -1), loc[0]["w"], rho[0]["w"], loc[0]["b"],
+                                       rho[0]["b"], n_samples, layer_seed(seed, 0))
+        for li in (1, 2):
+            h = sd.sampled_dense_xs_fwd_plain(act(h), loc[li]["w"], rho[li]["w"], loc[li]["b"],
+                                              rho[li]["b"], n_samples, layer_seed(seed, li))
+        return torch.softmax(h, -1).mean(0)
+
+    def grads(loss_of):
+        leaves = type(post)(*(tuple({k: v.clone().requires_grad_(True) for k, v in layer.items()}
+                                    for layer in tree) for tree in post))
+        flat = tree_leaves(leaves.loc) + tree_leaves(leaves.rho)
+        return torch.autograd.grad(loss_of(leaves), flat)
+
+    names = [f"{t}/{li}/{k}" for t in ("loc", "rho") for li in range(3) for k in ("b", "w")]
+    sd.reset_launch_counts()
+    fused = grads(lambda p: ce_on_outputs(svi_predict_fused(arch, p, x, S, seed), labels).sum())
+    torch.cuda.synchronize()
+    counts = sd.launch_counts()
+    twin = grads(lambda p: ce_on_outputs(plain(p, S), labels).sum())
+    worst = 0.0
+    for name, got, ref in zip(names, fused, twin):
+        if not bool(torch.isfinite(got).all()):
+            fail(f"parameter gradient {name} is not finite")
+        worst = max(worst, check_close(f"S={S} gradient {name}", got, ref, 0.0,
+                                       E2E_TOL_OF_MAX * float(ref.abs().max())) / float(ref.abs().max()))
+    print(f"[param-grad] fc2-1024 B={B} S={S}: 12 leaves within {worst:.3e} of max|ref| "
+          f"(tol {E2E_TOL_OF_MAX:.0e}); launches {json.dumps(counts)}")
+    if counts["sampled_dense_dparams"] == 0 or counts["sampled_dense_xs_dparams"] == 0:
+        fail(f"the parameter gradient did not run the dparams kernels: {counts}")
+    if counts["sampled_dense_dx"] != 0:
+        fail(f"the parameter gradient launched the dx kernel for an input that asked for none: {counts}")
+
+    # S = 1: the fused gradient of -sum log p(y | x, w) is the ELBO likelihood
+    # term's gradient on the materialised draw with the kernels' own noise
+    eps = []
+    for li, (i_dim, o_dim) in enumerate(arch.dims):
+        e = sd.sampled_noise(layer_seed(seed, li), 1, i_dim + 1, o_dim, "cuda")[0]
+        eps.append({"w": e[:i_dim], "b": e[i_dim]})
+    fused1 = grads(lambda p: -categorical_loglik_sum(fused_logits(arch, p, x, 1, seed)[0], labels))
+    dense1 = grads(lambda p: -categorical_loglik_sum(arch.apply(sample_meanfield_eps(p, tuple(eps)), x), labels))
+    worst = 0.0
+    for name, got, ref in zip(names, fused1, dense1):
+        worst = max(worst, check_close(f"S=1 identity {name}", got, ref, 0.0,
+                                       E2E_TOL_OF_MAX * float(ref.abs().max())) / float(ref.abs().max()))
+    print(f"[param-grad] S=1 fused vs materialised ELBO likelihood gradient: 12 leaves within "
+          f"{worst:.3e} of max|ref|")
+    return counts
+
+
+def check_attack_launches(phase: str, counts: dict) -> None:
+    """An attack runs the four forward and dx kernels and no dparams kernel."""
+    if not all(n > 0 for name, n in counts.items() if name not in DPARAMS):
+        fail(f"[{phase}] a kernel of the attack never launched: {counts}")
+    if any(counts[name] for name in DPARAMS):
+        fail(f"[{phase}] the attack launched a parameter-gradient kernel: {counts}")
+
+
 def phase_main_path(torch, workdir: str) -> dict:
     """FGSM and PGD on model_7 through the attack CLI, fused, counting launches."""
     from robustbnns_tpu_torch.cli import attacks as cli
@@ -268,8 +389,7 @@ def phase_main_path(torch, workdir: str) -> dict:
     torch.cuda.synchronize()
     counts = launch_counts()
     print(f"[main] launches over FGSM + PGD: {json.dumps(counts)}")
-    if not all(n > 0 for n in counts.values()):
-        fail(f"a kernel of the main path never launched: {counts}")
+    check_attack_launches("main", counts)
     for method, r in runs.items():
         xa = r["x_attack"]
         x = torch.as_tensor(r["x_test"], device=xa.device)
@@ -286,6 +406,82 @@ def phase_main_path(torch, workdir: str) -> dict:
               f"{moved:.1%} pixels moved | attack {r['attack_seconds']:.3f} s = "
               f"{n_inputs / r['attack_seconds']:.1f} images/s")
     return counts
+
+
+def phase_training(torch) -> None:
+    """Train model_7 through the attack CLI, then attack the trained posterior."""
+    from robustbnns_tpu_torch.cli import attacks as cli
+    from robustbnns_tpu_torch.inference.svi import svi_init
+    from robustbnns_tpu_torch.ops.sampled_dense import launch_counts, reset_launch_counts
+    from robustbnns_tpu_torch.utils.pytree import tree_leaves
+
+    flags = ["--model_type=bnn", "--model_idx=7", "--train=True", "--fused=True",
+             "--attack_method=pgd", "--n_inputs=256", "--device=cuda"]
+    reset_launch_counts()
+    r = cli.main(flags)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    bnn = r["bnn"]
+    loss, acc, secs = bnn.history["loss"], bnn.history["accuracy"], bnn.history["seconds"]
+    epochs, n_train = bnn.config.epochs, r["train_images"]
+    later = secs[1:] or secs  # the first epoch also pays the process's first training launches
+    print(f"[train] model_7 fc2-1024, {epochs} epochs of {n_train} images, batch 128: "
+          f"{r['train_seconds']:.3f} s in all, {epochs * n_train / r['train_seconds']:.1f} training "
+          f"images/s; seconds per epoch {[round(v, 3) for v in secs]}, epochs 2-{epochs} at "
+          f"{len(later) * n_train / sum(later):.1f} images/s; loss per image "
+          f"{[round(v / n_train, 4) for v in loss]}; train accuracy {acc}")
+    if not all(math.isfinite(v) for v in loss):
+        fail(f"[train] non-finite epoch loss: {loss}")
+    if not loss[-1] < loss[0]:
+        fail(f"[train] the loss did not fall: {loss}")
+    post = bnn.posterior
+    leaves = tree_leaves(post.loc) + tree_leaves(post.rho)
+    if any(v.requires_grad for v in leaves):
+        fail("[train] the trained posterior keeps requires_grad leaves")
+    init = svi_init(bnn.arch, torch.Generator(device="cuda").manual_seed(0))
+    if all(torch.equal(a, b) for a, b in zip(leaves, tree_leaves(init.loc) + tree_leaves(init.rho))):
+        fail("[train] the posterior equals its init")
+    print(f"[train] launches over training + PGD: {json.dumps(counts)}")
+    check_attack_launches("train", counts)
+    xa, x = r["x_attack"], torch.as_tensor(r["x_test"], device="cuda")
+    if xa.shape != x.shape or not bool(torch.isfinite(xa).all()):
+        fail(f"[train] adversarial set has shape {tuple(xa.shape)} or non-finite values")
+    if float((xa - x).abs().max()) > 0.3 + 1e-6 or float(xa.min()) < 0 or float(xa.max()) > 1:
+        fail("[train] adversarial set leaves the eps-ball or [0, 1]")
+    moved = float(((xa - x).abs() > 1e-6).float().mean())
+    print(f"[train] trained model_7: test acc {r['test_accuracy']:.2f}% | clean acc "
+          f"{r['clean_accuracy']:.2f}% adversarial acc {r['adversarial_accuracy']:.2f}% | "
+          f"{moved:.1%} pixels moved | PGD {r['attack_seconds']:.3f} s = "
+          f"{len(x) / r['attack_seconds']:.1f} images/s")
+
+
+def phase_train_profile(torch) -> None:
+    """Host and device time of 20 SVI steps at model_7's widths: the wall clock
+    of an unprofiled epoch, and the device time of its kernels under
+    ``torch.profiler`` in a second, identical epoch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from robustbnns_tpu_torch.inference.svi import svi_train
+    from robustbnns_tpu_torch.models.architectures import build_architecture
+
+    arch = build_architecture("fc2", "leaky", (28, 28, 1), 10, 1024, "mnist")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    steps, n = 20, 20 * B
+    x = torch.rand((n, 28, 28, 1), generator=gen, device="cuda")
+    y = torch.nn.functional.one_hot(torch.randint(0, 10, (n,), generator=gen, device="cuda"), 10).float()
+    run = lambda: svi_train(arch, x, y, epochs=1, lr=0.02, batch_size=B, verbose=False, device="cuda")  # noqa: E731
+    wall = run()[1]["seconds"][0]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device_us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                    for e in prof.key_averages())
+    if device_us <= 0:
+        fail("[train-profile] torch.profiler saw no device time")
+    step_ms, dev_ms = 1e3 * wall / steps, 1e-3 * device_us / steps
+    print(f"[train-profile] SVI step at fc2-1024, batch {B}, 10-draw train accuracy: "
+          f"{step_ms:.3f} ms wall, {dev_ms:.3f} ms of device kernels "
+          f"(device idle {100 * (1 - dev_ms / step_ms):.1f}% of the step)")
 
 
 def main() -> None:
@@ -308,12 +504,15 @@ def main() -> None:
         phase_build()
         kernels = phase_kernels(torch)
         phase_predictive(torch)
+        grad_counts = phase_param_grad(torch)
         counts = phase_main_path(torch, workdir)
+        phase_training(torch)
+        phase_train_profile(torch)
     line = []
     for name, r in kernels.items():
         line.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
-            "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": (grad_counts if name in DPARAMS else counts)[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": bound_ms(r["flops"], r["bytes"])[1], "library_ms": r["library_ms"],
             "shapes": r["shapes"],

@@ -5,11 +5,13 @@ found at the same relative path, and imports torch, numpy and the standard
 library only. The TPU's Pallas kernels become CUDA C++ kernels for ``sm_90a``
 under ``csrc/``, built with ``nvcc`` at first use (:mod:`.ops.build`).
 
-This slice carries the Bayesian FGSM/PGD attack path of the SVI ``fc``/``fc2``
-models: :mod:`.config`, :mod:`.data`, :mod:`.models` (architectures and the
-SVI BNN), :mod:`.inference.svi`, :mod:`.predict`, :mod:`.ops` (the
-sampled-dense kernels and the fused predictive), :mod:`.attacks` and
-:mod:`.cli.attacks`. Entry points run on ``cuda`` unless asked for ``cpu``.
+It carries SVI training of the ``fc``/``fc2`` models and the Bayesian
+FGSM/PGD attack path on them: :mod:`.config`, :mod:`.data`, :mod:`.models`
+(architectures and the SVI BNN), :mod:`.inference.svi` (the ELBO and the
+trainer), :mod:`.predict`, :mod:`.ops` (the six sampled-dense kernels, the
+op's full backward and the fused predictive), :mod:`.attacks`,
+:mod:`.cli.train_bnn` and :mod:`.cli.attacks`. Entry points run on ``cuda``
+unless asked for ``cpu``.
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,8 @@ Example::
     python -m robustbnns_tpu_torch.cli.attacks --model_type=bnn --model_idx=7 \
         --train=False --attack_method=pgd --fused=True --n_inputs=256
 
-The NN and ensemble branches wait for their slice.
+``--train=True`` trains the SVI posterior first (:meth:`.models.bnn.BNN.train`)
+and saves it. The NN and ensemble branches wait for their slice.
 """
 from __future__ import annotations
 
@@ -38,11 +39,17 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def main(args) -> dict:
     """Run the attack flow; ``args`` is a parsed namespace or a list of flags.
 
-    Returns the clean and adversarial sets and scores, and the attack's wall
-    time (synchronised with the card), for callers that check them.
+    Returns the model, the clean and adversarial sets and scores, and the
+    training and attack wall times (synchronised with the card), for callers
+    that check them.
     """
     if not isinstance(args, argparse.Namespace):
         args = build_parser().parse_args(args)
@@ -66,26 +73,29 @@ def main(args) -> dict:
     cfg = saved_BNNs[f"model_{args.model_idx}"]
     x_train, y_train, x_test, y_test, inp_shape, out_size = load_data(cfg.dataset, None, shuffle=False)
     bnn = BNN.from_config(cfg, inp_shape, out_size, device=device)
+    result = {"bnn": bnn}
     if args.train:
+        _synchronize(device)
+        t0 = time.perf_counter()
         bnn.train(x_train, y_train)
+        _synchronize(device)
+        result["train_seconds"] = time.perf_counter() - t0
+        result["train_images"] = len(x_train)
         bnn.save(rel_path=rel_path)
     else:
         bnn.load(rel_path=rel_path)
-    result = {}
     if args.test:
         result["test_accuracy"] = bnn.evaluate(x_test, y_test, n_samples=10)
 
     x_test, y_test = x_test[: args.n_inputs], y_test[: args.n_inputs]
     for attack_samples in bayesian_attack_samples:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _synchronize(device)
         t0 = time.perf_counter()
         x_attack = attack(
             bnn, x_test, y_test, method=args.attack_method, epsilon=EPSILON,
             n_samples=attack_samples, fused=args.fused, filename=bnn.name, rel_path=rel_path,
         )
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _synchronize(device)
         result["attack_seconds"] = time.perf_counter() - t0
         for defence_samples in bayesian_defence_samples:
             clean, adv, rob = attack_evaluation(bnn, x_test, x_attack, y_test, n_samples=defence_samples)

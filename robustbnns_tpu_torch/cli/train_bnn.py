@@ -1,0 +1,71 @@
+"""Train/evaluate an SVI BNN (port of ``robustbnns_tpu/cli/train_bnn.py``,
+reference ``model_bnn.py`` main, ``:393-426``).
+
+Example::
+
+    python -m robustbnns_tpu_torch.cli.train_bnn --model_idx=7 --n_inputs=1000 \
+        --train=True --test=True --savedir=TESTS --device=cpu
+
+HMC/NUTS configurations and flags wait for the HMC slice.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+from robustbnns_tpu_torch.cli.common import add_common_flags, load_data, setup_device
+from robustbnns_tpu_torch.config import bnn_batch_size, resolve_rel_path, saved_BNNs
+
+_HMC_DEFAULTS = {"hmc_mode": "faithful", "hmc_init": "random", "hmc_sampler": "hmc", "num_chains": 1}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    add_common_flags(parser)
+    parser.add_argument("--hmc_mode", default="faithful", type=str,
+                        help="faithful (per-batch mcmc.run), full (one chain)")
+    parser.add_argument("--hmc_init", default="random", type=str,
+                        help="random (reference), map (Adam warm start)")
+    parser.add_argument("--hmc_sampler", default="hmc", type=str, help="hmc (reference kernel), nuts")
+    parser.add_argument("--num_chains", default=1, type=int)
+    return parser
+
+
+def main(args):
+    """Train (or load) and evaluate; ``args`` is a parsed namespace or a list of flags."""
+    if not isinstance(args, argparse.Namespace):
+        args = build_parser().parse_args(args)
+    changed = [f"--{k}" for k, v in _HMC_DEFAULTS.items() if getattr(args, k, v) != v]
+    if changed:
+        raise NotImplementedError(f"{', '.join(changed)} wait for the HMC/NUTS slice (ROADMAP.md)")
+    device = setup_device(args.device, args.mesh)
+
+    from robustbnns_tpu_torch.models.bnn import BNN
+
+    cfg = saved_BNNs[f"model_{args.model_idx}"]
+    rel_path = resolve_rel_path(args.savedir)
+    x_train, y_train, x_test, y_test, inp_shape, out_size = load_data(cfg.dataset, args.n_inputs)
+    bnn = BNN.from_config(cfg, inp_shape, out_size, device=device)
+
+    if args.train:
+        bnn.train(x_train, y_train, batch_size=bnn_batch_size(cfg))
+        bnn.save(rel_path=rel_path)
+        from robustbnns_tpu_torch.utils.plotting import plot_loss_accuracy
+
+        plot_loss_accuracy(bnn.history, os.path.join(rel_path, bnn.name, bnn.name + "_training.png"))
+    else:
+        bnn.load(rel_path=rel_path)
+
+    if args.test:
+        test_samples = 10
+        print("\n== Evaluate on test data ==\n")
+        bnn.evaluate(x_test, y_test, n_samples=test_samples)
+
+        print(f"\n== Evaluate the first {test_samples} posterior samples ==\n")
+        for seed in range(test_samples):
+            bnn.evaluate(x_test, y_test, n_samples=1, seeds=[seed])
+    return bnn
+
+
+if __name__ == "__main__":
+    main(build_parser().parse_args())

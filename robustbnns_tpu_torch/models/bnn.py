@@ -1,9 +1,10 @@
 """The BNN model, SVI branch (port of ``robustbnns_tpu/models/bnn.py``).
 
 A dataclass holding the configuration, the architecture, the device and the
-trained mean-field posterior, with ``forward`` / ``evaluate`` /
+mean-field posterior, with ``train`` / ``forward`` / ``evaluate`` /
 ``predictive_fn`` / ``save`` / ``load`` mirroring the reference surface
-(``model_bnn.py:69``). Training (SVI) and the HMC branch wait for their slices.
+(``model_bnn.py:69``). ``train`` runs SVI (:func:`.inference.svi.svi_train`);
+the HMC/NUTS branch waits for its slice.
 """
 from __future__ import annotations
 
@@ -13,8 +14,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from robustbnns_tpu_torch.config import BNNConfig, TESTS
-from robustbnns_tpu_torch.inference.svi import MeanFieldPosterior
+from robustbnns_tpu_torch.config import BNNConfig, TESTS, bnn_batch_size
+from robustbnns_tpu_torch.inference.svi import MeanFieldPosterior, svi_train
 from robustbnns_tpu_torch.models.architectures import Architecture, build_architecture
 from robustbnns_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 from robustbnns_tpu_torch.utils.device import resolve_device
@@ -29,6 +30,7 @@ class BNN:
     device: torch.device
     n_inputs: Optional[int] = None
     posterior: Optional[MeanFieldPosterior] = None
+    history: Optional[dict] = None  # per-epoch loss and accuracy of the last train()
     # Memoized predictive closures, one per (n_samples, seeds, avg_posterior).
     _fn_cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -43,8 +45,8 @@ class BNN:
     ) -> "BNN":
         if config.inference != "svi":
             raise NotImplementedError(
-                f"inference {config.inference!r} is not ported yet: the HMC/NUTS "
-                "slice follows SVI training (ROADMAP.md)"
+                f"inference {config.inference!r} is not ported yet: it comes with "
+                "the HMC/NUTS slice (ROADMAP.md)"
             )
         arch = build_architecture(
             config.architecture, config.activation, input_shape, output_size,
@@ -57,11 +59,37 @@ class BNN:
         """Checkpoint identity string (reference ``model_bnn.py:90-103``)."""
         return self.config.name(self.n_inputs)
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SVI training is not ported yet: it comes with the dparams kernels in the "
-            "SVI-training slice (ROADMAP.md); load a saved posterior instead"
+    def train(
+        self,
+        x_train,
+        y_train,
+        *,
+        batch_size: Optional[int] = None,
+        seed: int = 0,
+        train_acc_samples: int = 10,
+        mesh=None,
+        verbose: bool = True,
+    ) -> "BNN":
+        """Train the SVI posterior on ``self.device`` (reference ``model_bnn.py:350-365``).
+
+        The posterior comes back with detached leaves, so attacks on it launch
+        no parameter-gradient kernel.
+        """
+        self._fn_cache.clear()  # cached closures hold the previous posterior
+        self.posterior, self.history = svi_train(
+            self.arch,
+            x_train,
+            y_train,
+            epochs=self.config.epochs,
+            lr=self.config.lr,
+            batch_size=batch_size or bnn_batch_size(self.config),
+            seed=seed,
+            train_acc_samples=train_acc_samples,
+            mesh=mesh,
+            verbose=verbose,
+            device=self.device,
         )
+        return self
 
     # ------------------------------------------------------------------ #
     # posterior predictive (reference model_bnn.py:198-258)

@@ -27,8 +27,13 @@ def layer_seed(seed: int, layer: int) -> int:
     return (int(seed) + layer * _LAYER_SEED_STRIDE) & _MASK
 
 
-def svi_predict_fused(arch, posterior, x: torch.Tensor, n_samples: int, seed: int = 0) -> torch.Tensor:
-    """Mean softmax over S fused draws — ``(batch, classes)``."""
+def fused_logits(arch, posterior, x: torch.Tensor, n_samples: int, seed: int = 0) -> torch.Tensor:
+    """The ``(S, batch, classes)`` logits of S fused draws.
+
+    Differentiable in ``x`` and in every posterior leaf: the backward launches
+    the dx kernels for an input that asks for its gradient and the dparams
+    kernels for parameters that do.
+    """
     if not supports_fused(arch):
         raise NotImplementedError(
             f"fused predictive supports fc/fc2 (got {arch.name!r}); "
@@ -45,7 +50,12 @@ def svi_predict_fused(arch, posterior, x: torch.Tensor, n_samples: int, seed: in
             act(h), loc[li]["w"], rho[li]["w"], loc[li]["b"], rho[li]["b"],
             n_samples, layer_seed(seed, li),
         )
-    return torch.softmax(h, dim=-1).mean(dim=0)
+    return h
+
+
+def svi_predict_fused(arch, posterior, x: torch.Tensor, n_samples: int, seed: int = 0) -> torch.Tensor:
+    """Mean softmax over S fused draws — ``(batch, classes)``."""
+    return torch.softmax(fused_logits(arch, posterior, x, n_samples, seed), dim=-1).mean(dim=0)
 
 
 def fused_predictive_fn(arch, posterior, n_samples: int):

@@ -6,16 +6,22 @@ layer applied to a batch, without the ``(S, I, O)`` sampled weights ever
 reaching device memory. The per-sample-input variant takes ``xs`` (S, B, I),
 as the hidden layers of the fused predictive do.
 
-Four hand-written CUDA kernels carry the attack path (``csrc/``):
+Six hand-written CUDA kernels carry the op and its whole backward (``csrc/``):
 
-=========================  ============================  ===========================
-wrapper                    replaces (Pallas)             computes
-=========================  ============================  ===========================
-``sampled_dense_fwd``      ``_fwd_kernel`` ``:99``       out[s] = x @ W_s + b_s
-``sampled_dense_dx``       ``_bwd_dx_kernel`` ``:114``   dx = Σ_s g_s W_sᵀ
-``sampled_dense_xs_fwd``   ``_fwd_kernel_xs`` ``:347``   out[s] = xs[s] @ W_s + b_s
-``sampled_dense_xs_dx``    ``_bwd_xs_dx_kernel`` ``:362``  dxs[s] = g_s W_sᵀ
-=========================  ============================  ===========================
+=============================  ================================  ===============================
+wrapper                        replaces (Pallas)                 computes
+=============================  ================================  ===============================
+``sampled_dense_fwd``          ``_fwd_kernel`` ``:99``           out[s] = x @ W_s + b_s
+``sampled_dense_dx``           ``_bwd_dx_kernel`` ``:114``       dx = Σ_s g_s W_sᵀ
+``sampled_dense_dparams``      ``_bwd_dparams_kernel`` ``:137``  dloc, drho, dbloc, dbrho
+``sampled_dense_xs_fwd``       ``_fwd_kernel_xs`` ``:347``       out[s] = xs[s] @ W_s + b_s
+``sampled_dense_xs_dx``        ``_bwd_xs_dx_kernel`` ``:362``    dxs[s] = g_s W_sᵀ
+``sampled_dense_xs_dparams``   ``_bwd_xs_dparams_kernel`` ``:383``  as dparams, xs[s] for x
+=============================  ================================  ===============================
+
+The parameter cotangents, with dW_s = x_sᵀ g_s: dloc = Σ_s dW_s,
+drho = Σ_s dW_s ⊙ eps_s ⊙ σ(rho), dbloc = Σ_s Σ_b g_s and
+dbrho = Σ_s (Σ_b g_s) ⊙ eps[s, I] ⊙ σ(brho).
 
 Noise: ``eps[s, i, o]`` is a pure function of (seed, s, i, o) — Philox4x32-10
 with key (seed, 0) and counter (o >> 2, i, s, 0), the JAX kernel's mantissa
@@ -26,9 +32,10 @@ with int64 tensor arithmetic.
 
 Each wrapper launches its kernel for CUDA tensors (or raises), and runs its
 plain PyTorch twin for CPU tensors only. Each counts its kernel launches in
-``<wrapper>.launches``. The parameter gradients (Pallas ``_bwd_dparams_kernel``
-and ``_bwd_xs_dparams_kernel``) belong to ELBO training and are not ported yet:
-asking for them raises.
+``<wrapper>.launches``. The autograd backward launches the dx kernel only when
+the input's gradient is asked for and the dparams kernel only when a
+parameter's is, as the JAX VJP splits them into two ``pallas_call``s that XLA
+can drop one by one (``sampled_dense.py:252-254``).
 """
 from __future__ import annotations
 
@@ -42,11 +49,6 @@ from robustbnns_tpu_torch.ops.build import library
 _MASK = 0xFFFFFFFF
 _TWO_PI_F32 = float(np.float32(6.283185307179586))
 _COLS, _ROWS = 16, 128  # output tile of one block (csrc/sampled_dense_common.cuh)
-_PARAM_GRAD_MSG = (
-    "gradients of loc/rho/bloc/brho need the dparams kernels (Pallas "
-    "_bwd_dparams_kernel / _bwd_xs_dparams_kernel), which are still to be ported "
-    "with SVI training (ROADMAP.md, Queue 2)"
-)
 
 # --------------------------------------------------------------------------- #
 # Plain PyTorch twins: the same noise and arithmetic as the kernels
@@ -136,6 +138,26 @@ def sampled_dense_xs_dx_plain(g, loc, rho, n_samples: int, seed: int):
     return torch.matmul(g, _sampled_w(loc, rho, n_samples, seed).transpose(1, 2))
 
 
+def sampled_dense_dparams_plain(g, x, rho, brho, n_samples: int, seed: int):
+    """``(dloc, drho, dbloc, dbrho)`` from the formulas of the Pallas kernels
+    (``sampled_dense.py:153-167``), written out: autograd through
+    :func:`softplus` would give a kink at 0 where σ(rho) has none."""
+    i_dim = rho.shape[0]
+    eps = sampled_noise(seed, n_samples, i_dim + 1, rho.shape[1], rho.device)
+    dw = torch.matmul(x.transpose(-1, -2), g)  # (S, I, O): x_sᵀ g_s
+    db = g.sum(1)  # (S, O)
+    return (
+        dw.sum(0),
+        (dw * eps[:, :i_dim] * torch.sigmoid(rho)).sum(0),
+        db.sum(0),
+        (db * eps[:, i_dim] * torch.sigmoid(brho)).sum(0),
+    )
+
+
+# x (B, I) broadcasts against g (S, B, O) as xs (S, B, I) does (``:400-414``)
+sampled_dense_xs_dparams_plain = sampled_dense_dparams_plain
+
+
 # --------------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
@@ -146,6 +168,8 @@ _SIGNATURES = {
     "sampled_dense_xs_fwd": ("sampled_dense_fwd.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_dx": ("sampled_dense_dx.cu", [_P] * 4 + [_I] * 4 + [_U, _P]),
     "sampled_dense_xs_dx": ("sampled_dense_dx.cu", [_P] * 4 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_dparams": ("sampled_dense_dparams.cu", [_P] * 8 + [_I] * 4 + [_U, _P]),
+    "sampled_dense_xs_dparams": ("sampled_dense_dparams.cu", [_P] * 8 + [_I] * 4 + [_U, _P]),
 }
 
 
@@ -292,7 +316,63 @@ def sampled_dense_xs_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
     return dxs
 
 
-KERNEL_WRAPPERS = (sampled_dense_fwd, sampled_dense_dx, sampled_dense_xs_fwd, sampled_dense_xs_dx)
+def _check_dparams(g, x, rho, brho, n_samples: int, x_lead: tuple) -> None:
+    _check_params(rho, rho, brho)
+    if g.dim() != 3 or g.shape[0] != n_samples or g.shape[2] != rho.shape[1]:
+        raise ValueError(f"g must be (S={n_samples}, B, O={rho.shape[1]}), got {tuple(g.shape)}")
+    want = x_lead + (g.shape[1], rho.shape[0])
+    if tuple(x.shape) != want:
+        raise ValueError(f"the layer input must be {want}, got {tuple(x.shape)}")
+
+
+def _launch_dparams(name: str, g, x, rho, brho, n_samples: int, seed: int):
+    _check_cuda(g, x, rho, brho)
+    (_, b_dim, o_dim), i_dim = g.shape, rho.shape[0]
+    dloc, drho = (torch.empty((i_dim, o_dim), device=g.device) for _ in range(2))
+    dbloc, dbrho = (torch.empty((o_dim,), device=g.device) for _ in range(2))
+    _launch(name, g.device, g.data_ptr(), x.data_ptr(), rho.data_ptr(), brho.data_ptr(),
+            dloc.data_ptr(), drho.data_ptr(), dbloc.data_ptr(), dbrho.data_ptr(),
+            n_samples, b_dim, i_dim, o_dim, seed & _MASK)
+    return dloc, drho, dbloc, dbrho
+
+
+def sampled_dense_dparams(g, x, rho, brho, n_samples: int, seed: int):
+    """Pallas ``_bwd_dparams_kernel`` (``sampled_dense.py:137``) ->
+    ``csrc/sampled_dense_dparams.cu``. g (S, B, O), x (B, I) ->
+    ``(dloc, drho, dbloc, dbrho)``, shaped (I, O), (I, O), (O,), (O,).
+
+    Bound on the H100: 2·S·B·I·O exact-f32 FLOP on the FFMA pipe (2.06 GFLOP at
+    the first layer of fc2-1024, B=128, S=10); each block owns a tile of
+    dloc/drho and loops over the samples, so the sum over S is deterministic.
+    """
+    _check_dparams(g, x, rho, brho, n_samples, ())
+    if _on_cpu(g, x, rho, brho):
+        return sampled_dense_dparams_plain(g, x, rho, brho, n_samples, seed)
+    out = _launch_dparams("sampled_dense_dparams", g, x, rho, brho, n_samples, seed)
+    sampled_dense_dparams.launches += 1
+    return out
+
+
+def sampled_dense_xs_dparams(g, xs, rho, brho, n_samples: int, seed: int):
+    """Pallas ``_bwd_xs_dparams_kernel`` (``sampled_dense.py:383``) ->
+    ``csrc/sampled_dense_dparams.cu``. As :func:`sampled_dense_dparams` with
+    the per-sample input xs (S, B, I).
+
+    Bound on the H100: 2·S·B·I·O exact-f32 FLOP at the hidden layer, the bytes
+    of xs at the 10-class head, where 16 x 16 tiles keep 64 blocks busy.
+    """
+    _check_dparams(g, xs, rho, brho, n_samples, (n_samples,))
+    if _on_cpu(g, xs, rho, brho):
+        return sampled_dense_xs_dparams_plain(g, xs, rho, brho, n_samples, seed)
+    out = _launch_dparams("sampled_dense_xs_dparams", g, xs, rho, brho, n_samples, seed)
+    sampled_dense_xs_dparams.launches += 1
+    return out
+
+
+KERNEL_WRAPPERS = (
+    sampled_dense_fwd, sampled_dense_dx, sampled_dense_dparams,
+    sampled_dense_xs_fwd, sampled_dense_xs_dx, sampled_dense_xs_dparams,
+)
 for _wrapper in KERNEL_WRAPPERS:
     _wrapper.launches = 0
 
@@ -311,8 +391,23 @@ def launch_counts() -> dict[str, int]:
 # --------------------------------------------------------------------------- #
 
 
+def _backward(ctx, g, dx_kernel, dparams_kernel):
+    """The input and the parameter cotangents, each launched only if asked for."""
+    x, loc, rho, brho = ctx.saved_tensors
+    g = g.contiguous()
+    need_x, need_params = ctx.needs_input_grad[0], ctx.needs_input_grad[1:5]
+    dx = dx_kernel(g, loc, rho, ctx.n_samples, ctx.seed) if need_x else None
+    dparams = (None,) * 4
+    if any(need_params):
+        dparams = tuple(
+            d if need else None
+            for d, need in zip(dparams_kernel(g, x, rho, brho, ctx.n_samples, ctx.seed), need_params)
+        )
+    return (dx, *dparams, None, None)
+
+
 class SampledDense(torch.autograd.Function):
-    """``sampled_dense`` with a dx-only backward that regenerates the noise.
+    """``sampled_dense`` with a backward that regenerates the noise.
 
     Saves (x, loc, rho, brho, seed), never the sampled weights.
     """
@@ -326,15 +421,11 @@ class SampledDense(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if any(ctx.needs_input_grad[1:5]):
-            raise NotImplementedError(_PARAM_GRAD_MSG)
-        _, loc, rho, _ = ctx.saved_tensors
-        dx = sampled_dense_dx(g.contiguous(), loc, rho, ctx.n_samples, ctx.seed)
-        return dx, None, None, None, None, None, None
+        return _backward(ctx, g, sampled_dense_dx, sampled_dense_dparams)
 
 
 class SampledDenseXs(torch.autograd.Function):
-    """``sampled_dense_xs`` with a dxs-only backward that regenerates the noise."""
+    """``sampled_dense_xs`` with a backward that regenerates the noise."""
 
     @staticmethod
     def forward(ctx, xs, loc, rho, bloc, brho, n_samples: int, seed: int):
@@ -345,11 +436,7 @@ class SampledDenseXs(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if any(ctx.needs_input_grad[1:5]):
-            raise NotImplementedError(_PARAM_GRAD_MSG)
-        _, loc, rho, _ = ctx.saved_tensors
-        dxs = sampled_dense_xs_dx(g.contiguous(), loc, rho, ctx.n_samples, ctx.seed)
-        return dxs, None, None, None, None, None, None
+        return _backward(ctx, g, sampled_dense_xs_dx, sampled_dense_xs_dparams)
 
 
 def sampled_dense(x, loc, rho, bloc, brho, n_samples: int, seed: int = 0) -> torch.Tensor:

@@ -20,6 +20,11 @@ def map_params(fn: Callable[..., Any], *trees: Params) -> Params:
     )
 
 
+def tree_leaves(tree: Params) -> list:
+    """The leaves of a parameter tree in JAX's flatten order."""
+    return [layer[k] for layer in tree for k in sorted(layer)]
+
+
 def normal_like_tree(generator: torch.Generator, tree: Params) -> Params:
     """Iid standard-normal leaves shaped like ``tree``, drawn on the generator's device.
 

@@ -28,6 +28,7 @@ pytestmark = pytest.mark.cuda
 SHAPES = [  # (B, I, O, S)
     (8, 24, 20, 3),  # O not a multiple of the 16-column tile
     (130, 37, 10, 5),  # two row tiles, I not a multiple of 4, the 10-class head
+    (45, 70, 66, 2),  # ragged B, I and O past the 64 x 64 dparams tile
     (128, 784, 1024, 10),  # model_7's first layer at the attack batch
 ]
 
@@ -70,14 +71,19 @@ def test_kernels_match_plain_twins(cuda, shape):
         (sd.sampled_dense_xs_fwd, sd.sampled_dense_xs_fwd_plain, (p["xs"], *params)),
         (sd.sampled_dense_dx, sd.sampled_dense_dx_plain, (p["g"], p["loc"], p["rho"])),
         (sd.sampled_dense_xs_dx, sd.sampled_dense_xs_dx_plain, (p["g"], p["loc"], p["rho"])),
+        (sd.sampled_dense_dparams, sd.sampled_dense_dparams_plain, (p["g"], p["x"], p["rho"], p["brho"])),
+        (sd.sampled_dense_xs_dparams, sd.sampled_dense_xs_dparams_plain,
+         (p["g"], p["xs"], p["rho"], p["brho"])),
     ]
     for kernel, plain, args in cases:
         before = kernel.launches
         got = kernel(*args, s, seed)
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
-        assert got.is_cuda and torch.isfinite(got).all()
-        assert_close(got, plain(*args, s, seed))
+        want = plain(*args, s, seed)
+        for got_t, want_t in zip(*((t,) if torch.is_tensor(t) else t for t in (got, want))):
+            assert got_t.is_cuda and torch.isfinite(got_t).all()
+            assert_close(got_t, want_t)
 
 
 def test_kernel_noise_is_the_twins_noise(cuda):
@@ -96,19 +102,25 @@ def test_kernel_noise_is_the_twins_noise(cuda):
 
 
 def test_autograd_runs_the_dx_kernels(cuda):
+    """The backward launches the dx kernel for the input and the dparams kernel
+    for the parameters, each only when its gradient is asked for."""
     b, i, o, s = 16, 48, 32, 4
     p = layer(b, i, o, s, cuda)
     params = (p["loc"], p["rho"], p["bloc"], p["brho"])
-    for op, dx_plain, x in (
-        (sd.sampled_dense, sd.sampled_dense_dx_plain, p["x"]),
-        (sd.sampled_dense_xs, sd.sampled_dense_xs_dx_plain, p["xs"]),
+    for op, dx_kernel, dp_kernel, x in (
+        (sd.sampled_dense, sd.sampled_dense_dx, sd.sampled_dense_dparams, p["x"]),
+        (sd.sampled_dense_xs, sd.sampled_dense_xs_dx, sd.sampled_dense_xs_dparams, p["xs"]),
     ):
         xr = x.clone().requires_grad_(True)
+        before = (dx_kernel.launches, dp_kernel.launches)
         (op(xr, *params, s, 9) * p["g"]).sum().backward()
-        assert_close(xr.grad, dx_plain(p["g"], p["loc"], p["rho"], s, 9))
-    loc = p["loc"].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="dparams"):
-        sd.sampled_dense(p["x"], loc, *params[1:], s, 9).sum().backward()
+        assert (dx_kernel.launches, dp_kernel.launches) == (before[0] + 1, before[1])
+        assert_close(xr.grad, dx_kernel(p["g"], p["loc"], p["rho"], s, 9))
+        leaves = [t.clone().requires_grad_(True) for t in params]
+        grads = torch.autograd.grad((op(x, *leaves, s, 9) * p["g"]).sum(), leaves)
+        assert (dx_kernel.launches, dp_kernel.launches) == (before[0] + 2, before[1] + 1)
+        for got, want in zip(grads, dp_kernel(p["g"], x, p["rho"], p["brho"], s, 9)):
+            assert_close(got, want)
 
 
 def test_seeds_select_the_draws(cuda):

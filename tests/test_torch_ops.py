@@ -7,9 +7,12 @@ come from numpy.
 
 Tolerances: zero-scale results are f32 products of <= 64-term sums, compared
 with another f32 implementation, so 1e-5 absolute on O(1) values; gradients
-chain two such products, 1e-4. Noise moments at S = 256 concentrate to a few
-percent, as in ``tests/test_ops.py``.
+(of the input or of the posterior parameters) chain two such products, 1e-4.
+Noise moments at S = 256 concentrate to a few percent, as in
+``tests/test_ops.py``.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,9 +25,11 @@ from robustbnns_tpu.ops import sampled_dense_xs as jax_sampled_dense_xs
 from robustbnns_tpu_torch.ops.sampled_dense import (
     philox4x32_10,
     sampled_dense,
+    sampled_dense_dparams,
     sampled_dense_dx,
     sampled_dense_fwd,
     sampled_dense_xs,
+    sampled_dense_xs_dparams,
     sampled_dense_xs_dx,
     sampled_dense_xs_fwd,
     sampled_noise,
@@ -181,11 +186,126 @@ def test_finite_difference_with_noise(layer, variant):
 
 
 def test_parameter_gradients_raise(layer):
-    """dloc/drho wait for the dparams kernels; asking for them must not fall back."""
+    """The dparams wrappers refuse a wrong shape, and tensors that are neither
+    all on the CPU nor all on the card, instead of falling back to a twin."""
+    x, _, rho, _, brho = (t(a) for a in layer)
+    g = torch.ones((S, B, O))
+    xs = torch.stack([x] * S)
+    with pytest.raises(ValueError):
+        sampled_dense_dparams(g[:, :, :-1], x, rho, brho, S, 0)
+    with pytest.raises(ValueError):
+        sampled_dense_dparams(g, xs, rho, brho, S, 0)
+    with pytest.raises(ValueError):
+        sampled_dense_xs_dparams(g, x, rho, brho, S, 0)
+    with pytest.raises(ValueError, match="all tensors"):
+        sampled_dense_dparams(g, x, rho.to("meta"), brho, S, 0)
+
+
+def _jax_param_grads(op_j, xin, params, g):
+    """``jax.grad`` of Σ g ⊙ op(xin, loc, rho, bloc, brho) w.r.t. the four parameters."""
+    f = lambda *p: jnp.sum(jnp.asarray(g) * op_j(xin, *p, S, 3))  # noqa: E731
+    return jax.grad(f, argnums=(0, 1, 2, 3))(*params)
+
+
+@pytest.mark.parametrize("variant", ["x", "xs"])
+def test_zero_scale_param_gradients_match_jax_grad(layer, variant):
+    """The dparams twins in the zero-scale limit against ``jax.grad`` through the
+    Pallas custom VJP (as ``tests/test_ops.py`` holds dloc and dbloc to the
+    dense layer): dloc = Σ_s x_sᵀ g_s and dbloc = Σ_s Σ_b g_s, while drho and
+    dbrho carry σ(-30) ≈ 1e-13 and vanish in both. O = 20 is ragged against
+    the 16-column tile."""
+    x, loc, _, bloc, _ = layer
+    neg, negb = np.full_like(loc, -30.0), np.full_like(bloc, -30.0)
+    g = np.random.default_rng(2).normal(size=(S, B, O)).astype(np.float32)
+    xin = x if variant == "x" else np.stack([x, 0.5 * x, -x])
+    op_j = jax_sampled_dense if variant == "x" else jax_sampled_dense_xs
+    twin = sampled_dense_dparams if variant == "x" else sampled_dense_xs_dparams
+    ref = _jax_param_grads(op_j, xin, (loc, neg, bloc, negb), g)
+    ours = twin(t(g), t(xin), t(neg), t(negb), S, 3)
+    for name, got, want in zip(("dloc", "drho", "dbloc", "dbrho"), ours, ref):
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("variant", ["x", "xs"])
+def test_param_gradients_with_noise_match_jax_autodiff(layer, variant):
+    """With rho around -1 the noise matters: the port's autograd (through the
+    dparams twins) against ``jax.grad`` of the materialised layer
+    ``x_s @ (loc + softplus(rho)·eps_s) + (bloc + softplus(brho)·eps[s, I])``
+    with the port's own eps injected as numpy. A bias row off by one or a
+    permuted counter fails here. Sums of <= 3·8 O(1) products in f32, so 1e-4."""
+    x, loc, rho, bloc, brho = layer
+    seed = 3
+    eps = sampled_noise(seed, S, I + 1, O, "cpu").numpy()
+    g = np.random.default_rng(3).normal(size=(S, B, O)).astype(np.float32)
+    xin = x if variant == "x" else np.stack([x, 0.5 * x, -x])
+
+    def f(loc, rho, bloc, brho):
+        w = loc + jax.nn.softplus(rho) * eps[:, :I]
+        b = bloc + jax.nn.softplus(brho) * eps[:, I]
+        out = jnp.matmul(xin, w, precision="highest") + b[:, None, :]
+        return jnp.sum(g * out)
+
+    ref = jax.grad(f, argnums=(0, 1, 2, 3))(loc, rho, bloc, brho)
+    op = sampled_dense if variant == "x" else sampled_dense_xs
+    leaves = [t(a).clone().requires_grad_(True) for a in (loc, rho, bloc, brho)]
+    ours = torch.autograd.grad((op(t(xin), *leaves, S, seed) * t(g)).sum(), leaves)
+    for name, got, want in zip(("dloc", "drho", "dbloc", "dbrho"), ours, ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4, err_msg=name)
+    assert float(np.abs(np.asarray(ref[1])).max()) > 1e-2  # the noise term is exercised
+
+
+@pytest.mark.parametrize("variant", ["x", "xs"])
+def test_autograd_runs_only_the_twins_asked_for(monkeypatch, layer, variant):
+    """The backward runs the dx twin only for an input that asks for its
+    gradient and the dparams twin only for parameters that do, counted by
+    spying on the twins (the wrappers' kernels on the card)."""
+    # the module, not the op that ``ops`` re-exports under the same name
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    suffix = "" if variant == "x" else "_xs"
+    calls = {"dx": 0, "dparams": 0}
+    for kind in calls:
+        name = f"sampled_dense{suffix}_{kind}_plain"
+        twin = getattr(sd, name)
+
+        def spy(*args, _twin=twin, _kind=kind):
+            calls[_kind] += 1
+            return _twin(*args)
+
+        monkeypatch.setattr(sd, name, spy)
     x, loc, rho, bloc, brho = (t(a) for a in layer)
-    loc.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="dparams"):
-        sampled_dense(x, loc, rho, bloc, brho, S, 0).sum().backward()
+    xin = x if variant == "x" else torch.stack([x, -x, x])
+    op = sampled_dense if variant == "x" else sampled_dense_xs
+
+    def run(x_grad, param_grads):
+        xr = xin.clone().requires_grad_(x_grad)
+        params = [p.clone().requires_grad_(need) for p, need in zip((loc, rho, bloc, brho), param_grads)]
+        wanted = [v for v in (xr, *params) if v.requires_grad]
+        before = dict(calls)
+        grads = torch.autograd.grad(op(xr, *params, S, 1).square().sum(), wanted)
+        assert all(gr is not None for gr in grads)
+        return calls["dx"] - before["dx"], calls["dparams"] - before["dparams"]
+
+    assert run(True, (False,) * 4) == (1, 0)
+    assert run(False, (True, False, False, False)) == (0, 1)
+    assert run(False, (False, False, False, True)) == (0, 1)
+    assert run(True, (True,) * 4) == (1, 1)
+
+
+def test_dparams_twins_match_the_numpy_formulas(layer):
+    """dloc = Σ_s dW_s, drho = Σ_s dW_s·eps_s·σ(rho), dbloc = Σ_s Σ_b g_s and
+    dbrho = Σ_s (Σ_b g_s)·eps[s, I]·σ(brho), with dW_s = x_sᵀ g_s, in float64."""
+    x, _, rho, _, brho = layer
+    g = np.random.default_rng(5).normal(size=(S, B, O))
+    xs = np.stack([x, 2 * x, -x]).astype(np.float64)
+    eps = sampled_noise(17, S, I + 1, O, "cpu").numpy().astype(np.float64)
+    sig = lambda a: 1.0 / (1.0 + np.exp(-a.astype(np.float64)))  # noqa: E731
+    dw = np.einsum("sbi,sbo->sio", xs, g)
+    db = g.sum(1)
+    want = (dw.sum(0), (dw * eps[:, :I] * sig(rho)).sum(0), db.sum(0), (db * eps[:, I] * sig(brho)).sum(0))
+    got = sampled_dense_xs_dparams(t(g.astype(np.float32)), t(xs.astype(np.float32)), t(rho), t(brho), S, 17)
+    for name, a, b in zip(("dloc", "drho", "dbloc", "dbrho"), got, want):
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4, err_msg=name)
 
 
 def test_wrappers_check_shapes(layer):

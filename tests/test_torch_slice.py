@@ -1,13 +1,17 @@
-"""The port's first slice as a whole: Bayesian FGSM/PGD on an SVI fc2 posterior.
+"""The port's slices as a whole: SVI training of an fc2 posterior and Bayesian
+FGSM/PGD on it.
 
 * the port imports neither JAX nor the JAX package;
 * a posterior saved by the port drives both packages' attack flows, which must
   agree at zero posterior scale (where every draw is the mean, so the noise
   streams do not matter) up to bounded sign flips of f32-level gradients;
-* the attack CLI runs end to end on the CPU at ``model_7``'s full width.
+* the attack CLI runs end to end on the CPU at ``model_7``'s full width, on a
+  saved posterior and after training one; the training CLI trains, saves,
+  evaluates and loads.
 """
 import ast
 import dataclasses
+import importlib
 import os
 import pathlib
 import subprocess
@@ -125,6 +129,66 @@ def test_cli_runs_model_7_on_the_cpu(monkeypatch, tmp_path):
     assert float(((xa - x).abs() > 0).float().mean()) > 0.2
     assert 0.0 <= out["adversarial_accuracy"] <= 100.0
     assert os.path.exists(tmp_path / "data" / bnn.name / f"{bnn.name}_fgsm_attackSamp=10_attack.npz")
+
+
+@pytest.fixture
+def cli_workdir(monkeypatch, tmp_path):
+    """Checkpoints, figures and the surrogate cache under ``tmp_path``, with
+    fresh records of the datasets served synthetically."""
+    from robustbnns_tpu_torch.data import datasets
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("ROBUSTBNNS_SYNTH_CACHE", str(tmp_path / "synthetic"))
+    monkeypatch.setattr(config, "DATA", str(tmp_path / "data") + "/")
+    monkeypatch.setattr(datasets, "_surrogate_served", set())
+    datasets._synthetic_image_dataset.cache_clear()
+    return tmp_path
+
+
+def test_train_cli_trains_and_evaluates_model_7_on_the_cpu(cli_workdir):
+    """``cli/train_bnn`` trains model_7 at full width for its 5 epochs on 200
+    surrogate images, saves the posterior and the training curves, evaluates,
+    and loads the checkpoint back with ``--train=False``."""
+    from robustbnns_tpu_torch.cli import train_bnn
+
+    flags = ["--model_idx=7", "--n_inputs=200", "--savedir=DATA", "--device=cpu"]
+    bnn = train_bnn.main(flags + ["--train=True", "--test=True"])
+    loss = bnn.history["loss"]
+    assert len(loss) == 5 and all(np.isfinite(loss)) and loss[-1] < loss[0]
+    folder = cli_workdir / "data" / bnn.name
+    assert (folder / f"{bnn.name}_weights.npz").exists() and (folder / f"{bnn.name}_training.png").exists()
+    leaves = [v for tree in bnn.posterior for layer in tree for v in layer.values()]
+    assert not any(v.requires_grad for v in leaves)
+    loaded = train_bnn.main(flags + ["--train=False", "--test=False"])
+    for tree, other in zip(bnn.posterior, loaded.posterior):
+        for layer, layer2 in zip(tree, other):
+            assert all(torch.equal(layer[k], layer2[k]) for k in layer)
+    with pytest.raises(NotImplementedError, match="HMC"):
+        train_bnn.main(flags + ["--hmc_sampler=nuts"])
+
+
+def test_attack_cli_trains_then_attacks_on_the_cpu(cli_workdir, monkeypatch):
+    """``--train=True``: model_7 at full width trains for its 5 epochs (on the
+    first 256 surrogate training images: the CLI takes the whole set), then
+    FGSM attacks the trained posterior through the fused ops, whose backward
+    asks for no parameter gradient (PGD would regenerate the twins' noise
+    for 40 steps at this width; ``chip_smoke.py`` runs PGD on the card)."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    load = cli.load_data
+    monkeypatch.setattr(cli, "load_data", lambda ds, n, shuffle=True: load(ds, 256, shuffle))
+    calls = []
+    twin = sd.sampled_dense_xs_dparams_plain
+    monkeypatch.setattr(sd, "sampled_dense_xs_dparams_plain", lambda *a: calls.append(1) or twin(*a))
+    out = cli.main(["--model_type=bnn", "--model_idx=7", "--train=True", "--fused=True",
+                    "--test=False", "--n_inputs=8", "--device=cpu", "--attack_method=fgsm"])
+    bnn = out["bnn"]
+    assert len(bnn.history["loss"]) == 5 and np.isfinite(bnn.history["loss"]).all()
+    assert out["train_images"] == 256 and out["train_seconds"] > 0
+    x, xa = torch.as_tensor(out["x_test"]), out["x_attack"]
+    assert xa.shape == (8, 28, 28, 1) and bool(torch.isfinite(xa).all())
+    assert float((xa - x).abs().max()) <= 0.3 + 1e-6 and 0 <= float(xa.min()) and float(xa.max()) <= 1
+    assert not calls
+    assert os.path.exists(cli_workdir / "data" / bnn.name / f"{bnn.name}_weights.npz")
 
 
 @pytest.mark.parametrize(

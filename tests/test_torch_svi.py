@@ -1,0 +1,273 @@
+"""The port's SVI trainer against the JAX package's, at small widths.
+
+The ELBO and its gradient, one full ``svi_train`` run with JAX's own
+permutation and step noise replayed, the S = 1 identity between the fused
+sampled-dense parameter gradient and the ELBO likelihood term's gradient on
+the materialised draw, determinism, the metric-only bf16 accuracy, and
+checkpoints that cross between the packages both ways. Inputs come from numpy;
+JAX's threefry draws are injected where the port would draw from a
+``torch.Generator``.
+
+Tolerances: the KL and the log-likelihood are f32 sums of <= 1e3 O(1) terms,
+held to 1e-5 relative; gradients chain the network's f32 products, 1e-4.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from robustbnns_tpu.config import BNNConfig as JaxBNNConfig
+from robustbnns_tpu.inference import svi as jax_svi
+from robustbnns_tpu.models import BNN as JaxBNN
+from robustbnns_tpu.models import build_architecture as jax_build
+from robustbnns_tpu.predict import resolve_sample_keys as jax_resolve_sample_keys
+from robustbnns_tpu.utils.prng import make_key
+from robustbnns_tpu.utils.pytree import normal_like_tree as jax_normal_like_tree
+from robustbnns_tpu_torch import config
+from robustbnns_tpu_torch.inference.svi import (
+    EpochDraws,
+    categorical_loglik_sum,
+    elbo_loss,
+    gaussian_kl_to_std_normal,
+    sample_meanfield_eps,
+    svi_train,
+)
+from robustbnns_tpu_torch.models.architectures import build_architecture
+from robustbnns_tpu_torch.models.bnn import BNN
+from robustbnns_tpu_torch.ops.fused_predict import fused_logits, layer_seed
+from robustbnns_tpu_torch.ops.sampled_dense import sampled_noise
+from robustbnns_tpu_torch.predict import svi_predict
+from robustbnns_tpu_torch.utils.checkpoint import meanfield_from_numpy
+from robustbnns_tpu_torch.utils.pytree import tree_leaves
+
+SHAPE, CLASSES, HIDDEN = (6, 6, 1), 10, 16
+N_ROWS, BATCH = 300, 64  # five batches, the last padded from 44 rows
+
+
+def to_np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def to_torch(tree):
+    return tuple({k: torch.tensor(np.asarray(v)) for k, v in layer.items()} for layer in tree)
+
+
+def post_leaves(post):
+    return tree_leaves(post.loc) + tree_leaves(post.rho)
+
+
+def data(n=N_ROWS, seed=0):
+    """Uniform images whose label is the brightest of ten pixel groups, so SVI can learn it."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n,) + SHAPE).astype(np.float32)
+    labels = x.reshape(n, -1)[:, :30].reshape(n, CLASSES, 3).sum(-1).argmax(-1)
+    return x, np.eye(CLASSES, dtype=np.float32)[labels]
+
+
+@pytest.fixture(scope="module")
+def nets():
+    """Both packages' fc2-16 and a JAX ``init_meanfield`` posterior as numpy."""
+    jarch = jax_build("fc2", "leaky", SHAPE, CLASSES, HIDDEN)
+    tarch = build_architecture("fc2", "leaky", SHAPE, CLASSES, HIDDEN)
+    jpost = to_np(jax_svi.init_meanfield(jax.random.key(0), jarch.init(jax.random.key(1))))
+    return jarch, tarch, jpost
+
+
+def test_kl_and_masked_loglik_match_jax(nets):
+    _, _, jpost = nets
+    ours = gaussian_kl_to_std_normal(meanfield_from_numpy(*jpost))
+    ref = jax_svi.gaussian_kl_to_std_normal(jpost)
+    np.testing.assert_allclose(float(ours), float(ref), rtol=1e-5)
+
+    rng = np.random.default_rng(1)
+    logits = (3 * rng.normal(size=(7, CLASSES))).astype(np.float32)
+    labels = rng.integers(0, CLASSES, 7)
+    mask = np.array([1, 1, 1, 1, 1, 0, 0], np.float32)
+    for m in (None, mask):
+        ours = categorical_loglik_sum(torch.from_numpy(logits), torch.from_numpy(labels),
+                                      None if m is None else torch.from_numpy(m))
+        ref = jax_svi.categorical_loglik_sum(logits, labels, m)
+        np.testing.assert_allclose(float(ours), float(ref), rtol=1e-5)
+
+
+def test_elbo_loss_and_gradient_match_jax(nets):
+    """Given the eps JAX's ``normal_like_tree(k_elbo, loc)`` draws, the port's
+    negative ELBO and its gradient in all 12 leaves equal JAX's, padded rows masked."""
+    jarch, tarch, jpost = nets
+    x, y = data(9)
+    labels = y.argmax(-1)
+    mask = np.array([1] * 7 + [0] * 2, np.float32)
+    key = jax.random.key(5)
+    loss_ref, grads_ref = jax.value_and_grad(
+        lambda p: jax_svi.elbo_loss(jarch.apply, p, key, x, labels, mask)
+    )(jax_svi.MeanFieldPosterior(*jpost))
+    eps = to_torch(jax_normal_like_tree(key, jpost.loc))
+
+    post = meanfield_from_numpy(*jpost)
+    for v in post_leaves(post):
+        v.requires_grad_(True)
+    loss = elbo_loss(tarch.apply, post, eps, torch.from_numpy(x), torch.from_numpy(labels),
+                     torch.from_numpy(mask))
+    grads = torch.autograd.grad(loss, post_leaves(post))
+    np.testing.assert_allclose(float(loss.detach()), float(loss_ref), rtol=1e-5)
+    for got, want in zip(grads, jax.tree_util.tree_leaves(grads_ref), strict=True):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def replayed_draws(epoch_key, loc, n, batch_size, train_acc_samples):
+    """The permutation and the per-step noise that JAX's ``_svi_epoch`` draws
+    from ``epoch_key`` (``svi.py:146-176``), as an :class:`EpochDraws`."""
+    perm_key, scan_key = jax.random.split(epoch_key)
+    perm = np.asarray(jax.random.permutation(perm_key, n))
+    elbo_eps, acc_eps = [], []
+    for k in jax.random.split(scan_key, -(-n // batch_size)):
+        k_elbo, k_acc = jax.random.split(k)
+        elbo_eps.append(to_torch(jax_normal_like_tree(k_elbo, loc)))
+        draws = [jax_normal_like_tree(sk, loc) for sk in jax.random.split(k_acc, train_acc_samples)]
+        acc_eps.append(to_torch(jax.tree_util.tree_map(lambda *e: np.stack(e), *draws)))
+    return EpochDraws(torch.tensor(perm), elbo_eps, acc_eps)
+
+
+def test_svi_train_matches_jax_with_its_draws_replayed(nets):
+    """``svi_train`` against JAX's, both from JAX's init for seed 3, two epochs
+    of five steps (the last batch padded), with JAX's permutation and step noise
+    replayed. ``torch.optim.Adam`` rounds m̂/(√v̂ + eps) in another order than
+    optax, and each step's update is near ±lr whatever the gradient's scale, so
+    an entry whose gradient is near 0 can move by about 1e-4·lr more or less per
+    step: the posteriors agree to 1e-3 of lr = 1e-2 after ten steps, the summed
+    loss to 1e-5 relative, and the 4-draw accuracy to at most one row of 300."""
+    jarch, tarch, _ = nets
+    x, y = data()
+    seed, epochs, lr, acc_samples = 3, 2, 1e-2, 4
+    post_ref, hist_ref = jax_svi.svi_train(
+        jarch, x, y, epochs=epochs, lr=lr, batch_size=BATCH, seed=seed,
+        train_acc_samples=acc_samples, verbose=False,
+    )
+    init_key, train_key = jax.random.split(make_key(seed))
+    init = to_np(jax_svi.init_meanfield(init_key, jarch.init(jax.random.key(0))))
+    post, hist = svi_train(
+        tarch, x, y, epochs=epochs, lr=lr, batch_size=BATCH, train_acc_samples=acc_samples,
+        verbose=False, device="cpu", init=meanfield_from_numpy(*init),
+        draws=lambda e: replayed_draws(jax.random.fold_in(train_key, e), init.loc, N_ROWS, BATCH, acc_samples),
+    )
+    for got, want, start in zip(post_leaves(post), jax.tree_util.tree_leaves(post_ref),
+                                jax.tree_util.tree_leaves(init), strict=True):
+        assert not np.array_equal(np.asarray(want), start)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-3 * lr)
+    np.testing.assert_allclose(hist["loss"], hist_ref["loss"], rtol=1e-5)
+    for acc, acc_ref in zip(hist["accuracy"], hist_ref["accuracy"], strict=True):
+        assert abs(acc - acc_ref) <= 100.0 / N_ROWS + 1e-9
+
+
+def test_fused_s1_gradient_is_the_elbo_likelihood_gradient(nets):
+    """At S = 1 the gradient of −Σ log p(y | x, w) through the fused
+    sampled-dense ops (their dparams twins) equals autograd through the
+    materialised network on the same eps, in the port and in JAX. rho near −1:
+    the noise term is exercised."""
+    jarch, tarch, jpost = nets
+    rng = np.random.default_rng(4)
+    loc = to_np(jarch.init(jax.random.key(2)))
+    rho = jax.tree_util.tree_map(lambda p: (rng.normal(size=p.shape) * 0.3 - 1.0).astype(np.float32), loc)
+    x, y = data(12, seed=4)
+    labels = torch.from_numpy(y.argmax(-1))
+    seed = 21
+    eps = []
+    for li, (i_dim, o_dim) in enumerate(tarch.dims):
+        e = sampled_noise(layer_seed(seed, li), 1, i_dim + 1, o_dim, "cpu")[0]
+        eps.append({"w": e[:i_dim], "b": e[i_dim]})
+    eps = tuple(eps)
+
+    def grads(loss_of):
+        post = meanfield_from_numpy(loc, rho)
+        for v in post_leaves(post):
+            v.requires_grad_(True)
+        return torch.autograd.grad(loss_of(post), post_leaves(post))
+
+    xt = torch.from_numpy(x)
+    fused = grads(lambda p: -categorical_loglik_sum(fused_logits(tarch, p, xt, 1, seed)[0], labels))
+    dense = grads(lambda p: -categorical_loglik_sum(tarch.apply(sample_meanfield_eps(p, eps), xt), labels))
+    eps_np = to_np(eps)
+    ref = jax.grad(lambda p: -jax_svi.categorical_loglik_sum(
+        jarch.apply(jax.tree_util.tree_map(lambda m, r, e: m + jax.nn.softplus(r) * e, p.loc, p.rho, eps_np), x),
+        jnp.asarray(y.argmax(-1)),
+    ))(jax_svi.MeanFieldPosterior(loc, rho))
+    for got, mat, want in zip(fused, dense, jax.tree_util.tree_leaves(ref), strict=True):
+        np.testing.assert_allclose(got.numpy(), mat.numpy(), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    assert max(float(g.abs().max()) for g in fused[len(fused) // 2:]) > 1e-2  # drho is not ~0
+
+
+def test_svi_train_is_deterministic_given_a_seed(nets):
+    """The same seed gives the same posterior and history, another seed another;
+    the leaves come back detached, so a later attack asks for no parameter gradient."""
+    _, tarch, _ = nets
+    x, y = data()
+    run = lambda seed: svi_train(tarch, x, y, epochs=2, lr=1e-2, batch_size=BATCH, seed=seed,  # noqa: E731
+                                 train_acc_samples=2, verbose=False, device="cpu")
+    (p1, h1), (p2, h2), (p3, _) = run(0), run(0), run(1)
+    assert all(torch.equal(a, b) for a, b in zip(post_leaves(p1), post_leaves(p2)))
+    assert (h1["loss"], h1["accuracy"]) == (h2["loss"], h2["accuracy"])
+    assert len(h1["seconds"]) == 2 and min(h1["seconds"]) > 0
+    assert not all(torch.equal(a, b) for a, b in zip(post_leaves(p1), post_leaves(p3)))
+    assert not any(v.requires_grad for v in post_leaves(p1))
+    with pytest.raises(NotImplementedError, match="mesh"):
+        svi_train(tarch, x, y, epochs=1, lr=1e-2, mesh="auto", device="cpu")
+
+
+def test_train_acc_bf16_is_metric_only(nets):
+    """As ``tests/test_svi.py``: the bf16 accuracy predictive leaves the
+    optimisation untouched, and the metric moves by near-ties only."""
+    _, tarch, _ = nets
+    x, y = data()
+    runs = [
+        svi_train(tarch, x, y, epochs=2, lr=1e-2, batch_size=BATCH, train_acc_bf16=bf16,
+                  verbose=False, device="cpu")
+        for bf16 in (False, True)
+    ]
+    (post_a, hist_a), (post_b, hist_b) = runs
+    assert all(torch.equal(a, b) for a, b in zip(post_leaves(post_a), post_leaves(post_b)))
+    assert hist_a["loss"] == hist_b["loss"]
+    for acc_a, acc_b in zip(hist_a["accuracy"], hist_b["accuracy"]):
+        assert abs(acc_a - acc_b) <= 2.0
+
+
+CFG = config.BNNConfig("mnist", HIDDEN, "leaky", "fc2", "svi", epochs=1, lr=1e-2)
+
+
+def _jax_draws_as_eps(loc, seeds):
+    """JAX's seeded draws (``resolve_sample_keys``) as a stacked noise tree."""
+    keys = jax_resolve_sample_keys(len(seeds), None, seeds)
+    draws = [jax_normal_like_tree(k, loc) for k in keys]
+    return to_torch(jax.tree_util.tree_map(lambda *e: np.stack([np.asarray(a) for a in e]), *draws))
+
+
+@pytest.mark.parametrize("trained_by", ["port", "jax"])
+def test_trained_posterior_crosses_packages(tmp_path, trained_by):
+    """A posterior trained by one package, saved with its ``save`` and loaded
+    by the other's ``BNN.load``, gives the same seeded predictive (JAX's draws
+    for seeds 0-2 injected into the port) and the same mean-network logits. The
+    N(0, 1) init gives logits up to ~50, held to 1e-5 of their largest: f32
+    sums of 36- and 16-term products, ordered differently."""
+    x, y = data()
+    rel = str(tmp_path)
+    ours = BNN.from_config(CFG, SHAPE, CLASSES, device="cpu")
+    ref = JaxBNN.from_config(JaxBNNConfig(**dataclasses.asdict(CFG)), SHAPE, CLASSES)
+    trainer, loader = (ours, ref) if trained_by == "port" else (ref, ours)
+    trainer.train(x, y, batch_size=BATCH, verbose=False)
+    trainer.save(rel_path=rel)
+    loader.load(rel_path=rel)
+    assert not any(v.requires_grad for v in post_leaves(ours.posterior))
+    for a, b in zip(post_leaves(ours.posterior), jax.tree_util.tree_leaves(ref.posterior), strict=True):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+    seeds = [0, 1, 2]
+    want = np.asarray(ref.forward(x, n_samples=3, seeds=seeds))
+    got = svi_predict(ours.arch, ours.posterior, torch.from_numpy(x),
+                      eps=_jax_draws_as_eps(to_np(ref.posterior.loc), seeds))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    logits = np.asarray(ref.forward(x, avg_posterior=True))
+    np.testing.assert_allclose(ours.forward(torch.from_numpy(x), avg_posterior=True).numpy(), logits,
+                               rtol=0, atol=1e-5 * np.abs(logits).max())
