@@ -10,27 +10,34 @@ Phases, each fatal on failure:
 1. device: a CUDA card, its name and power limit, exact f32 (no TF32);
 2. build: every kernel under ``robustbnns_tpu_torch/csrc`` with nvcc;
 3. kernels: each of the six sampled-dense kernels against its plain PyTorch
-   twin on the card, at the shapes ``model_7`` (fc2-1024) gives it, with times;
-4. predictive: the fused fc2-1024 predictive and its input gradient through the
+   twin on the card, at the shapes ``model_7`` (fc2-1024) gives it, with
+   times: device time (a CUDA graph of 20 calls) of the kernel, its twin and
+   one library call, and ``call_ms``, one kernel call on an idle stream;
+4. dx edges: the two input-gradient kernels at edge shapes (one row, O = 13,
+   the head at S = 1, S = 100, B = 2048, O = 4000) against their twins,
+   bit-identical across calls, and dx against the sum of dxs;
+5. predictive: the fused fc2-1024 predictive and its input gradient through the
    kernels against the plain twins composed the same way;
-5. parameter gradient: the gradient of the fused predictive's cross-entropy
+6. parameter gradient: the gradient of the fused predictive's cross-entropy
    with respect to all 12 posterior leaves, through the dparams kernels,
    against the composed twins at S = 10; and at S = 1 the fused gradient of
    -sum log p(y | x, w) against autograd of the materialised network on the
    same noise, the identity that ties the kernels to SVI training; the
    dparams kernels must launch and the dx kernel of the unasked input must not;
-6. main path: Bayesian FGSM and 40-step PGD on ``model_7`` through the attack
+7. main path: Bayesian FGSM and 40-step PGD on ``model_7`` through the attack
    CLI with ``--fused=True``, on a seeded random posterior written with the
    port's own ``save``; the four attack kernels must launch, the dparams
    kernels must not;
-7. training: ``model_7`` trained at full width for its 5 configured epochs on
+   then the wall clock of 40-step PGD (median of three) against the device
+   time of its kernels (``torch.profiler``);
+8. training: ``model_7`` trained at full width for its 5 configured epochs on
    60,000 surrogate MNIST images through the attack CLI with ``--train=True``,
    then attacked by PGD: a finite, falling loss, a posterior that moved and
    carries no ``requires_grad``, and no dparams launch during the attack;
    then the wall and device time of 20 SVI steps (``torch.profiler``);
-8. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
-   ``launches`` counts the dparams kernels over phase 5 and the others over
-   phase 6.
+9. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
+   ``launches`` counts the dparams kernels over phase 6 and the others over
+   phase 7.
 
 Imports nothing of JAX. Writes only under a temporary directory and the
 kernel build directory ``build/kernels``.
@@ -78,8 +85,9 @@ def check_close(name: str, got, ref, rtol: float, atol: float) -> float:
     return max_err
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event timings."""
+def call_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of per-call CUDA-event timings on an idle stream: what a caller
+    waits for, the host's work before the launch included."""
     for _ in range(warmup):
         fn()
     times = []
@@ -90,6 +98,37 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call: ``calls`` back-to-back calls captured in one
+    CUDA graph, replayed between two CUDA events; the median over ``replays``
+    replays, divided by ``calls``. A spin kernel ahead of the start event keeps
+    the host's launch of the graph out of the window, and the graph removes the
+    host's work between calls, so a kernel and a library call are timed alike."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream, as torch.cuda.graph asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)  # about 0.5 ms: the replay is queued before start fires
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -150,21 +189,24 @@ def phase_kernels(torch) -> dict:
             atol_k = ATOL_OF_MAX * float(ref_k.abs().max())
             err = max(err, check_close(f"{name} {shape} output {k}", got_k, ref_k, RTOL, atol_k))
             atol = max(atol, atol_k)
-        ms, plain_ms, lib_ms = time_ms(torch, run), time_ms(torch, plain), time_ms(torch, lib)
+        c_ms = call_ms(torch, run)
+        ms, plain_ms, lib_ms = device_ms(torch, run), device_ms(torch, plain), device_ms(torch, lib)
         b_ms, b_by = bound_ms(flops, nbytes)
         print(f"[kernel] {name} {shape}: max|err| {err:.3e} (tol {atol:.3e} + {RTOL:.0e}|ref|) "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              f"kernel {ms:.4f} ms (call {c_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% of the kernel)")
         r = results.setdefault(name, {
             "name": name, "route": "cuda", "source": route_src, "replaces": replaces,
-            "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-            "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0, "library_ms": 0.0, "shapes": [],
+            "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0,
+            "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0, "library_ms": 0.0, "per_shape": [],
         })
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+        for key, v in (("ms", ms), ("call_ms", c_ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                        ("bound_ms", b_ms), ("flops", flops), ("bytes", nbytes)):
             r[key] += v
-        r["shapes"].append(shape)
+        r["per_shape"].append({"shape": shape, "ms": ms, "call_ms": c_ms, "plain_ms": plain_ms,
+                               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                               "max_abs_err": err})
 
     fwd_src = "robustbnns_tpu_torch/csrc/sampled_dense_fwd.cu"
     dx_src = "robustbnns_tpu_torch/csrc/sampled_dense_dx.cu"
@@ -228,6 +270,50 @@ def phase_kernels(torch) -> dict:
                    flops, dp_bytes(S * B * i_dim, i_dim, o_dim))
     torch.cuda.synchronize()
     return results
+
+
+# (B, I, O, S) beyond the main path: one row, the ragged narrow path, the head
+# at S = 1, S = 100, a batch of 16 row tiles, and an O whose whole
+# softplus(rho) slice fits no block's shared memory
+DX_EDGE_SHAPES = ((1, 784, 1024, 10), (37, 784, 13, 3), (128, 1024, 10, 1),
+                  (128, 784, 1024, 100), (2048, 784, 1024, 10), (64, 256, 4000, 2))
+
+
+def _plan_text(plan) -> str:
+    return "narrow" if plan.narrow else f"{plan.n_split} runs a tile, {math.prod(plan.grid)} blocks"
+
+
+def phase_dx_edges(torch) -> None:
+    """The two dx kernels at edge shapes: against their twins, bit-identical
+    across two calls, and dx against the sum over samples of dxs."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seed = 77
+    for b, i, o, s in DX_EDGE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(b * 7919 + i * 31 + o)
+        loc, rho, _, _ = _layer_inputs(torch, gen, i, o)
+        g = torch.randn((s, b, o), generator=gen, device="cuda")
+        args = (g, loc, rho, s, seed)
+        shape = f"B={b} I={i} O={o} S={s}"
+        dx, dxs = sd.sampled_dense_dx(*args), sd.sampled_dense_xs_dx(*args)
+        if not (torch.equal(dx, sd.sampled_dense_dx(*args)) and torch.equal(dxs, sd.sampled_dense_xs_dx(*args))):
+            fail(f"[dx-edge] {shape}: two calls differ")
+        errs = []
+        for name, got, ref in (("sampled_dense_dx", dx, sd.sampled_dense_dx_plain(*args)),
+                               ("sampled_dense_xs_dx", dxs, sd.sampled_dense_xs_dx_plain(*args)),
+                               ("dx against the sum of dxs", dx, dxs.sum(0))):
+            if not bool(torch.isfinite(got).all()):
+                fail(f"[dx-edge] {name} {shape}: non-finite values")
+            errs.append(check_close(f"[dx-edge] {name} {shape}", got, ref, RTOL,
+                                    ATOL_OF_MAX * float(ref.abs().max())))
+        plans = [sd.dx_plan(s, b, i, o, sms, summed) for summed in (True, False)]
+        times = [device_ms(torch, lambda: sd.sampled_dense_dx(*args), calls=5, replays=3),
+                 device_ms(torch, lambda: sd.sampled_dense_xs_dx(*args), calls=5, replays=3)]
+        print(f"[dx-edge] {shape}: max|err| dx {errs[0]:.3e}, dxs {errs[1]:.3e}, dx - sum dxs "
+              f"{errs[2]:.3e}; bit-identical repeat; dx {times[0]:.4f} ms ({_plan_text(plans[0])}), "
+              f"dxs {times[1]:.4f} ms ({_plan_text(plans[1])})")
+    del dx, dxs, g
+    torch.cuda.empty_cache()
 
 
 def model7_posterior(torch, arch, rel_scale: float = 1e-2, rho_spread: float = 0.0):
@@ -408,6 +494,46 @@ def phase_main_path(torch, workdir: str) -> dict:
     return counts
 
 
+def phase_attack_profile(torch) -> None:
+    """Wall clock and device time of 40-step PGD at model_7's widths, as the
+    CLI runs it (256 images in batches of 128, S = 10, fused): the median
+    wall time of three unprofiled attacks, and the device time of their
+    kernels under ``torch.profiler`` in a fourth."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from robustbnns_tpu_torch.attacks.gradient_attacks import attack
+    from robustbnns_tpu_torch.config import saved_BNNs
+    from robustbnns_tpu_torch.models.bnn import BNN
+
+    bnn = BNN.from_config(saved_BNNs["model_7"], (28, 28, 1), 10, device="cuda")
+    bnn.posterior = model7_posterior(torch, bnn.arch)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    n, iters = 2 * B, 2 * 40
+    x = torch.rand((n, 28, 28, 1), generator=gen, device="cuda")
+    y = torch.nn.functional.one_hot(torch.randint(0, 10, (n,), generator=gen, device="cuda"), 10).float()
+    run = lambda: attack(bnn, x, y, method="pgd", n_samples=S, fused=True, save=False, verbose=False)  # noqa: E731
+    run()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device_us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                    for e in prof.key_averages())
+    if device_us <= 0:
+        fail("[attack-profile] torch.profiler saw no device time")
+    wall = statistics.median(walls)
+    it_ms, dev_ms = 1e3 * wall / iters, 1e-3 * device_us / iters
+    print(f"[attack-profile] PGD, 40 steps on {n} images, S={S}: {n / wall:.1f} images/s (median of "
+          f"{[round(n / w, 1) for w in walls]}); an iteration {it_ms:.3f} ms wall, {dev_ms:.3f} ms of "
+          f"device kernels (device idle {100 * (1 - dev_ms / it_ms):.1f}% of the iteration)")
+
+
 def phase_training(torch) -> None:
     """Train model_7 through the attack CLI, then attack the trained posterior."""
     from robustbnns_tpu_torch.cli import attacks as cli
@@ -503,19 +629,22 @@ def main() -> None:
         phase_device(torch)
         phase_build()
         kernels = phase_kernels(torch)
+        phase_dx_edges(torch)
         phase_predictive(torch)
         grad_counts = phase_param_grad(torch)
         counts = phase_main_path(torch, workdir)
+        phase_attack_profile(torch)
         phase_training(torch)
         phase_train_profile(torch)
     line = []
     for name, r in kernels.items():
         line.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
-            "launches": (grad_counts if name in DPARAMS else counts)[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": (grad_counts if name in DPARAMS else counts)[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": bound_ms(r["flops"], r["bytes"])[1], "library_ms": r["library_ms"],
-            "shapes": r["shapes"],
+            "per_shape": r["per_shape"],
         })
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

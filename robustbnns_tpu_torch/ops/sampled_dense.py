@@ -40,6 +40,7 @@ can drop one by one (``sampled_dense.py:252-254``).
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -166,18 +167,24 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _SIGNATURES = {
     "sampled_dense_fwd": ("sampled_dense_fwd.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_xs_fwd": ("sampled_dense_fwd.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_dx": ("sampled_dense_dx.cu", [_P] * 4 + [_I] * 4 + [_U, _P]),
-    "sampled_dense_xs_dx": ("sampled_dense_dx.cu", [_P] * 4 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_dx": ("sampled_dense_dx.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_xs_dx": ("sampled_dense_dx.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_dparams": ("sampled_dense_dparams.cu", [_P] * 8 + [_I] * 4 + [_U, _P]),
     "sampled_dense_xs_dparams": ("sampled_dense_dparams.cu", [_P] * 8 + [_I] * 4 + [_U, _P]),
 }
 
 
+_bound: dict[str, ctypes._CFuncPtr] = {}
+
+
 def _kernel(name: str):
-    source, argtypes = _SIGNATURES[name]
-    fn = getattr(library(source), name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn
+    """The C entry point ``name``, typed once per process."""
+    if name not in _bound:
+        source, argtypes = _SIGNATURES[name]
+        fn = getattr(library(source), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _bound[name] = fn
+    return _bound[name]
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -226,6 +233,88 @@ def _tiles(rows: int, cols: int) -> int:
     return -(-rows // _ROWS) * -(-cols // _COLS)
 
 
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# Geometry of the dx kernels (csrc/sampled_dense_dx.cu): a wide block owns 128
+# batch rows x 64 inputs with 128 threads (four fit on an SM) and walks work
+# units (s, c), c a chunk of 16 outputs; O <= 16 takes the narrow path, 128
+# rows x 32 inputs a block.
+DX_ROWS, DX_COLS, DX_DEPTH, DX_BLOCKS_PER_SM, DX_MAX_SPLIT = 128, 64, 16, 4, 48
+NARROW_MAX_O, NARROW_COLS, NARROW_ROWS = 16, 32, 128
+
+
+@dataclass(frozen=True)
+class DxPlan:
+    """Launch geometry of one dx call.
+
+    ``n_split``: runs per output tile. dx splits the tile's S·C work units into
+    ``n_split`` runs and sums their partial tiles; dxs splits each sample's C
+    chunks into ``n_split`` runs. ``scratch``: the partials' shape, ``()``
+    when a block writes its tile to the output itself.
+    """
+
+    narrow: bool
+    n_split: int
+    grid: tuple[int, int, int]
+    scratch: tuple[int, ...]
+    units: int  # S * C, the work units of one output tile
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def dx_plan(n_samples: int, b_dim: int, i_dim: int, o_dim: int, sms: int, sum_samples: bool) -> DxPlan:
+    """Where each (s, o-chunk) of the dx kernels runs, for a card with ``sms`` SMs.
+
+    The wide path splits each tile's work until the grid fills the SMs'
+    ``DX_BLOCKS_PER_SM`` slots: dx into at most :data:`DX_MAX_SPLIT` runs,
+    whatever S is; dxs only while it has fewer than three blocks an SM, so
+    its partials stay within about ``2·DX_BLOCKS_PER_SM·sms`` tiles.
+    """
+    chunks = _cdiv(o_dim, DX_DEPTH)
+    units = n_samples * chunks
+    if o_dim <= NARROW_MAX_O:
+        grid = (_cdiv(i_dim, NARROW_COLS), 1 if sum_samples else n_samples, _cdiv(b_dim, NARROW_ROWS))
+        return DxPlan(True, 1, grid, (), units)
+    tiles = _cdiv(i_dim, DX_COLS) * _cdiv(b_dim, DX_ROWS)
+    if sum_samples:
+        n_split = max(1, min(units, DX_MAX_SPLIT, DX_BLOCKS_PER_SM * sms // tiles))
+        rows, scratch = n_split, (n_split, b_dim, i_dim)
+    else:
+        tasks = tiles * n_samples
+        n_split = 1 if tasks >= 3 * sms else min(chunks, _cdiv(3 * sms, tasks))
+        rows, scratch = n_samples * n_split, (n_split, n_samples, b_dim, i_dim)
+    grid = (_cdiv(i_dim, DX_COLS), rows, _cdiv(b_dim, DX_ROWS))
+    return DxPlan(False, n_split, grid, scratch if n_split > 1 else (), units)
+
+
+def dx_unit_runs(plan: DxPlan, n_samples: int, sum_samples: bool) -> list[range]:
+    """The work units ``s * C + c`` of one output tile, per block row, as the
+    wide kernel computes them: dx splits all S·C units into ``n_split`` runs,
+    dxs the C chunks of each sample (block row ``s * n_split + run``)."""
+    if sum_samples:
+        return [range(plan.units * y // plan.n_split, plan.units * (y + 1) // plan.n_split)
+                for y in range(plan.n_split)]
+    chunks = plan.units // n_samples
+    return [range(s * chunks + chunks * y // plan.n_split, s * chunks + chunks * (y + 1) // plan.n_split)
+            for s in range(n_samples) for y in range(plan.n_split)]
+
+
+def _dx_launch(name: str, g, loc, rho, n_samples: int, seed: int, sum_samples: bool) -> torch.Tensor:
+    (_, b_dim, o_dim), i_dim = g.shape, loc.shape[0]
+    plan = dx_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(g.device), sum_samples)
+    out = torch.empty((b_dim, i_dim) if sum_samples else (n_samples, b_dim, i_dim), device=g.device)
+    sp = None if plan.narrow else torch.empty_like(rho)
+    partials = torch.empty(plan.scratch, device=g.device) if plan.scratch else None
+    _launch(name, g.device, g.data_ptr(), loc.data_ptr(), rho.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in (sp, partials)), out.data_ptr(),
+            n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
+    return out
+
+
 def sampled_dense_fwd(x, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
     """Pallas ``_fwd_kernel`` (``robustbnns_tpu/ops/sampled_dense.py:99``) ->
     ``csrc/sampled_dense_fwd.cu``. (B, I) -> (S, B, O).
@@ -251,11 +340,20 @@ def sampled_dense_fwd(x, loc, rho, bloc, brho, n_samples: int, seed: int) -> tor
 
 
 def sampled_dense_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
-    """Pallas ``_bwd_dx_kernel`` (``sampled_dense.py:114``) ->
+    """Pallas ``_bwd_dx_kernel`` (``robustbnns_tpu/ops/sampled_dense.py:114``) ->
     ``csrc/sampled_dense_dx.cu``. g (S, B, O) -> dx (B, I) = Σ_s g_s W_sᵀ.
 
-    Bound on the H100: S·B·I·O exact-f32 FMAs on the FFMA pipe; the sum over
-    samples is a loop inside each block (deterministic, no atomics).
+    Bound on the H100: S·B·I·O exact-f32 FMAs on the FFMA pipe (1.03 G at the
+    first layer of fc2-1024, B=128, S=10), plus S·I·O normals drawn in the
+    kernel, each feeding only B FMAs and costing about 57 instructions.
+    Design (:func:`dx_plan`): 128 x 64 output tiles, 8 x 8 per thread, walk
+    work units of 16 outputs double-buffered through shared memory; each
+    tile's S·⌈O/16⌉ units are split into ``n_split`` runs on as many blocks to
+    fill the SMs; each run writes a partial tile to a scratch, and a second
+    kernel sums the partials in a fixed order (no atomics: bit-identical from
+    call to call). softplus(rho) is computed once per call into an (I, O)
+    scratch; O <= 16 takes a narrow path that sums over S in registers.
+    A call launches up to three CUDA kernels and counts one launch.
     """
     _check_params(loc, rho)
     if g.dim() != 3 or g.shape[0] != n_samples or g.shape[2] != loc.shape[1]:
@@ -263,10 +361,7 @@ def sampled_dense_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
     if _on_cpu(g, loc, rho):
         return sampled_dense_dx_plain(g, loc, rho, n_samples, seed)
     _check_cuda(g, loc, rho)
-    (_, b_dim, o_dim), i_dim = g.shape, loc.shape[0]
-    dx = torch.empty((b_dim, i_dim), device=g.device, dtype=torch.float32)
-    _launch("sampled_dense_dx", g.device, g.data_ptr(), loc.data_ptr(), rho.data_ptr(),
-            dx.data_ptr(), n_samples, b_dim, i_dim, o_dim, seed & _MASK)
+    dx = _dx_launch("sampled_dense_dx", g, loc, rho, n_samples, seed, sum_samples=True)
     sampled_dense_dx.launches += 1
     return dx
 
@@ -295,11 +390,18 @@ def sampled_dense_xs_fwd(xs, loc, rho, bloc, brho, n_samples: int, seed: int) ->
 
 
 def sampled_dense_xs_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
-    """Pallas ``_bwd_xs_dx_kernel`` (``sampled_dense.py:362``) ->
-    ``csrc/sampled_dense_dx.cu``. g (S, B, O) -> dxs (S, B, I) = g_s W_sᵀ.
+    """Pallas ``_bwd_xs_dx_kernel`` (``robustbnns_tpu/ops/sampled_dense.py:362``)
+    -> ``csrc/sampled_dense_dx.cu``. g (S, B, O) -> dxs (S, B, I) = g_s W_sᵀ.
 
-    Bound on the H100: S·B·I·O exact-f32 FMAs on the FFMA pipe; samples are
-    spread over blocks to fill the SMs, softplus(rho) stays on chip within one.
+    Bound on the H100: S·B·I·O exact-f32 FMAs on the FFMA pipe at the hidden
+    layer of fc2-1024 (1.34 G) plus its S·I·O normals; the 5.2 MB write of
+    dxs at the 10-class head. Design (:func:`dx_plan`): the wide kernel of
+    :func:`sampled_dense_dx` with one sample per block; while the grid has
+    fewer than three blocks an SM, each sample's chunks of O are split into
+    runs whose partial tiles a second kernel sums in a fixed order
+    (bit-identical from call to call). O <= 16 takes a narrow path: 128 rows
+    x 32 inputs a block, one Philox quad a thread, 128-byte lines of dxs. A
+    call launches up to three CUDA kernels and counts one launch.
     """
     _check_params(loc, rho)
     if g.dim() != 3 or g.shape[0] != n_samples or g.shape[2] != loc.shape[1]:
@@ -307,11 +409,7 @@ def sampled_dense_xs_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
     if _on_cpu(g, loc, rho):
         return sampled_dense_xs_dx_plain(g, loc, rho, n_samples, seed)
     _check_cuda(g, loc, rho)
-    (_, b_dim, o_dim), i_dim = g.shape, loc.shape[0]
-    dxs = torch.empty((n_samples, b_dim, i_dim), device=g.device, dtype=torch.float32)
-    spb = _samples_per_block(n_samples, _tiles(b_dim, i_dim), g.device)
-    _launch("sampled_dense_xs_dx", g.device, g.data_ptr(), loc.data_ptr(), rho.data_ptr(),
-            dxs.data_ptr(), n_samples, b_dim, i_dim, o_dim, seed & _MASK, spb)
+    dxs = _dx_launch("sampled_dense_xs_dx", g, loc, rho, n_samples, seed, sum_samples=False)
     sampled_dense_xs_dx.launches += 1
     return dxs
 

@@ -145,3 +145,29 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     wide = torch.zeros((4000, o), device=cuda)  # softplus(rho) tile beyond shared memory
     with pytest.raises(RuntimeError, match="launch"):
         sd.sampled_dense_fwd(torch.zeros((b, 4000), device=cuda), wide, wide, *params[2:], s, 0)
+
+
+DX_EDGE_SHAPES = [  # (B, I, O, S), as chip_smoke.py's dx-edge phase
+    (1, 784, 1024, 10),  # one row of a 128-row tile
+    (37, 784, 13, 3),  # the narrow path, O not a multiple of 4
+    (128, 1024, 10, 1),  # the 10-class head at S = 1
+    (128, 784, 1024, 100),  # S = 100: the partials stay at 20
+    (2048, 784, 1024, 10),  # 16 row tiles
+    (64, 256, 4000, 2),  # an O whose whole softplus(rho) slice fits no block's shared memory
+]
+
+
+@pytest.mark.parametrize("shape", DX_EDGE_SHAPES, ids=lambda s: "B{}_I{}_O{}_S{}".format(*s))
+def test_dx_kernels_at_edge_shapes(cuda, shape):
+    """Both dx kernels against their twins, bit-identical across two calls, and
+    dx against the sum over samples of dxs."""
+    b, i, o, s = shape
+    p = layer(b, i, o, s, cuda)
+    args = (p["g"], p["loc"], p["rho"], s, 31)
+    dx, dxs = sd.sampled_dense_dx(*args), sd.sampled_dense_xs_dx(*args)
+    assert torch.equal(dx, sd.sampled_dense_dx(*args))
+    assert torch.equal(dxs, sd.sampled_dense_xs_dx(*args))
+    assert torch.isfinite(dx).all() and torch.isfinite(dxs).all()
+    assert_close(dx, sd.sampled_dense_dx_plain(*args))
+    assert_close(dxs, sd.sampled_dense_xs_dx_plain(*args))
+    assert_close(dx, dxs.sum(0))

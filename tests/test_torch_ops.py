@@ -12,6 +12,7 @@ Noise moments at S = 256 concentrate to a few percent, as in
 ``tests/test_ops.py``.
 """
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -316,3 +317,67 @@ def test_wrappers_check_shapes(layer):
         sampled_dense_xs_fwd(x, loc, rho, bloc, brho, S, 0)
     with pytest.raises(ValueError, match="all tensors"):  # never a twin on mixed devices
         sampled_dense_fwd(x, loc.to("meta"), rho, bloc, brho, S, 0)
+
+
+# The dx kernels' launch plan (computed in Python, followed by the CUDA kernel)
+PLAN_SHAPES = [  # (S, B, I, O): the main path, the edge shapes of the card tests, tiny ones
+    (10, 128, 784, 1024), (10, 128, 1024, 1024), (10, 128, 1024, 10), (10, 1, 784, 1024),
+    (3, 37, 784, 13), (1, 128, 1024, 10), (100, 128, 784, 1024), (10, 2048, 784, 1024),
+    (2, 64, 256, 4000), (3, 8, 24, 20), (5, 130, 37, 10), (2, 45, 70, 66), (1, 3, 10, 17),
+]
+
+
+@pytest.mark.parametrize("sum_samples", [True, False], ids=["dx", "xs_dx"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "S{}_B{}_I{}_O{}".format(*s))
+def test_dx_plan_covers_every_unit_once(shape, sum_samples):
+    """Every (s, o-chunk) of an output tile is walked by exactly one block row,
+    a dxs run stays inside one sample, and the grid covers B and I."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    s, b, i, o = shape
+    plan = sd.dx_plan(s, b, i, o, 132, sum_samples)
+    chunks = -(-o // sd.DX_DEPTH)
+    assert plan.units == s * chunks
+    if o <= sd.NARROW_MAX_O:
+        assert plan.narrow and plan.n_split == 1 and plan.scratch == ()
+        assert plan.grid[1] == (1 if sum_samples else s)
+        assert plan.grid[0] * sd.NARROW_COLS >= i and plan.grid[2] * sd.NARROW_ROWS >= b
+        return
+    runs = sd.dx_unit_runs(plan, s, sum_samples)
+    assert not plan.narrow and plan.grid[1] == len(runs)
+    walked = [u for run in runs for u in run]
+    assert sorted(walked) == list(range(plan.units)) and all(len(run) > 0 for run in runs)
+    if not sum_samples:
+        assert all(run.start // chunks == (run.stop - 1) // chunks for run in runs)
+    assert plan.grid[0] * sd.DX_COLS >= i > (plan.grid[0] - 1) * sd.DX_COLS
+    assert plan.grid[2] * sd.DX_ROWS >= b > (plan.grid[2] - 1) * sd.DX_ROWS
+    lead = (plan.n_split,) if sum_samples else (plan.n_split, s)
+    assert plan.scratch == ((*lead, b, i) if plan.n_split > 1 else ())
+
+
+@pytest.mark.parametrize("sum_samples", [True, False], ids=["dx", "xs_dx"])
+@pytest.mark.parametrize("b,i,o", [(128, 784, 1024), (2048, 784, 1024), (1, 70, 36), (37, 784, 13)])
+def test_dx_plan_scratch_does_not_grow_with_samples(b, i, o, sum_samples):
+    """The partial sums stay within a bound set by the card, whatever S is (a
+    per-sample scratch for dx at S = 100, B = 2048 would be 642 MB): dx's at
+    most DX_MAX_SPLIT tiles of (B, I), dxs's only while the grid is small."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    sizes = [math.prod(sd.dx_plan(s, b, i, o, 132, sum_samples).scratch or (0,)) for s in (1, 10, 100, 1000)]
+    if sum_samples:
+        assert max(sizes) <= sd.DX_MAX_SPLIT * b * i
+        assert sizes == sorted(sizes) and sizes[2] == sizes[3]  # capped: S = 100 and 1000 alike
+    else:
+        assert max(sizes) <= 2 * sd.DX_BLOCKS_PER_SM * 132 * sd.DX_ROWS * sd.DX_COLS
+        assert sizes[3] == 0
+
+
+def test_dx_plan_fills_the_card_at_the_main_path():
+    """At model_7's shapes (B = 128, S = 10) on 132 SMs: dx's 13 tiles split
+    into 40 runs fill the four block slots of nearly every SM; dxs's 160 tiles
+    at the hidden layer split in three; the head takes the narrow path."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    plan = sd.dx_plan(10, 128, 784, 1024, 132, True)
+    assert (plan.n_split, math.prod(plan.grid), plan.scratch) == (40, 520, (40, 128, 784))
+    xs = sd.dx_plan(10, 128, 1024, 1024, 132, False)
+    assert (xs.n_split, math.prod(xs.grid)) == (3, 480)
+    head = sd.dx_plan(10, 128, 1024, 10, 132, False)
+    assert head.narrow and head.grid == (32, 10, 1)
