@@ -13,8 +13,11 @@ Phases, each fatal on failure:
    twin on the card, at the shapes ``model_7`` (fc2-1024) gives it, with
    times: device time (a CUDA graph of 20 calls) of the kernel, its twin and
    one library call, and ``call_ms``, one kernel call on an idle stream;
-4. dx edges: the two input-gradient kernels at edge shapes (one row, O = 13,
-   the head at S = 1, S = 100, B = 2048, O = 4000) against their twins,
+4. edges: the two forward kernels at edge shapes (one row, O = 13, the head
+   at S = 1, S = 100, B = 2048, I = 3072, the Half Moons widths) against their
+   twins, bit-identical across calls, and xs_fwd on a broadcast x equal to
+   fwd; the two input-gradient kernels at edge shapes (one row, O = 13, the
+   head at S = 1, S = 100, B = 2048, O = 4000) against their twins,
    bit-identical across calls, and dx against the sum of dxs;
 5. predictive: the fused fc2-1024 predictive and its input gradient through the
    kernels against the plain twins composed the same way;
@@ -273,6 +276,12 @@ def phase_kernels(torch) -> dict:
 
 
 # (B, I, O, S) beyond the main path: one row, the ragged narrow path, the head
+# at S = 1, S = 100, a batch of 16 row tiles, CIFAR-10's input width (beyond
+# what a per-block softplus(rho) slice in shared memory allows), and the Half
+# Moons hidden layer and head
+FWD_EDGE_SHAPES = ((1, 784, 1024, 10), (37, 784, 13, 3), (128, 1024, 10, 1), (128, 784, 1024, 100),
+                   (2048, 784, 1024, 10), (64, 3072, 512, 2), (100, 2, 32, 10), (100, 32, 2, 10))
+# (B, I, O, S) beyond the main path: one row, the ragged narrow path, the head
 # at S = 1, S = 100, a batch of 16 row tiles, and an O whose whole
 # softplus(rho) slice fits no block's shared memory
 DX_EDGE_SHAPES = ((1, 784, 1024, 10), (37, 784, 13, 3), (128, 1024, 10, 1),
@@ -280,7 +289,42 @@ DX_EDGE_SHAPES = ((1, 784, 1024, 10), (37, 784, 13, 3), (128, 1024, 10, 1),
 
 
 def _plan_text(plan) -> str:
-    return "narrow" if plan.narrow else f"{plan.n_split} runs a tile, {math.prod(plan.grid)} blocks"
+    return ("narrow, " if plan.narrow else "") + f"{plan.n_split} runs a tile, {math.prod(plan.grid)} blocks"
+
+
+def phase_fwd_edges(torch) -> None:
+    """The two forward kernels at edge shapes: against their twins,
+    bit-identical across two calls, and xs_fwd on a broadcast x equal to fwd."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seed = 78
+    for b, i, o, s in FWD_EDGE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(b * 7919 + i * 31 + o)
+        params = (*_layer_inputs(torch, gen, i, o), s, seed)
+        x = torch.rand((b, i), generator=gen, device="cuda")
+        xs = torch.rand((s, b, i), generator=gen, device="cuda")
+        shape = f"B={b} I={i} O={o} S={s}"
+        out, out_xs = sd.sampled_dense_fwd(x, *params), sd.sampled_dense_xs_fwd(xs, *params)
+        if not (torch.equal(out, sd.sampled_dense_fwd(x, *params))
+                and torch.equal(out_xs, sd.sampled_dense_xs_fwd(xs, *params))):
+            fail(f"[fwd-edge] {shape}: two calls differ")
+        if not torch.equal(out, sd.sampled_dense_xs_fwd(x.expand(s, b, i).contiguous(), *params)):
+            fail(f"[fwd-edge] {shape}: xs_fwd on a broadcast x differs from fwd")
+        errs = []
+        for name, got, ref in (("sampled_dense_fwd", out, sd.sampled_dense_fwd_plain(x, *params)),
+                               ("sampled_dense_xs_fwd", out_xs, sd.sampled_dense_xs_fwd_plain(xs, *params))):
+            if not bool(torch.isfinite(got).all()):
+                fail(f"[fwd-edge] {name} {shape}: non-finite values")
+            errs.append(check_close(f"[fwd-edge] {name} {shape}", got, ref, RTOL,
+                                    ATOL_OF_MAX * float(ref.abs().max())))
+        plan = sd.fwd_plan(s, b, i, o, sms)
+        times = [device_ms(torch, lambda: sd.sampled_dense_fwd(x, *params), calls=5, replays=3),
+                 device_ms(torch, lambda: sd.sampled_dense_xs_fwd(xs, *params), calls=5, replays=3)]
+        print(f"[fwd-edge] {shape}: max|err| fwd {errs[0]:.3e}, xs_fwd {errs[1]:.3e}; bit-identical "
+              f"repeat, xs_fwd on a broadcast x equals fwd; fwd {times[0]:.4f} ms, xs_fwd "
+              f"{times[1]:.4f} ms ({_plan_text(plan)})")
+    del out, out_xs, x, xs
+    torch.cuda.empty_cache()
 
 
 def phase_dx_edges(torch) -> None:
@@ -629,6 +673,7 @@ def main() -> None:
         phase_device(torch)
         phase_build()
         kernels = phase_kernels(torch)
+        phase_fwd_edges(torch)
         phase_dx_edges(torch)
         phase_predictive(torch)
         grad_counts = phase_param_grad(torch)

@@ -1,5 +1,5 @@
-// Shared pieces of the sampled-dense kernels: the counter-based noise and the
-// tile constants.
+// Shared pieces of the sampled-dense kernels: the counter-based noise, the
+// cp.async helpers and the tile store.
 //
 // eps[s, i, o] is a pure function of (seed, s, i, o): Philox4x32-10 with
 // key = (seed, 0) and counter = (o >> 2, i, s, 0) gives four 32-bit words, which
@@ -20,10 +20,6 @@
 
 namespace sampled_dense {
 
-constexpr int kThreads = 256;  // 8 warps per block
-constexpr int kRows = 128;     // batch rows per block
-constexpr int kCols = 16;      // output columns per block (o forward, i backward)
-constexpr int kChunk = 64;     // depth of one shared-memory stage of the contraction
 constexpr float kTwoPi = 6.283185307179586f;
 
 __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
@@ -80,9 +76,38 @@ __device__ __forceinline__ float draw(float loc, float scale, float eps) {
   return __fadd_rn(loc, __fmul_rn(scale, eps));
 }
 
-// Blocks of the sample axis: ceil(S / s_per_block).
-inline int sample_groups(int S, int s_per_block) {
-  return (S + s_per_block - 1) / s_per_block;
+// row[o .. o+3], zero past O (any alignment).
+__device__ __forceinline__ float4 load4(const float* row, int o, int O) {
+  return make_float4(o < O ? row[o] : 0.f, o + 1 < O ? row[o + 1] : 0.f,
+                     o + 2 < O ? row[o + 2] : 0.f, o + 3 < O ? row[o + 3] : 0.f);
+}
+
+// 16 bytes global -> shared without registers; zeros where !valid.
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Rows b .. b+7, columns c .. c+3 of a row-major (., n) matrix from the
+// register tile's columns c0 .. c0+3, masked at B and n.
+__device__ __forceinline__ void store_tile(float* __restrict__ dst, const float (&acc)[8][8], int c0,
+                                           int B, int n, int b, int c) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    if (b + r >= B) break;
+    float* row = dst + (size_t)(b + r) * n;
+    if ((n & 3) == 0 && c < n) {
+      *reinterpret_cast<float4*>(row + c) =
+          make_float4(acc[r][c0], acc[r][c0 + 1], acc[r][c0 + 2], acc[r][c0 + 3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < n) row[c + j] = acc[r][c0 + j];
+    }
+  }
 }
 
 }  // namespace sampled_dense

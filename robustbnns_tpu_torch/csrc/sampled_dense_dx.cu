@@ -49,9 +49,7 @@
 // - Any B, I, O and S: ragged edges are masked; cp.async and vector loads
 //   only where O is a multiple of 4 (else plain masked loads), vector stores
 //   only where I is.
-#include <algorithm>
-
-#include "sampled_dense_common.cuh"
+#include "sampled_dense_passes.cuh"
 
 namespace sampled_dense {
 namespace {
@@ -64,56 +62,6 @@ constexpr int kNarrowO = 16;        // the narrow path takes O <= kNarrowO
 constexpr int kNarrowThreads = 128;  // 4 warps: one Philox quad each per input
 constexpr int kNarrowCols = 32;      // inputs i of a narrow block, one per lane
 constexpr int kNarrowRows = 128;     // batch rows of a narrow block
-
-// row[o .. o+3], zero past O (any alignment).
-__device__ __forceinline__ float4 load4(const float* row, int o, int O) {
-  return make_float4(o < O ? row[o] : 0.f, o + 1 < O ? row[o + 1] : 0.f,
-                     o + 2 < O ? row[o + 2] : 0.f, o + 3 < O ? row[o + 3] : 0.f);
-}
-
-// 16 bytes global -> shared without registers; zeros where !valid.
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-__global__ void softplus_kernel(const float* __restrict__ rho, float* __restrict__ sp, long long n) {
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < n;
-       k += (long long)gridDim.x * blockDim.x)
-    sp[k] = softplus(rho[k]);
-}
-
-// out[k] = sum_p partials[p, k], p = 0 .. n_split-1 in order.
-__global__ void sum_partials_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                                    long long n, int n_split) {
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < n;
-       k += (long long)gridDim.x * blockDim.x) {
-    float acc = partials[k];
-    for (int p = 1; p < n_split; ++p) acc += partials[p * n + k];
-    out[k] = acc;
-  }
-}
-
-// Rows b .. b+7, inputs i .. i+3 of an (., I) matrix, masked at B and I.
-__device__ __forceinline__ void store_tile(float* __restrict__ dst, const float (&acc)[8][8], int c0,
-                                           int B, int I, int b, int i) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    if (b + r >= B) break;
-    float* row = dst + (size_t)(b + r) * I;
-    if ((I & 3) == 0 && i < I) {
-      *reinterpret_cast<float4*>(row + i) =
-          make_float4(acc[r][c0], acc[r][c0 + 1], acc[r][c0 + 2], acc[r][c0 + 3]);
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (i + c < I) row[i + c] = acc[r][c0 + c];
-    }
-  }
-}
 
 // One 128-row x 64-input tile over a run of work units u = s * C + c (c: the
 // 16-deep chunk of O). kSum: block row y is run y of the tile's S * C units.
@@ -327,10 +275,6 @@ __global__ void __launch_bounds__(kNarrowThreads) dx_narrow_kernel(
       if (b0 + r < B) out[(size_t)(b0 + r) * I + i] = acc[j];
     }
   }
-}
-
-int elementwise_blocks(long long n) {
-  return (int)std::min<long long>((n + 255) / 256, 4096);
 }
 
 // O <= kNarrowO: the narrow kernel. Else softplus(rho) into sp, the wide

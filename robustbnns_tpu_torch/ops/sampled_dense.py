@@ -49,7 +49,6 @@ from robustbnns_tpu_torch.ops.build import library
 
 _MASK = 0xFFFFFFFF
 _TWO_PI_F32 = float(np.float32(6.283185307179586))
-_COLS, _ROWS = 16, 128  # output tile of one block (csrc/sampled_dense_common.cuh)
 
 # --------------------------------------------------------------------------- #
 # Plain PyTorch twins: the same noise and arithmetic as the kernels
@@ -165,8 +164,8 @@ sampled_dense_xs_dparams_plain = sampled_dense_dparams_plain
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _SIGNATURES = {
-    "sampled_dense_fwd": ("sampled_dense_fwd.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_xs_fwd": ("sampled_dense_fwd.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_fwd": ("sampled_dense_fwd.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_xs_fwd": ("sampled_dense_fwd.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_dx": ("sampled_dense_dx.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_xs_dx": ("sampled_dense_dx.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_dparams": ("sampled_dense_dparams.cu", [_P] * 8 + [_I] * 4 + [_U, _P]),
@@ -220,17 +219,6 @@ def _launch(name: str, device: torch.device, *args) -> None:
         err = _kernel(name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} failed to launch: cudaError {err}")
-
-
-def _samples_per_block(n_samples: int, tiles: int, device) -> int:
-    """Spread samples over blocks until the tiles fill the card's SMs once."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    groups = max(1, min(n_samples, sms // max(1, tiles)))
-    return -(-n_samples // groups)
-
-
-def _tiles(rows: int, cols: int) -> int:
-    return -(-rows // _ROWS) * -(-cols // _COLS)
 
 
 def _sm_count(device) -> int:
@@ -303,6 +291,69 @@ def dx_unit_runs(plan: DxPlan, n_samples: int, sum_samples: bool) -> list[range]
             for s in range(n_samples) for y in range(plan.n_split)]
 
 
+# Geometry of the forward kernels (csrc/sampled_dense_fwd.cu): a wide block
+# owns 128 batch rows x 64 outputs of one sample with 128 threads (four fit on
+# an SM) and walks chunks of 16 inputs; O <= 16 takes the narrow path, 128
+# rows a block and chunks of 32 inputs.
+FWD_ROWS, FWD_COLS, FWD_DEPTH, FWD_BLOCKS_PER_SM, FWD_NARROW_DEPTH = 128, 64, 16, 4, 32
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """Launch geometry of one forward call.
+
+    ``n_split``: runs per output tile; run ``r`` walks the chunks
+    ``fwd_chunk_runs(plan)[r]`` of I and, when ``n_split > 1``, writes a partial
+    tile that a second pass sums in the order 0 .. n_split-1. ``grid``: (S ·
+    n_split, output tiles, row tiles). ``scratch``: the partials' shape, ``()``
+    when a block writes its tile to the output itself.
+    """
+
+    narrow: bool
+    n_split: int
+    grid: tuple[int, int, int]
+    scratch: tuple[int, ...]
+    chunks: int  # C, the chunks of I of one output tile
+
+
+def fwd_plan(n_samples: int, b_dim: int, i_dim: int, o_dim: int, sms: int) -> FwdPlan:
+    """Where each chunk of I of the forward kernels runs, for a card with ``sms`` SMs.
+
+    A tile is (sample, row tile, output tile): the grid has S · row tiles ·
+    output tiles of them. While they fill fewer than the SMs'
+    ``FWD_BLOCKS_PER_SM`` slots, each tile's chunks of I are split into as
+    many runs as fit in one wave of those slots, so the partials never exceed
+    ``FWD_BLOCKS_PER_SM · sms`` tiles whatever S and B are.
+    """
+    narrow = o_dim <= NARROW_MAX_O
+    chunks = _cdiv(i_dim, FWD_NARROW_DEPTH if narrow else FWD_DEPTH)
+    o_tiles = 1 if narrow else _cdiv(o_dim, FWD_COLS)
+    b_tiles = _cdiv(b_dim, FWD_ROWS)
+    tiles = n_samples * o_tiles * b_tiles
+    n_split = max(1, min(chunks, FWD_BLOCKS_PER_SM * sms // tiles))
+    scratch = (n_split, n_samples, b_dim, o_dim) if n_split > 1 else ()
+    return FwdPlan(narrow, n_split, (n_samples * n_split, o_tiles, b_tiles), scratch, chunks)
+
+
+def fwd_chunk_runs(plan: FwdPlan) -> list[range]:
+    """The chunks of I that each run of a tile walks, as the kernels compute them."""
+    c, n = plan.chunks, plan.n_split
+    return [range(c * r // n, c * (r + 1) // n) for r in range(n)]
+
+
+def _fwd_launch(name: str, x, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
+    b_dim, i_dim = x.shape[-2:]
+    o_dim = loc.shape[1]
+    plan = fwd_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(x.device))
+    out = torch.empty((n_samples, b_dim, o_dim), device=x.device)
+    sp = None if plan.narrow else torch.empty_like(rho)
+    partials = torch.empty(plan.scratch, device=x.device) if plan.scratch else None
+    _launch(name, x.device, x.data_ptr(), loc.data_ptr(), rho.data_ptr(), bloc.data_ptr(), brho.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in (sp, partials)), out.data_ptr(),
+            n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
+    return out
+
+
 def _dx_launch(name: str, g, loc, rho, n_samples: int, seed: int, sum_samples: bool) -> torch.Tensor:
     (_, b_dim, o_dim), i_dim = g.shape, loc.shape[0]
     plan = dx_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(g.device), sum_samples)
@@ -319,9 +370,15 @@ def sampled_dense_fwd(x, loc, rho, bloc, brho, n_samples: int, seed: int) -> tor
     """Pallas ``_fwd_kernel`` (``robustbnns_tpu/ops/sampled_dense.py:99``) ->
     ``csrc/sampled_dense_fwd.cu``. (B, I) -> (S, B, O).
 
-    Bound on the H100: S·B·I·O exact-f32 FMAs on the FFMA pipe (2.06 GFLOP at
-    the first layer of fc2-1024, B=128, S=10); the design keeps softplus(rho) on
-    chip across samples and the sampled weights out of device memory.
+    Bound on the H100: S·B·I·O exact-f32 FMAs on the FFMA pipe (1.03 G at the
+    first layer of fc2-1024, B=128, S=10), plus S·I·O normals drawn in the
+    kernel. Design (:func:`fwd_plan`): 128 x 64 output tiles of one sample, 8 x
+    8 per thread, walk chunks of 16 inputs double-buffered through shared
+    memory; while the grid is small each tile's chunks are split into runs
+    whose partial tiles a second kernel sums in a fixed order (bit-identical
+    from call to call). softplus(rho) is computed once per call into an (I, O)
+    scratch; O <= 16 takes a narrow path that splits I over blocks. A call
+    launches up to three CUDA kernels and counts one launch.
     """
     _check_params(loc, rho, bloc, brho)
     if x.dim() != 2 or x.shape[1] != loc.shape[0]:
@@ -329,12 +386,7 @@ def sampled_dense_fwd(x, loc, rho, bloc, brho, n_samples: int, seed: int) -> tor
     if _on_cpu(x, loc, rho, bloc, brho):
         return sampled_dense_fwd_plain(x, loc, rho, bloc, brho, n_samples, seed)
     _check_cuda(x, loc, rho, bloc, brho)
-    (b_dim, i_dim), o_dim = x.shape, loc.shape[1]
-    out = torch.empty((n_samples, b_dim, o_dim), device=x.device, dtype=torch.float32)
-    spb = _samples_per_block(n_samples, _tiles(b_dim, o_dim), x.device)
-    _launch("sampled_dense_fwd", x.device, x.data_ptr(), loc.data_ptr(), rho.data_ptr(),
-            bloc.data_ptr(), brho.data_ptr(), out.data_ptr(), n_samples, b_dim, i_dim, o_dim,
-            seed & _MASK, spb)
+    out = _fwd_launch("sampled_dense_fwd", x, loc, rho, bloc, brho, n_samples, seed)
     sampled_dense_fwd.launches += 1
     return out
 
@@ -370,8 +422,10 @@ def sampled_dense_xs_fwd(xs, loc, rho, bloc, brho, n_samples: int, seed: int) ->
     """Pallas ``_fwd_kernel_xs`` (``sampled_dense.py:347``) ->
     ``csrc/sampled_dense_fwd.cu``. (S, B, I) -> (S, B, O).
 
-    Bound on the H100: S·B·I·O exact-f32 FMAs on the FFMA pipe (2.68 GFLOP at
-    the hidden layer of fc2-1024); same design as :func:`sampled_dense_fwd`.
+    Bound on the H100: S·B·I·O exact-f32 FMAs on the FFMA pipe at the hidden
+    layer of fc2-1024 (1.34 G) plus its S·I·O normals; the 5.2 MB read of xs
+    at the 10-class head. Same design as :func:`sampled_dense_fwd`, xs[s] read
+    by the blocks of sample s.
     """
     _check_params(loc, rho, bloc, brho)
     if xs.dim() != 3 or xs.shape[0] != n_samples or xs.shape[2] != loc.shape[0]:
@@ -379,12 +433,7 @@ def sampled_dense_xs_fwd(xs, loc, rho, bloc, brho, n_samples: int, seed: int) ->
     if _on_cpu(xs, loc, rho, bloc, brho):
         return sampled_dense_xs_fwd_plain(xs, loc, rho, bloc, brho, n_samples, seed)
     _check_cuda(xs, loc, rho, bloc, brho)
-    (_, b_dim, i_dim), o_dim = xs.shape, loc.shape[1]
-    out = torch.empty((n_samples, b_dim, o_dim), device=xs.device, dtype=torch.float32)
-    spb = _samples_per_block(n_samples, _tiles(b_dim, o_dim), xs.device)
-    _launch("sampled_dense_xs_fwd", xs.device, xs.data_ptr(), loc.data_ptr(), rho.data_ptr(),
-            bloc.data_ptr(), brho.data_ptr(), out.data_ptr(), n_samples, b_dim, i_dim, o_dim,
-            seed & _MASK, spb)
+    out = _fwd_launch("sampled_dense_xs_fwd", xs, loc, rho, bloc, brho, n_samples, seed)
     sampled_dense_xs_fwd.launches += 1
     return out
 

@@ -1,13 +1,13 @@
 #!/usr/bin/env bash
 # Before/after on one card in one session: chip_smoke.py of an earlier tree and
-# of this one in turns (earlier, this, this, earlier), then the dx kernels of
-# the earlier tree against this tree's with scripts/torch_dx_compare.py.
+# of this one in turns (earlier, this, this, earlier), then the forward kernels
+# of the earlier tree against this tree's with scripts/torch_fwd_compare.py.
 #
 #   scripts/torch_chip_before_after.sh EARLIER_TREE [OUT_DIR]
 #
 # EARLIER_TREE: an unpacked earlier commit (git archive <commit> | tar -x -C DIR),
 # inside a directory .gitignore lists. Logs go to OUT_DIR (default
-# build/before_after/); the attack lines and the dx kernel lines are echoed.
+# build/before_after/); the attack lines and the forward kernel lines are echoed.
 set -u
 repo="$(cd "$(dirname "$0")/.." && pwd)"
 earlier="$(cd "$1" && pwd)"
@@ -21,7 +21,7 @@ run_smoke() {  # $1: tree, $2: tag
     echo "[before-after] $2: chip_smoke.py FAILED"
     status=1
   fi
-  grep -E '^\[main\] (fgsm|pgd)|^\[kernel\] sampled_dense_(xs_)?dx ' "$out/smoke_$2.log" | cut -c1-240
+  grep -E '^\[main\] (fgsm|pgd)|^\[attack-profile\]|^\[kernel\] sampled_dense_(xs_)?fwd ' "$out/smoke_$2.log" | cut -c1-240
 }
 
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -29,7 +29,7 @@ run_smoke "$earlier" earlier1
 run_smoke "$repo" this1
 run_smoke "$repo" this2
 run_smoke "$earlier" earlier2
-python3 "$repo/scripts/torch_dx_compare.py" "$earlier/robustbnns_tpu_torch/csrc/sampled_dense_dx.cu" \
-  > "$out/dx_compare.log" 2>&1 || status=1
-grep -E '^\[dx-compare\]' "$out/dx_compare.log"
+python3 "$repo/scripts/torch_fwd_compare.py" "$earlier/robustbnns_tpu_torch/csrc/sampled_dense_fwd.cu" \
+  > "$out/fwd_compare.log" 2>&1 || status=1
+grep -E '^\[fwd-compare\]' "$out/fwd_compare.log"
 exit $status

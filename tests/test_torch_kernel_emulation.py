@@ -1,12 +1,14 @@
-"""The dx kernels' CUDA source run on the CPU, against their plain twins.
+"""The CUDA sources of the forward and dx kernels run on the CPU, against their plain twins.
 
-``csrc/sampled_dense_dx.cu`` is built with g++ against
-``tests/cuda_emulation/cuda_runtime.h``, a CPU stand-in for the few CUDA
-pieces it uses (one std::thread per CUDA thread, a barrier for
-``__syncthreads``; ``cp.async`` becomes a plain copy), and called through
-ctypes with the launch plan of ``ops/sampled_dense.dx_plan``. This checks the
-kernels' indexing, masking, work split and fixed-order sum of partials at
-ragged shapes on a machine without a card; the card itself is checked by
+``csrc/sampled_dense_fwd.cu`` and ``csrc/sampled_dense_dx.cu`` are built with
+g++ against ``tests/cuda_emulation/cuda_runtime.h``, a CPU stand-in for the few
+CUDA pieces they use (one std::thread per CUDA thread, a barrier for
+``__syncthreads``; ``cp.async`` of ``sampled_dense_common.cuh`` becomes a plain
+copy; the headers are copied next to the source), and called through ctypes
+with the launch plans of ``ops/sampled_dense.fwd_plan`` and ``dx_plan``. This
+checks the kernels'
+indexing, masking, work split and fixed-order sum of partials at ragged shapes
+on a machine without a card; the card itself is checked by
 ``tests/test_torch_kernels.py`` and ``chip_smoke.py``. Same tolerance as
 there: 1e-4 relative plus 1e-4 of the largest entry.
 """
@@ -36,13 +38,18 @@ CP_ASYNC = {  # the PTX helpers of the source, as plain copies
 
 
 def emulated_source(source: str) -> str:
-    """The kernel source with each launch and each cp.async helper replaced."""
+    """A kernel source with each launch replaced."""
 
     def launch(m):
         grid, threads, _smem, _stream = (p.strip() for p in m.group(2).split(","))
         return f"emulated_launch(dim3({grid}), {threads}, [&] {{ {m.group(1)}({m.group(3)}); }});"
 
-    out = LAUNCH.sub(launch, source)
+    return LAUNCH.sub(launch, source)
+
+
+def emulated_header(source: str) -> str:
+    """The shared header with each cp.async helper replaced by a plain copy."""
+    out = source
     for name, body in CP_ASYNC.items():
         one_line = rf"__device__ __forceinline__ void {name}\(\) \{{[^\n]*\}}\n"
         multi_line = rf"__device__ __forceinline__ void {name}\([^)]+\) \{{\n.*?\n\}}\n"
@@ -51,23 +58,37 @@ def emulated_source(source: str) -> str:
     return out
 
 
-@pytest.fixture(scope="module")
-def dx_library(tmp_path_factory):
+def build(tmp_path_factory, source: str, names) -> ctypes.CDLL:
+    """``csrc/<source>`` built with g++ next to copies of the headers, the
+    shared one emulated (a quoted include finds them there before ``CSRC``)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel source for the CPU")
-    work = tmp_path_factory.mktemp("dx_emulation")
-    src = work / "sampled_dense_dx.cpp"
-    src.write_text(emulated_source((CSRC / "sampled_dense_dx.cu").read_text()))
-    lib = work / "libdx.so"
+    work = tmp_path_factory.mktemp(Path(source).stem)
+    for header in CSRC.glob("*.cuh"):
+        text = header.read_text()
+        (work / header.name).write_text(emulated_header(text) if header.name == "sampled_dense_common.cuh" else text)
+    src = work / f"{Path(source).stem}.cpp"
+    src.write_text(emulated_source((CSRC / source).read_text()))
+    lib = work / f"lib{Path(source).stem}.so"
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
                     "-I", str(EMULATION), "-I", str(CSRC), "-o", str(lib), str(src), "-lpthread"],
                    check=True, capture_output=True)
     dll = ctypes.CDLL(str(lib))
-    for name in ("sampled_dense_dx", "sampled_dense_xs_dx"):
+    for name in names:
         getattr(dll, name).argtypes = sd._SIGNATURES[name][1]
         getattr(dll, name).restype = ctypes.c_int
     return dll
+
+
+@pytest.fixture(scope="module")
+def dx_library(tmp_path_factory):
+    return build(tmp_path_factory, "sampled_dense_dx.cu", ("sampled_dense_dx", "sampled_dense_xs_dx"))
+
+
+@pytest.fixture(scope="module")
+def fwd_library(tmp_path_factory):
+    return build(tmp_path_factory, "sampled_dense_fwd.cu", ("sampled_dense_fwd", "sampled_dense_xs_fwd"))
 
 
 def run(dll, g, loc, rho, seed, sms, sum_samples):
@@ -108,3 +129,53 @@ def test_dx_kernels_match_twins_on_the_cpu(dx_library, shape, sms):
                       (dxs, sd.sampled_dense_xs_dx_plain(g, loc, rho, s, seed)),
                       (dx, dxs.sum(0))):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def run_fwd(dll, x, loc, rho, bloc, brho, n_samples, seed, sms):
+    """One forward call; NaN-filled outputs and scratch, so a missed write shows."""
+    b, i = x.shape[-2:]
+    o = loc.shape[1]
+    plan = sd.fwd_plan(n_samples, b, i, o, sms)
+    out = torch.full((n_samples, b, o), float("nan"))
+    sp = None if plan.narrow else torch.full_like(rho, float("nan"))
+    partials = torch.full(plan.scratch, float("nan")) if plan.scratch else None
+    fn = dll.sampled_dense_xs_fwd if x.dim() == 3 else dll.sampled_dense_fwd
+    err = fn(x.data_ptr(), loc.data_ptr(), rho.data_ptr(), bloc.data_ptr(), brho.data_ptr(),
+             *(t.data_ptr() if t is not None else None for t in (sp, partials)), out.data_ptr(),
+             n_samples, b, i, o, seed, plan.n_split, None)
+    assert err == 0
+    return out, plan
+
+
+@pytest.mark.parametrize("shape,sms,runs", [
+    ((37, 70, 10, 3), 132, 3),  # the head's narrow path, I = 70 ragged over three 32-deep runs
+    ((1, 70, 13, 1), 132, 3),  # narrow, one row, O % 4 != 0 in the bias quad
+    ((129, 2, 2, 2), 132, 1),  # narrow, two row tiles, O = 2, I = 2: one chunk
+    ((5, 200, 10, 40), 132, 7),  # narrow at S = 40
+    ((5, 200, 10, 40), 1, 1),  # the same with one run: no partials
+    ((37, 70, 66, 2), 132, 5),  # wide, O % 4 != 0 and I % 4 != 0: plain loads, two output tiles
+    ((8, 24, 20, 3), 132, 2),  # wide, O = 20: a ragged 64-output tile
+    ((129, 2, 32, 1), 132, 1),  # wide, the Half Moons hidden layer: two row tiles, I = 2
+    ((1, 200, 68, 1), 132, 13),  # wide, I of 13 chunks, one run each
+    ((37, 200, 68, 40), 1, 1),  # wide at S = 40, one run
+], ids=lambda v: "B{}_I{}_O{}_S{}".format(*v) if isinstance(v, tuple) else str(v))
+def test_fwd_kernels_match_twins_on_the_cpu(fwd_library, shape, sms, runs):
+    """Both forwards against their twins, and xs_fwd on a broadcast x equal to fwd."""
+    b, i, o, s = shape
+    rng = np.random.default_rng(b * 7919 + i * 31 + o)
+
+    def normal(*dims, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.normal(size=dims) * scale + shift).astype(np.float32))
+
+    x, xs = normal(b, i), normal(s, b, i)
+    params = (normal(i, o, scale=0.1), normal(i, o, scale=0.5, shift=-3.0),
+              normal(o, scale=0.1), normal(o, scale=0.5, shift=-3.0))
+    seed = 2026
+    out, plan = run_fwd(fwd_library, x, *params, s, seed, sms)
+    assert plan.n_split == runs
+    out_xs, _ = run_fwd(fwd_library, xs, *params, s, seed, sms)
+    broadcast, _ = run_fwd(fwd_library, x.expand(s, b, i).contiguous(), *params, s, seed, sms)
+    for got, want in ((out, sd.sampled_dense_fwd_plain(x, *params, s, seed)),
+                      (out_xs, sd.sampled_dense_xs_fwd_plain(xs, *params, s, seed))):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(broadcast, out)

@@ -142,9 +142,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         sd.sampled_dense_fwd(p["x"].t().contiguous().t(), *params, s, 0)  # not contiguous
     with pytest.raises(ValueError):
         sd.sampled_dense_fwd(p["x"].cpu(), *params, s, 0)  # mixed devices
-    wide = torch.zeros((4000, o), device=cuda)  # softplus(rho) tile beyond shared memory
-    with pytest.raises(RuntimeError, match="launch"):
-        sd.sampled_dense_fwd(torch.zeros((b, 4000), device=cuda), wide, wide, *params[2:], s, 0)
+    wide = layer(b, 4000, o, s, cuda)  # too wide for a per-block slice of rho in shared memory
+    args = (wide["x"], wide["loc"], wide["rho"], wide["bloc"], wide["brho"], s, 0)
+    assert_close(sd.sampled_dense_fwd(*args), sd.sampled_dense_fwd_plain(*args))
 
 
 DX_EDGE_SHAPES = [  # (B, I, O, S), as chip_smoke.py's dx-edge phase
@@ -171,3 +171,31 @@ def test_dx_kernels_at_edge_shapes(cuda, shape):
     assert_close(dx, sd.sampled_dense_dx_plain(*args))
     assert_close(dxs, sd.sampled_dense_xs_dx_plain(*args))
     assert_close(dx, dxs.sum(0))
+
+
+FWD_EDGE_SHAPES = [  # (B, I, O, S), as chip_smoke.py's fwd-edge phase
+    (1, 784, 1024, 10),  # one row of a 128-row tile
+    (37, 784, 13, 3),  # the narrow path, O not a multiple of 4
+    (128, 1024, 10, 1),  # the 10-class head at S = 1
+    (128, 784, 1024, 100),  # S = 100: no partials
+    (2048, 784, 1024, 10),  # 16 row tiles
+    (64, 3072, 512, 2),  # CIFAR-10's input width: too wide for a per-block slice of rho in shared memory
+    (100, 2, 32, 10),  # the Half Moons hidden layer: I = 2
+    (100, 32, 2, 10),  # the Half Moons head: O = 2
+]
+
+
+@pytest.mark.parametrize("shape", FWD_EDGE_SHAPES, ids=lambda s: "B{}_I{}_O{}_S{}".format(*s))
+def test_fwd_kernels_at_edge_shapes(cuda, shape):
+    """Both forwards against their twins, bit-identical across two calls, and
+    xs_fwd on a broadcast x equal to fwd."""
+    b, i, o, s = shape
+    p = layer(b, i, o, s, cuda)
+    params = (p["loc"], p["rho"], p["bloc"], p["brho"], s, 31)
+    out, out_xs = sd.sampled_dense_fwd(p["x"], *params), sd.sampled_dense_xs_fwd(p["xs"], *params)
+    assert torch.equal(out, sd.sampled_dense_fwd(p["x"], *params))
+    assert torch.equal(out_xs, sd.sampled_dense_xs_fwd(p["xs"], *params))
+    assert torch.equal(out, sd.sampled_dense_xs_fwd(p["x"].expand(s, b, i).contiguous(), *params))
+    assert torch.isfinite(out).all() and torch.isfinite(out_xs).all()
+    assert_close(out, sd.sampled_dense_fwd_plain(p["x"], *params))
+    assert_close(out_xs, sd.sampled_dense_xs_fwd_plain(p["xs"], *params))

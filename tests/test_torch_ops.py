@@ -381,3 +381,58 @@ def test_dx_plan_fills_the_card_at_the_main_path():
     assert (xs.n_split, math.prod(xs.grid)) == (3, 480)
     head = sd.dx_plan(10, 128, 1024, 10, 132, False)
     assert head.narrow and head.grid == (32, 10, 1)
+
+
+# The forward kernels' launch plan (computed in Python, followed by the CUDA kernel)
+FWD_PLAN_SHAPES = PLAN_SHAPES + [(2, 64, 3072, 512), (10, 100, 2, 32), (10, 100, 32, 2), (40, 1, 70, 66)]
+
+
+@pytest.mark.parametrize("shape", FWD_PLAN_SHAPES, ids=lambda s: "S{}_B{}_I{}_O{}".format(*s))
+def test_fwd_plan_covers_every_chunk_once(shape):
+    """Every chunk of I of an output tile is walked by exactly one run, and the
+    grid covers S, B and O."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    s, b, i, o = shape
+    plan = sd.fwd_plan(s, b, i, o, 132)
+    assert plan.narrow == (o <= sd.NARROW_MAX_O)
+    depth = sd.FWD_NARROW_DEPTH if plan.narrow else sd.FWD_DEPTH
+    assert plan.chunks == -(-i // depth)
+    runs = sd.fwd_chunk_runs(plan)
+    assert len(runs) == plan.n_split and all(len(run) > 0 for run in runs)
+    assert [c for run in runs for c in run] == list(range(plan.chunks))
+    assert plan.grid[0] == s * plan.n_split
+    if plan.narrow:
+        assert plan.grid[1] == 1
+    else:
+        assert plan.grid[1] * sd.FWD_COLS >= o > (plan.grid[1] - 1) * sd.FWD_COLS
+    assert plan.grid[2] * sd.FWD_ROWS >= b > (plan.grid[2] - 1) * sd.FWD_ROWS
+    assert plan.scratch == ((plan.n_split, s, b, o) if plan.n_split > 1 else ())
+
+
+@pytest.mark.parametrize("b,i,o", [(128, 784, 1024), (2048, 784, 1024), (1, 70, 36), (37, 784, 13),
+                                   (128, 1024, 10), (64, 3072, 512)])
+def test_fwd_plan_partials_stay_bounded(b, i, o):
+    """The partial tiles fit one wave of the card's block slots whatever S is,
+    and vanish once the samples alone fill it (a per-sample scratch of three
+    runs at S = 100, B = 2048 would be 2.5 GB)."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    cols = sd.NARROW_MAX_O if o <= sd.NARROW_MAX_O else sd.FWD_COLS
+    for s in (1, 10, 100, 1000):
+        plan = sd.fwd_plan(s, b, i, o, 132)
+        tiles = s * plan.grid[1] * plan.grid[2]
+        if plan.n_split > 1:
+            assert plan.n_split * tiles <= sd.FWD_BLOCKS_PER_SM * 132
+            assert math.prod(plan.scratch) <= sd.FWD_BLOCKS_PER_SM * 132 * sd.FWD_ROWS * cols
+    assert sd.fwd_plan(1000, b, i, o, 132).scratch == ()
+
+
+def test_fwd_plan_fills_the_card_at_the_main_path():
+    """At model_7's shapes (B = 128, S = 10) on 132 SMs: the 160 tiles of each
+    wide layer split into three runs, 480 blocks in one wave of the 528 block
+    slots; the head's ten tiles split I into 32 runs of one chunk each."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    for i in (784, 1024):
+        plan = sd.fwd_plan(10, 128, i, 1024, 132)
+        assert (plan.n_split, plan.grid, plan.scratch) == (3, (30, 16, 1), (3, 10, 128, 1024))
+    head = sd.fwd_plan(10, 128, 1024, 10, 132)
+    assert head.narrow and (head.n_split, head.grid, head.scratch) == (32, (320, 1, 1), (32, 10, 128, 10))
