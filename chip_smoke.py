@@ -18,7 +18,10 @@ Phases, each fatal on failure:
    twins, bit-identical across calls, and xs_fwd on a broadcast x equal to
    fwd; the two input-gradient kernels at edge shapes (one row, O = 13, the
    head at S = 1, S = 100, B = 2048, O = 4000) against their twins,
-   bit-identical across calls, and dx against the sum of dxs;
+   bit-identical across calls, and dx against the sum of dxs; the two
+   parameter-gradient kernels at the forward's edge shapes and O = 4000
+   against their twins, bit-identical across calls, and xs_dparams on a
+   broadcast x equal to dparams;
 5. predictive: the fused fc2-1024 predictive and its input gradient through the
    kernels against the plain twins composed the same way;
 6. parameter gradient: the gradient of the fused predictive's cross-entropy
@@ -360,6 +363,53 @@ def phase_dx_edges(torch) -> None:
     torch.cuda.empty_cache()
 
 
+# (B, I, O, S): the forward's edge shapes and an O of 63 output tiles
+DPARAMS_EDGE_SHAPES = FWD_EDGE_SHAPES + ((64, 256, 4000, 2),)
+
+
+def phase_dparams_edges(torch) -> None:
+    """The two dparams kernels at edge shapes: against their twins,
+    bit-identical across two calls, and xs_dparams on a broadcast x equal to
+    dparams."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seed = 79
+    for b, i, o, s in DPARAMS_EDGE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(b * 7919 + i * 31 + o)
+        _, rho, _, brho = _layer_inputs(torch, gen, i, o)
+        g = torch.randn((s, b, o), generator=gen, device="cuda")
+        x = torch.rand((b, i), generator=gen, device="cuda")
+        xs = torch.rand((s, b, i), generator=gen, device="cuda")
+        tail = (rho, brho, s, seed)
+        shape = f"B={b} I={i} O={o} S={s}"
+        got, got_xs = sd.sampled_dense_dparams(g, x, *tail), sd.sampled_dense_xs_dparams(g, xs, *tail)
+        again = sd.sampled_dense_dparams(g, x, *tail) + sd.sampled_dense_xs_dparams(g, xs, *tail)
+        if not all(torch.equal(a, c) for a, c in zip(got + got_xs, again)):
+            fail(f"[dparams-edge] {shape}: two calls differ")
+        broadcast = sd.sampled_dense_xs_dparams(g, x.expand(s, b, i).contiguous(), *tail)
+        if not all(torch.equal(a, c) for a, c in zip(broadcast, got)):
+            fail(f"[dparams-edge] {shape}: xs_dparams on a broadcast x differs from dparams")
+        errs = []
+        for name, outs, refs in (("sampled_dense_dparams", got, sd.sampled_dense_dparams_plain(g, x, *tail)),
+                                 ("sampled_dense_xs_dparams", got_xs,
+                                  sd.sampled_dense_xs_dparams_plain(g, xs, *tail))):
+            err = 0.0
+            for k, (got_k, ref_k) in enumerate(zip(outs, refs)):
+                if not bool(torch.isfinite(got_k).all()):
+                    fail(f"[dparams-edge] {name} {shape} output {k}: non-finite values")
+                err = max(err, check_close(f"[dparams-edge] {name} {shape} output {k}", got_k, ref_k, RTOL,
+                                           ATOL_OF_MAX * float(ref_k.abs().max())))
+            errs.append(err)
+        plan = sd.dparams_plan(s, i, o, sms)
+        times = [device_ms(torch, lambda: sd.sampled_dense_dparams(g, x, *tail), calls=5, replays=3),
+                 device_ms(torch, lambda: sd.sampled_dense_xs_dparams(g, xs, *tail), calls=5, replays=3)]
+        print(f"[dparams-edge] {shape}: max|err| dparams {errs[0]:.3e}, xs_dparams {errs[1]:.3e}; "
+              f"bit-identical repeat, xs_dparams on a broadcast x equals dparams; dparams {times[0]:.4f} ms, "
+              f"xs_dparams {times[1]:.4f} ms ({_plan_text(plan)})")
+    del got, got_xs, again, broadcast, g, x, xs
+    torch.cuda.empty_cache()
+
+
 def model7_posterior(torch, arch, rel_scale: float = 1e-2, rho_spread: float = 0.0):
     """A seeded random posterior at model_7's widths: loc from the torch-default
     init, softplus(rho) = ``rel_scale`` of each layer's init bound, rho spread
@@ -675,6 +725,7 @@ def main() -> None:
         kernels = phase_kernels(torch)
         phase_fwd_edges(torch)
         phase_dx_edges(torch)
+        phase_dparams_edges(torch)
         phase_predictive(torch)
         grad_counts = phase_param_grad(torch)
         counts = phase_main_path(torch, workdir)

@@ -72,6 +72,8 @@ __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
 }
 
+__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
 __device__ __forceinline__ float draw(float loc, float scale, float eps) {
   return __fadd_rn(loc, __fmul_rn(scale, eps));
 }

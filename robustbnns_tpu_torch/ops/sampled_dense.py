@@ -168,8 +168,8 @@ _SIGNATURES = {
     "sampled_dense_xs_fwd": ("sampled_dense_fwd.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_dx": ("sampled_dense_dx.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_xs_dx": ("sampled_dense_dx.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_dparams": ("sampled_dense_dparams.cu", [_P] * 8 + [_I] * 4 + [_U, _P]),
-    "sampled_dense_xs_dparams": ("sampled_dense_dparams.cu", [_P] * 8 + [_I] * 4 + [_U, _P]),
+    "sampled_dense_dparams": ("sampled_dense_dparams.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_xs_dparams": ("sampled_dense_dparams.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
 }
 
 
@@ -341,6 +341,61 @@ def fwd_chunk_runs(plan: FwdPlan) -> list[range]:
     return [range(c * r // n, c * (r + 1) // n) for r in range(n)]
 
 
+# Geometry of the dparams kernels (csrc/sampled_dense_dparams.cu): a wide block
+# owns 128 inputs x 64 outputs of dloc/drho with 128 threads (two fit on an SM:
+# 88.5 KB of shared memory each) and walks a run of samples, the runs of a tile
+# one cluster of at most DP_MAX_RUNS blocks; O <= 16 takes the narrow path, 32
+# inputs a block (four an SM counted).
+DP_ROWS, DP_COLS, DP_BLOCKS_PER_SM, DP_MAX_RUNS = 128, 64, 2, 8
+DP_NARROW_COLS, DP_NARROW_BLOCKS_PER_SM = 32, 4
+
+
+@dataclass(frozen=True)
+class DparamsPlan:
+    """Launch geometry of one dparams call.
+
+    ``n_split``: runs per tile of dloc/drho; run ``r`` walks the samples
+    ``dparams_sample_runs(plan, S)[r]``. The wide path's runs of a tile are
+    one thread-block cluster that sums them on chip in the order
+    0 .. n_split-1; the narrow path's runs, when ``n_split > 1``, write two
+    partial planes (bias in row I) that a second pass sums in that order.
+    ``grid``: (output tiles, input tiles, runs) on the wide path, (input
+    blocks, runs, 1) on the narrow one. ``scratch``: the partials' shape,
+    ``()`` when there are none.
+    """
+
+    narrow: bool
+    n_split: int
+    grid: tuple[int, int, int]
+    scratch: tuple[int, ...]
+
+
+def dparams_plan(n_samples: int, i_dim: int, o_dim: int, sms: int) -> DparamsPlan:
+    """Where each sample of the dparams kernels runs, for a card with ``sms`` SMs.
+
+    The tiles of dloc/drho do not grow with S or B. While they fill less than
+    one wave of the SMs' block slots, each tile's samples are split into as
+    many runs as fit in that wave (at most :data:`DP_MAX_RUNS`, a cluster, on
+    the wide path), so the narrow path's partials never exceed one wave of
+    tiles whatever S and B are (B does not enter: a block walks the whole
+    batch).
+    """
+    if o_dim <= NARROW_MAX_O:
+        blocks = _cdiv(i_dim, DP_NARROW_COLS)
+        n_split = max(1, min(n_samples, DP_NARROW_BLOCKS_PER_SM * sms // blocks))
+        scratch = (n_split, 2, i_dim + 1, o_dim) if n_split > 1 else ()
+        return DparamsPlan(True, n_split, (blocks, n_split, 1), scratch)
+    o_tiles, i_tiles = _cdiv(o_dim, DP_COLS), _cdiv(i_dim, DP_ROWS)
+    n_split = max(1, min(n_samples, DP_MAX_RUNS, DP_BLOCKS_PER_SM * sms // (o_tiles * i_tiles)))
+    return DparamsPlan(False, n_split, (o_tiles, i_tiles, n_split), ())
+
+
+def dparams_sample_runs(plan: DparamsPlan, n_samples: int) -> list[range]:
+    """The samples that each run of a tile walks, as the kernels compute them."""
+    n = plan.n_split
+    return [range(n_samples * r // n, n_samples * (r + 1) // n) for r in range(n)]
+
+
 def _fwd_launch(name: str, x, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
     b_dim, i_dim = x.shape[-2:]
     o_dim = loc.shape[1]
@@ -475,11 +530,14 @@ def _check_dparams(g, x, rho, brho, n_samples: int, x_lead: tuple) -> None:
 def _launch_dparams(name: str, g, x, rho, brho, n_samples: int, seed: int):
     _check_cuda(g, x, rho, brho)
     (_, b_dim, o_dim), i_dim = g.shape, rho.shape[0]
+    plan = dparams_plan(n_samples, i_dim, o_dim, _sm_count(g.device))
     dloc, drho = (torch.empty((i_dim, o_dim), device=g.device) for _ in range(2))
     dbloc, dbrho = (torch.empty((o_dim,), device=g.device) for _ in range(2))
+    partials = torch.empty(plan.scratch, device=g.device) if plan.scratch else None
     _launch(name, g.device, g.data_ptr(), x.data_ptr(), rho.data_ptr(), brho.data_ptr(),
+            partials.data_ptr() if partials is not None else None,
             dloc.data_ptr(), drho.data_ptr(), dbloc.data_ptr(), dbrho.data_ptr(),
-            n_samples, b_dim, i_dim, o_dim, seed & _MASK)
+            n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
     return dloc, drho, dbloc, dbrho
 
 
@@ -488,9 +546,19 @@ def sampled_dense_dparams(g, x, rho, brho, n_samples: int, seed: int):
     ``csrc/sampled_dense_dparams.cu``. g (S, B, O), x (B, I) ->
     ``(dloc, drho, dbloc, dbrho)``, shaped (I, O), (I, O), (O,), (O,).
 
-    Bound on the H100: 2·S·B·I·O exact-f32 FLOP on the FFMA pipe (2.06 GFLOP at
-    the first layer of fc2-1024, B=128, S=10); each block owns a tile of
-    dloc/drho and loops over the samples, so the sum over S is deterministic.
+    Bound on the H100: S·B·I·O exact-f32 FMAs on the FFMA pipe (1.03 G at the
+    first layer of fc2-1024, B=128, S=10), plus S·I·O normals drawn in the
+    kernel. Design (:func:`dparams_plan`): 128 x 64 tiles of dloc/drho, 8 x 8
+    per thread, walk a run of samples, the contraction over the batch in
+    16-row chunks double-buffered through shared memory; after each sample
+    a thread draws the noise of its own outputs and adds dW_s and dW_s ⊙ eps_s
+    into running sums in shared memory, σ(rho) applied once. While the tiles
+    fill less than one wave, each tile's samples are split into runs, one
+    thread-block cluster, that sum their running sums on chip in a fixed
+    order (bit-identical from call to call). O <= 16 takes a narrow path, 32
+    inputs a block, whose runs' partial planes a second kernel sums in a
+    fixed order. A call launches one or two CUDA kernels and counts one
+    launch.
     """
     _check_dparams(g, x, rho, brho, n_samples, ())
     if _on_cpu(g, x, rho, brho):
@@ -505,8 +573,11 @@ def sampled_dense_xs_dparams(g, xs, rho, brho, n_samples: int, seed: int):
     ``csrc/sampled_dense_dparams.cu``. As :func:`sampled_dense_dparams` with
     the per-sample input xs (S, B, I).
 
-    Bound on the H100: 2·S·B·I·O exact-f32 FLOP at the hidden layer, the bytes
-    of xs at the 10-class head, where 16 x 16 tiles keep 64 blocks busy.
+    Bound on the H100: S·B·I·O exact-f32 FMAs at the hidden layer of
+    fc2-1024 (1.34 G) plus its S·I·O normals; the 5.2 MB read of xs at the
+    10-class head, whose narrow path gives each block 32 inputs and a run of
+    samples (320 blocks at B=128, S=10). Same design as
+    :func:`sampled_dense_dparams`, xs[s] read for sample s.
     """
     _check_dparams(g, xs, rho, brho, n_samples, (n_samples,))
     if _on_cpu(g, xs, rho, brho):

@@ -1,21 +1,31 @@
 #!/usr/bin/env python3
-"""Where the time of the dx kernels, or with ``--fwd`` of the forward kernels,
-goes on the card: the kernels of ``csrc/sampled_dense_dx.cu`` (or
-``csrc/sampled_dense_fwd.cu``) rebuilt with one part cut out at a time, timed
-with ``chip_smoke.py``'s device-time yardstick at the main path's wide shapes.
+"""Where the time of the dx kernels, or with ``--fwd`` of the forward kernels
+or ``--dparams`` of the parameter-gradient kernels, goes on the card: the
+kernels of ``csrc/sampled_dense_dx.cu`` (``sampled_dense_fwd.cu``,
+``sampled_dense_dparams.cu``) rebuilt with one part cut out at a time, timed
+with ``chip_smoke.py``'s device-time yardstick at the main path's shapes.
 
-    python3 scripts/torch_dx_probe.py [--fwd] [--diagnose] [SASS_DIR]
+    python3 scripts/torch_dx_probe.py [--fwd | --dparams] [--diagnose] [SASS_DIR]
 
 Variants: ``full``, the kernel as committed, and ``no-noise``, with each
 Philox quad and Box-Muller of the wide kernel replaced by a constant quad (a
 text substitution of the source; it computes a wrong result), each at the
-split the plan (``dx_plan``, ``fwd_plan``) picks and at the other splits
-listed in ``FAMILIES``. ``--diagnose`` adds, at the planned split, variants that
-time parts of the FFMA loop and compute a wrong result: ``w-broadcast`` (every
-lane reads the same W float4s), ``all-broadcast`` (the same for the other
-operand, g^T or x^T, too), ``one-stage`` (only the first work unit or chunk is
-fetched and drawn: no noise, staging or loads after it), ``one-stage-no-sync``
-(and no barrier per unit) and ``all-broadcast-one-stage-no-sync``.
+split the plan (``dx_plan``, ``fwd_plan``, ``dparams_plan``) picks and at the
+other splits listed in ``FAMILIES``. ``--diagnose`` adds, at the planned split, variants that
+time parts of the FFMA loop and compute a wrong result. For dx and fwd:
+``w-broadcast`` (every lane reads the same W float4s), ``all-broadcast`` (the
+same for the other operand, g^T or x^T, too), ``one-stage`` (only the first
+work unit or chunk is fetched and drawn: no noise, staging or loads after it),
+``one-stage-no-sync`` (and no barrier per unit) and
+``all-broadcast-one-stage-no-sync``. For dparams: ``loop-alone`` (no
+per-sample epilogue: no noise and no running sums, so the compiler drops the
+FFMAs too: staging and barriers alone), ``one-stage`` (only the first chunk
+fetched), ``one-stage-loop-alone`` and ``unrolled-epilogue`` (the epilogue's
+loop over rows unrolled, a right result: its 16 Philox quads inline),
+``epilogue-unroll-2`` and ``epilogue-unroll-4`` (unrolled by 2 or 4), and
+``ffma-unroll-4`` and ``ffma-unroll-8`` (the chunk's 16-step FFMA loop
+unrolled by 4 or 8, not fully; right results). The narrow head shape is
+timed as committed only.
 
 It also counts the SASS instructions of one ``normal4`` (a Philox4x32-10 and
 two Box-Muller pairs: four normals) from a one-line probe kernel with
@@ -39,19 +49,25 @@ NOISE = ("const float4 z = normal4(seed, s, i, o >> 2);",
          "const float4 z = make_float4(0.5f, -0.25f, 1.5f, -1.0f);")
 W_BROADCAST = [("&wt[buf][k][4 * tc]", "&wt[buf][k][0]"), ("&wt[buf][k][32 + 4 * tc]", "&wt[buf][k][32]")]
 NO_SYNC = [("    __syncthreads();\n    buf ^= 1;", "    buf ^= 1;")]
+DP_NOISE = [(f"const float4 {z} = normal4(seed, s, i, (o0 + {o}4 * tc) >> 2);",
+             f"const float4 {z} = make_float4(0.5f, -0.25f, 1.5f, -1.0f);") for z, o in (("za", ""), ("zb", "32 + "))]
+DP_FFMA_LOOP = "#pragma unroll\n    for (int k = 0; k < kDpDepth; ++k) {\n      const float4 xa"
+DP_UNROLLED = ("#pragma unroll 1\n    for (int r = 0; r < 8; ++r) {", "#pragma unroll\n    for (int r = 0; r < 8; ++r) {")
+DP_EPILOGUE = ("if ((u + 1) % C == 0) finish_sample((int)(u / C));", "")
+DP_ONE_STAGE = ("if (u + 1 < u_end) fetch(u + 1, buf ^ 1);", "if (u == u_begin && u + 1 < u_end) fetch(u + 1, buf ^ 1);")
 
 
-def family(source: str, shapes, row_operand: str, unit: str, splits: dict) -> dict:
-    """A kernel source's probe: its wide shapes, its swaps and the splits to try.
-    ``row_operand``: the shared array read per row group (gt, xt); ``unit``:
-    the loop variable of the work units (u, c)."""
+def family(source: str, shapes, row_operand: str, unit: str) -> dict:
+    """A kernel source's probe: its shapes (name, I, O, splits to try), its
+    swaps. ``row_operand``: the shared array read per row group (gt, xt);
+    ``unit``: the loop variable of the work units (u, c)."""
     a_broadcast = [(f"&{row_operand}[buf][k][8 * tr]", f"&{row_operand}[buf][k][0]"),
                    (f"&{row_operand}[buf][k][8 * tr + 4]", f"&{row_operand}[buf][k][4]")]
     one_stage = [(f"if (more) fetch({unit} + 1);", f"if (more && {unit} == {unit}_begin) fetch({unit} + 1);"),
                  (f"if (more) stage({unit} + 1, buf ^ 1);",
                   f"if (more && {unit} == {unit}_begin) stage({unit} + 1, buf ^ 1);")]
     return {
-        "source": source, "shapes": shapes, "splits": splits,
+        "source": source, "shapes": shapes,
         "variants": {"full": (), "no-noise": (NOISE,)},
         "diagnostics": {  # timing only: each computes a wrong result
             "w-broadcast": tuple(W_BROADCAST),
@@ -64,10 +80,27 @@ def family(source: str, shapes, row_operand: str, unit: str, splits: dict) -> di
 
 
 FAMILIES = {
-    "dx": family("sampled_dense_dx.cu", (("sampled_dense_dx", 784, 1024), ("sampled_dense_xs_dx", 1024, 1024)),
-                 "gt", "u", {"sampled_dense_dx": (20, 40), "sampled_dense_xs_dx": (2, 3, 4)}),
-    "fwd": family("sampled_dense_fwd.cu", (("sampled_dense_fwd", 784, 1024), ("sampled_dense_xs_fwd", 1024, 1024)),
-                  "xt", "c", {"sampled_dense_fwd": (1, 2, 4), "sampled_dense_xs_fwd": (1, 2, 4)}),
+    "dx": family("sampled_dense_dx.cu", (("sampled_dense_dx", 784, 1024, (20, 40)),
+                                         ("sampled_dense_xs_dx", 1024, 1024, (2, 3, 4))), "gt", "u"),
+    "fwd": family("sampled_dense_fwd.cu", (("sampled_dense_fwd", 784, 1024, (1, 2, 4)),
+                                           ("sampled_dense_xs_fwd", 1024, 1024, (1, 2, 4))), "xt", "c"),
+    "dparams": {
+        "source": "sampled_dense_dparams.cu",
+        "shapes": (("sampled_dense_dparams", 784, 1024, (1, 2, 3, 4, 5, 8)),
+                   ("sampled_dense_xs_dparams", 1024, 1024, (1, 2, 3, 4, 5, 8)),
+                   ("sampled_dense_xs_dparams", 1024, 10, (2, 5, 10))),
+        "variants": {"full": (), "no-noise": tuple(DP_NOISE)},
+        "diagnostics": {
+            "loop-alone": (DP_EPILOGUE,),
+            "one-stage": (DP_ONE_STAGE,),
+            "one-stage-loop-alone": (DP_ONE_STAGE, DP_EPILOGUE),
+            "unrolled-epilogue": (DP_UNROLLED,),
+            **{f"epilogue-unroll-{n}": ((DP_UNROLLED[0], DP_UNROLLED[0].replace("unroll 1", f"unroll {n}")),)
+               for n in (2, 4)},
+            **{f"ffma-unroll-{n}": ((DP_FFMA_LOOP, DP_FFMA_LOOP.replace("unroll", f"unroll {n}", 1)),)
+               for n in (4, 8)},
+        },
+    },
 }
 NOISE_PROBE = """#include "sampled_dense_common.cuh"
 extern "C" __global__ void noise_probe(float4* out, uint32_t seed) {
@@ -93,7 +126,7 @@ def build_variant(build, sd, fam: dict, swaps, workdir: str, tag: str) -> ctypes
         if "Used" in line or "spill" in line:
             print(f"[probe] build {stem} {tag}: {line.strip()}")
     dll = ctypes.CDLL(lib)
-    for name, _, _ in fam["shapes"]:
+    for name, *_ in fam["shapes"]:
         getattr(dll, name).argtypes = sd._SIGNATURES[name][1]
     return dll
 
@@ -145,7 +178,7 @@ def count_sass(sass: str) -> tuple[int, int]:
 
 def main() -> None:
     args = sys.argv[1:]
-    kind = "fwd" if "--fwd" in args else "dx"
+    kind = "fwd" if "--fwd" in args else "dparams" if "--dparams" in args else "dx"
     diagnose = "--diagnose" in args
     sass_dir = next((a for a in args if not a.startswith("--")), None)
     sys.path.insert(0, REPO)
@@ -170,15 +203,24 @@ def main() -> None:
                   "the fast path, for 4 normals (with the probe's own indexing and store)")
         variants = {**fam["variants"], **(fam["diagnostics"] if diagnose else {})}
         libs = {tag: build_variant(build, sd, fam, swaps, workdir, tag) for tag, swaps in variants.items()}
-        for name, i_dim, o_dim in fam["shapes"]:
+        for name, i_dim, o_dim, splits in fam["shapes"]:
             gen = torch.Generator(device="cuda").manual_seed(99)
             loc, rho, bloc, brho = _layer_inputs(torch, gen, i_dim, o_dim)
             sp = torch.empty_like(rho)
-            if kind == "dx":
+            if kind == "dparams":
+                g = torch.randn((S, B, o_dim), generator=gen, device="cuda")
+                x = torch.rand((S, B, i_dim) if name == "sampled_dense_xs_dparams" else (B, i_dim),
+                               generator=gen, device="cuda")
+                planned = sd.dparams_plan(S, i_dim, o_dim, sms).n_split
+                outs = [torch.empty((i_dim, o_dim), device="cuda") for _ in range(2)] + \
+                    [torch.empty((o_dim,), device="cuda") for _ in range(2)]
+                head = (g.data_ptr(), x.data_ptr(), rho.data_ptr(), brho.data_ptr())
+                scratch = lambda n: (n, 2, i_dim + 1, o_dim)  # noqa: E731
+            elif kind == "dx":
                 summed = name == "sampled_dense_dx"
                 g = torch.randn((S, B, o_dim), generator=gen, device="cuda")
                 planned = sd.dx_plan(S, B, i_dim, o_dim, sms, summed).n_split
-                out = torch.empty((B, i_dim) if summed else (S, B, i_dim), device="cuda")
+                outs = [torch.empty((B, i_dim) if summed else (S, B, i_dim), device="cuda")]
                 lead = (S,) if not summed else ()
                 head = (g.data_ptr(), loc.data_ptr(), rho.data_ptr(), sp.data_ptr())
                 scratch = lambda n: (n, *lead, B, i_dim)  # noqa: E731
@@ -186,22 +228,23 @@ def main() -> None:
                 x = torch.rand((S, B, i_dim) if name == "sampled_dense_xs_fwd" else (B, i_dim),
                                generator=gen, device="cuda")
                 planned = sd.fwd_plan(S, B, i_dim, o_dim, sms).n_split
-                out = torch.empty((S, B, o_dim), device="cuda")
+                outs = [torch.empty((S, B, o_dim), device="cuda")]
                 head = (x.data_ptr(), loc.data_ptr(), rho.data_ptr(), bloc.data_ptr(), brho.data_ptr(),
                         sp.data_ptr())
                 scratch = lambda n: (n, S, B, o_dim)  # noqa: E731
-            for n_split in sorted(set(fam["splits"][name]) | {planned}):
+            for n_split in sorted(set(splits) | {planned}):
                 part = torch.empty(scratch(n_split), device="cuda") if n_split > 1 else None
 
                 def call(dll, n_split=n_split, part=part):
                     stream = torch.cuda.current_stream().cuda_stream  # the capture stream in a graph
                     err = getattr(dll, name)(*head, part.data_ptr() if part is not None else None,
-                                             out.data_ptr(), S, B, i_dim, o_dim, 5, n_split, stream)
+                                             *(t.data_ptr() for t in outs), S, B, i_dim, o_dim, 5, n_split,
+                                             stream)
                     if err:
                         raise RuntimeError(f"{name}: cudaError {err}")
 
                 for tag, dll in libs.items():
-                    if tag in fam["diagnostics"] and n_split != planned:
+                    if (tag in fam["diagnostics"] and n_split != planned) or (o_dim <= 16 and tag != "full"):
                         continue
                     ms = device_ms(torch, lambda dll=dll: call(dll))
                     rows.append({"kernel": name, "shape": f"I={i_dim} O={o_dim}", "n_split": n_split,

@@ -1,14 +1,15 @@
-"""The CUDA sources of the forward and dx kernels run on the CPU, against their plain twins.
+"""The CUDA sources of the sampled-dense kernels run on the CPU, against their plain twins.
 
-``csrc/sampled_dense_fwd.cu`` and ``csrc/sampled_dense_dx.cu`` are built with
-g++ against ``tests/cuda_emulation/cuda_runtime.h``, a CPU stand-in for the few
-CUDA pieces they use (one std::thread per CUDA thread, a barrier for
-``__syncthreads``; ``cp.async`` of ``sampled_dense_common.cuh`` becomes a plain
-copy; the headers are copied next to the source), and called through ctypes
-with the launch plans of ``ops/sampled_dense.fwd_plan`` and ``dx_plan``. This
-checks the kernels'
-indexing, masking, work split and fixed-order sum of partials at ragged shapes
-on a machine without a card; the card itself is checked by
+``csrc/sampled_dense_fwd.cu``, ``csrc/sampled_dense_dx.cu`` and
+``csrc/sampled_dense_dparams.cu`` are built with g++ against
+``tests/cuda_emulation/cuda_runtime.h``, a CPU stand-in for the few CUDA pieces
+they use (one std::thread per CUDA thread, a barrier for ``__syncthreads``, a
+per-launch buffer for ``extern __shared__``; ``cp.async`` of
+``sampled_dense_common.cuh`` becomes a plain copy; the headers are copied next
+to the source), and called through ctypes with the launch plans of
+``ops/sampled_dense.fwd_plan``, ``dx_plan`` and ``dparams_plan``. This checks
+the kernels' indexing, masking, work split and fixed-order sum of partials at
+ragged shapes on a machine without a card; the card itself is checked by
 ``tests/test_torch_kernels.py`` and ``chip_smoke.py``. Same tolerance as
 there: 1e-4 relative plus 1e-4 of the largest entry.
 """
@@ -29,6 +30,7 @@ sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
 
 EMULATION = Path(__file__).parent / "cuda_emulation"
 LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)<<<([^;]*?)>>>\((.*?)\);", re.S)
+DYNAMIC_SHARED = re.compile(r"extern __shared__ __align__\(\d+\) float (\w+)\[\];")
 CP_ASYNC = {  # the PTX helpers of the source, as plain copies
     "cp_async16": "__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {\n"
                   "  for (int j = 0; j < 4; ++j) smem[j] = valid ? gmem[j] : 0.f;\n}\n",
@@ -38,12 +40,13 @@ CP_ASYNC = {  # the PTX helpers of the source, as plain copies
 
 
 def emulated_source(source: str) -> str:
-    """A kernel source with each launch replaced."""
+    """A kernel source with each launch and dynamic shared array replaced."""
 
     def launch(m):
-        grid, threads, _smem, _stream = (p.strip() for p in m.group(2).split(","))
-        return f"emulated_launch(dim3({grid}), {threads}, [&] {{ {m.group(1)}({m.group(3)}); }});"
+        grid, threads, smem, _stream = (p.strip() for p in m.group(2).split(","))
+        return f"emulated_launch(dim3({grid}), {threads}, {smem}, [&] {{ {m.group(1)}({m.group(3)}); }});"
 
+    source = DYNAMIC_SHARED.sub(r"float* \1 = emulated_dynamic_shared();", source)
     return LAUNCH.sub(launch, source)
 
 
@@ -179,3 +182,65 @@ def test_fwd_kernels_match_twins_on_the_cpu(fwd_library, shape, sms, runs):
                       (out_xs, sd.sampled_dense_xs_fwd_plain(xs, *params, s, seed))):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
     assert torch.equal(broadcast, out)
+
+
+DPARAMS = ("sampled_dense_dparams", "sampled_dense_xs_dparams")
+
+
+@pytest.fixture(scope="module")
+def dparams_library(tmp_path_factory):
+    return build(tmp_path_factory, "sampled_dense_dparams.cu", DPARAMS)
+
+
+def run_dparams(dll, g, x, rho, brho, seed, sms):
+    """One dparams call; NaN-filled outputs and scratch, so a missed write shows."""
+    (s, b, o), i = g.shape, rho.shape[0]
+    plan = sd.dparams_plan(s, i, o, sms)
+    outs = [torch.full((i, o), float("nan")) for _ in range(2)] + [torch.full((o,), float("nan")) for _ in range(2)]
+    partials = torch.full(plan.scratch, float("nan")) if plan.scratch else None
+    fn = dll.sampled_dense_xs_dparams if x.dim() == 3 else dll.sampled_dense_dparams
+    err = fn(g.data_ptr(), x.data_ptr(), rho.data_ptr(), brho.data_ptr(),
+             partials.data_ptr() if partials is not None else None, *(t.data_ptr() for t in outs),
+             s, b, i, o, seed, plan.n_split, None)
+    assert err == 0
+    return tuple(outs), plan
+
+
+def dparams_case(shape):
+    b, i, o, s = shape
+    rng = np.random.default_rng(b * 7919 + i * 31 + o)
+
+    def normal(*dims, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.normal(size=dims) * scale + shift).astype(np.float32))
+
+    return normal(s, b, o), normal(b, i), normal(s, b, i), normal(i, o, scale=0.5, shift=-3.0), \
+        normal(o, scale=0.5, shift=-3.0)
+
+
+@pytest.mark.parametrize("shape,sms,runs", [
+    ((37, 70, 10, 3), 132, 3),  # the head's narrow path, I = 70 ragged over three input blocks
+    ((1, 70, 13, 1), 132, 1),  # narrow, one row, O % 4 != 0 in the last quad: no partials
+    ((129, 2, 2, 2), 132, 2),  # narrow, O = 2, I = 2, a second 128-row stage of one row
+    ((5, 200, 10, 40), 4, 2),  # narrow at S = 40 in two runs of 20 samples
+    ((37, 70, 66, 2), 132, 2),  # wide, O % 4 != 0 and I % 4 != 0: plain loads, two output tiles
+    ((8, 24, 20, 3), 132, 3),  # wide, O = 20: a ragged 64-output tile
+    ((129, 68, 64, 2), 132, 2),  # wide, B = 129: nine chunks, the last of one row
+    ((37, 260, 68, 40), 6, 2),  # wide at S = 40: three input tiles, two runs of 20 samples
+    ((9, 70, 20, 40), 132, 8),  # wide at S = 40: eight runs of five samples, the largest cluster
+    ((45, 70, 66, 2), 1, 1),  # wide, one run: no partials
+    ((100, 2, 32, 10), 132, 8),  # wide, the Half Moons hidden layer: I = 2, a cluster of 8 runs
+], ids=lambda v: "B{}_I{}_O{}_S{}".format(*v) if isinstance(v, tuple) else str(v))
+def test_dparams_kernels_match_twins_on_the_cpu(dparams_library, shape, sms, runs):
+    """Both dparams kernels against their twins, and xs_dparams on a broadcast
+    x equal to dparams."""
+    b, i, o, s = shape
+    g, x, xs, rho, brho = dparams_case(shape)
+    got, plan = run_dparams(dparams_library, g, x, rho, brho, 2026, sms)
+    assert plan.n_split == runs
+    got_xs, _ = run_dparams(dparams_library, g, xs, rho, brho, 2026, sms)
+    broadcast, _ = run_dparams(dparams_library, g, x.expand(s, b, i).contiguous(), rho, brho, 2026, sms)
+    for outs, want in ((got, sd.sampled_dense_dparams_plain(g, x, rho, brho, s, 2026)),
+                       (got_xs, sd.sampled_dense_xs_dparams_plain(g, xs, rho, brho, s, 2026))):
+        for got_t, want_t in zip(outs, want):
+            torch.testing.assert_close(got_t, want_t, rtol=1e-4, atol=1e-4 * float(want_t.abs().max()))
+    assert all(torch.equal(a, c) for a, c in zip(broadcast, got))

@@ -28,7 +28,7 @@ pytestmark = pytest.mark.cuda
 SHAPES = [  # (B, I, O, S)
     (8, 24, 20, 3),  # O not a multiple of the 16-column tile
     (130, 37, 10, 5),  # two row tiles, I not a multiple of 4, the 10-class head
-    (45, 70, 66, 2),  # ragged B, I and O past the 64 x 64 dparams tile
+    (45, 70, 66, 2),  # ragged B, I and O past a 64-output tile
     (128, 784, 1024, 10),  # model_7's first layer at the attack batch
 ]
 
@@ -199,3 +199,27 @@ def test_fwd_kernels_at_edge_shapes(cuda, shape):
     assert torch.isfinite(out).all() and torch.isfinite(out_xs).all()
     assert_close(out, sd.sampled_dense_fwd_plain(p["x"], *params))
     assert_close(out_xs, sd.sampled_dense_xs_fwd_plain(p["xs"], *params))
+
+
+DPARAMS_EDGE_SHAPES = FWD_EDGE_SHAPES + [  # (B, I, O, S), as chip_smoke.py's dparams-edge phase
+    (64, 256, 4000, 2),  # a wide O: 63 output tiles
+]
+
+
+@pytest.mark.parametrize("shape", DPARAMS_EDGE_SHAPES, ids=lambda s: "B{}_I{}_O{}_S{}".format(*s))
+def test_dparams_kernels_at_edge_shapes(cuda, shape):
+    """Both dparams kernels against their twins, bit-identical across two
+    calls, and xs_dparams on a broadcast x equal to dparams."""
+    b, i, o, s = shape
+    p = layer(b, i, o, s, cuda)
+    tail = (p["rho"], p["brho"], s, 31)
+    got, got_xs = sd.sampled_dense_dparams(p["g"], p["x"], *tail), sd.sampled_dense_xs_dparams(p["g"], p["xs"], *tail)
+    again = sd.sampled_dense_dparams(p["g"], p["x"], *tail) + sd.sampled_dense_xs_dparams(p["g"], p["xs"], *tail)
+    assert all(torch.equal(a, c) for a, c in zip(got + got_xs, again))
+    broadcast = sd.sampled_dense_xs_dparams(p["g"], p["x"].expand(s, b, i).contiguous(), *tail)
+    assert all(torch.equal(a, c) for a, c in zip(broadcast, got))
+    for outs, want in ((got, sd.sampled_dense_dparams_plain(p["g"], p["x"], *tail)),
+                       (got_xs, sd.sampled_dense_xs_dparams_plain(p["g"], p["xs"], *tail))):
+        for got_t, want_t in zip(outs, want):
+            assert torch.isfinite(got_t).all()
+            assert_close(got_t, want_t)

@@ -436,3 +436,61 @@ def test_fwd_plan_fills_the_card_at_the_main_path():
         assert (plan.n_split, plan.grid, plan.scratch) == (3, (30, 16, 1), (3, 10, 128, 1024))
     head = sd.fwd_plan(10, 128, 1024, 10, 132)
     assert head.narrow and (head.n_split, head.grid, head.scratch) == (32, (320, 1, 1), (32, 10, 128, 10))
+
+
+# The dparams kernels' launch plan (computed in Python, followed by the CUDA kernel)
+@pytest.mark.parametrize("shape", FWD_PLAN_SHAPES, ids=lambda s: "S{}_B{}_I{}_O{}".format(*s))
+def test_dparams_plan_covers_every_sample_once(shape):
+    """Every sample of every tile of dloc/drho is walked by exactly one run,
+    the grid covers I and O, a wide tile's runs fit one cluster, and only the
+    narrow path has partials, with two runs or more."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    s, _, i, o = shape
+    plan = sd.dparams_plan(s, i, o, 132)
+    assert plan.narrow == (o <= sd.NARROW_MAX_O)
+    runs = sd.dparams_sample_runs(plan, s)
+    assert len(runs) == plan.n_split and all(len(run) > 0 for run in runs)
+    assert [k for run in runs for k in run] == list(range(s))
+    if plan.narrow:
+        assert plan.grid[1:] == (plan.n_split, 1)
+        assert plan.grid[0] * sd.DP_NARROW_COLS >= i > (plan.grid[0] - 1) * sd.DP_NARROW_COLS
+        assert plan.scratch == ((plan.n_split, 2, i + 1, o) if plan.n_split > 1 else ())
+    else:
+        assert plan.grid[2] == plan.n_split <= sd.DP_MAX_RUNS and plan.scratch == ()
+        assert plan.grid[0] * sd.DP_COLS >= o > (plan.grid[0] - 1) * sd.DP_COLS
+        assert plan.grid[1] * sd.DP_ROWS >= i > (plan.grid[1] - 1) * sd.DP_ROWS
+
+
+@pytest.mark.parametrize("i,o", [(784, 1024), (1024, 1024), (1024, 10), (70, 36), (784, 13), (3072, 512),
+                                 (256, 4000), (2, 32), (32, 2)])
+def test_dparams_plan_partials_stay_bounded(i, o):
+    """The runs fill at most one wave of the card's block slots whatever S is,
+    so the narrow path's partial planes stay within one wave of tiles and the
+    wide path has none; a block walks the whole batch, so B (up to 4096 here)
+    never enters the plan."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    narrow = o <= sd.NARROW_MAX_O
+    slots = (sd.DP_NARROW_BLOCKS_PER_SM if narrow else sd.DP_BLOCKS_PER_SM) * 132
+    tile = sd.DP_NARROW_COLS * sd.NARROW_MAX_O if narrow else sd.DP_ROWS * sd.DP_COLS
+    sizes = []
+    for s in (1, 10, 100, 1000):
+        plan = sd.dparams_plan(s, i, o, 132)
+        if plan.n_split > 1:
+            assert math.prod(plan.grid) <= slots
+            assert math.prod(plan.scratch) <= 2 * slots * (tile + o)
+        sizes.append(math.prod(plan.scratch or (0,)))
+    assert sizes == sorted(sizes)  # more runs only while more samples fit the wave
+
+
+def test_dparams_plan_fills_the_card_at_the_main_path():
+    """At model_7's shapes (S = 10) on 132 SMs: the 112 and 128 tiles of the
+    wide layers split into two runs of five samples, clusters of two, 224 and
+    256 blocks in one wave of the 264 block slots (two an SM); the head's 32
+    input blocks take one sample a run, 320 blocks."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    first = sd.dparams_plan(10, 784, 1024, 132)
+    assert (first.n_split, first.grid, first.scratch) == (2, (16, 7, 2), ())
+    hidden = sd.dparams_plan(10, 1024, 1024, 132)
+    assert (hidden.n_split, hidden.grid, hidden.scratch) == (2, (16, 8, 2), ())
+    head = sd.dparams_plan(10, 1024, 10, 132)
+    assert head.narrow and (head.n_split, head.grid, head.scratch) == (10, (32, 10, 1), (10, 2, 1025, 10))
