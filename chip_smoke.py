@@ -7,7 +7,8 @@ Run from the repo root, with no arguments::
 
 Phases, each fatal on failure:
 
-1. device: a CUDA card, its name and power limit, exact f32 (no TF32);
+1. device: a CUDA card, its name and power limit, and exact f32 (no TF32)
+   from ``resolve_device`` alone, with both flags set True before it;
 2. build: every kernel under ``robustbnns_tpu_torch/csrc`` with nvcc;
 3. kernels: each of the six sampled-dense kernels against its plain PyTorch
    twin on the card, at the shapes ``model_7`` (fc2-1024) gives it, with
@@ -41,7 +42,24 @@ Phases, each fatal on failure:
    then attacked by PGD: a finite, falling loss, a posterior that moved and
    carries no ``requires_grad``, and no dparams launch during the attack;
    then the wall and device time of 20 SVI steps (``torch.profiler``);
-9. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
+9. conv: ``model_0`` (MNIST conv-512) at B = 128, S = 10 seeded draws: the
+   predictive's probabilities and input gradient within 1e-4·max of the same
+   computation in float64 (TF32 would show near 1e-3), the stacked-draw
+   ``apply``'s logits within 1e-5·max of a loop over the draws (both float64)
+   and its f32 logits within 1e-4·max of float64, and the wall and device
+   time of one forward plus input gradient;
+10. model_0 attack: Bayesian FGSM and 40-step PGD on a seeded random
+   ``model_0`` posterior through the attack CLI (unfused: conv has no fused
+   path), 256 images, S = 10: inside the ε-ball and [0, 1], at least 20% of
+   pixels moved, no sampled-dense launch; then PGD's wall against device time;
+11. north star (``scripts/northstar.py`` through the port): ``model_0``
+   trained for its 5 epochs on 60,000 surrogate images at batch 128, the
+   10-draw evaluation, PGD at S = 100 on 1,000 test images and the 500-draw
+   defence evaluation: a finite, falling loss, a moved posterior with no
+   ``requires_grad`` leaf, ``x_adv`` finite inside the ε-ball and [0, 1];
+12. loss gradients: ``cli.loss_gradients`` on the trained posterior for
+   S = 1, 10, 50, 100 on 1,000 test images: finite arrays of the input's shape;
+13. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
    ``launches`` counts the dparams kernels over phase 6 and the others over
    phase 7.
 
@@ -138,6 +156,31 @@ def device_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
     return statistics.median(times)
 
 
+def profiled_device_ms(torch, fn, phase: str) -> tuple[float, float]:
+    """Device time of the kernels ``fn`` runs, summed under ``torch.profiler``,
+    and the wall ms of that profiled call (the profiler slows the host and, for
+    cuDNN's kernels, the device too, so a device-bound call can read more
+    device time than an unprofiled call's wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = wall_s(torch, fn)
+    device_us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                    for e in prof.key_averages())
+    if device_us <= 0:
+        fail(f"[{phase}] torch.profiler saw no device time")
+    return 1e-3 * device_us, 1e3 * wall
+
+
+def wall_s(torch, fn) -> float:
+    """Host seconds of ``fn`` between two synchronisations with the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -151,11 +194,17 @@ def phase_device(torch) -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    from robustbnns_tpu_torch.utils.device import exact_f32
+    from robustbnns_tpu_torch.utils.device import resolve_device
 
-    exact_f32()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    resolve_device("cuda")
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    if any(flags):
+        fail(f"[device] resolve_device('cuda') left TF32 on (matmul, cudnn) = {flags}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+          f"resolve_device('cuda') alone turned TF32 off (matmul, cudnn) = {flags}")
     return smi
 
 
@@ -410,12 +459,12 @@ def phase_dparams_edges(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def model7_posterior(torch, arch, rel_scale: float = 1e-2, rho_spread: float = 0.0):
-    """A seeded random posterior at model_7's widths: loc from the torch-default
-    init, softplus(rho) = ``rel_scale`` of each layer's init bound, rho spread
-    by ``rho_spread``·N(0, 1). The reference's N(0, 1) init (``init_meanfield``)
-    saturates the softmax of an untrained fc2-1024, and the attack gradients
-    then vanish."""
+def seeded_posterior(torch, arch, rel_scale: float = 1e-2, rho_spread: float = 0.0):
+    """A seeded random posterior at an architecture's widths: loc from the
+    torch-default init, softplus(rho) = ``rel_scale`` of each layer's init
+    bound 1/sqrt(fan_in), rho spread by ``rho_spread``·N(0, 1). The
+    reference's N(0, 1) init (``init_meanfield``) saturates the softmax of an
+    untrained fc2-1024 or conv-512, and the attack gradients then vanish."""
     from robustbnns_tpu_torch.inference.svi import MeanFieldPosterior
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -436,7 +485,7 @@ def phase_predictive(torch) -> None:
     from robustbnns_tpu_torch.ops.fused_predict import layer_seed, svi_predict_fused
 
     arch = build_architecture("fc2", "leaky", (28, 28, 1), 10, 1024, "mnist")
-    post = model7_posterior(torch, arch)
+    post = seeded_posterior(torch, arch)
     act = ACTIVATIONS["leaky"]
     seed = 99
 
@@ -482,7 +531,7 @@ def phase_param_grad(torch) -> dict:
     from robustbnns_tpu_torch.utils.pytree import tree_leaves
 
     arch = build_architecture("fc2", "leaky", (28, 28, 1), 10, 1024, "mnist")
-    post = model7_posterior(torch, arch, rel_scale=0.5, rho_spread=0.3)
+    post = seeded_posterior(torch, arch, rel_scale=0.5, rho_spread=0.3)
     act = ACTIVATIONS["leaky"]
     seed = 4242
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -558,7 +607,7 @@ def phase_main_path(torch, workdir: str) -> dict:
     if not os.path.abspath(DATA).startswith(workdir):
         fail(f"ROBUSTBNNS_DATA was not redirected to the temporary directory ({DATA})")
     bnn = BNN.from_config(saved_BNNs["model_7"], (28, 28, 1), 10, device="cuda")
-    bnn.posterior = model7_posterior(torch, bnn.arch)
+    bnn.posterior = seeded_posterior(torch, bnn.arch)
     bnn.save(rel_path=DATA)
 
     n_inputs, eps = 256, 0.3
@@ -593,39 +642,32 @@ def phase_attack_profile(torch) -> None:
     CLI runs it (256 images in batches of 128, S = 10, fused): the median
     wall time of three unprofiled attacks, and the device time of their
     kernels under ``torch.profiler`` in a fourth."""
-    from torch.profiler import ProfilerActivity, profile
-
     from robustbnns_tpu_torch.attacks.gradient_attacks import attack
     from robustbnns_tpu_torch.config import saved_BNNs
     from robustbnns_tpu_torch.models.bnn import BNN
 
     bnn = BNN.from_config(saved_BNNs["model_7"], (28, 28, 1), 10, device="cuda")
-    bnn.posterior = model7_posterior(torch, bnn.arch)
+    bnn.posterior = seeded_posterior(torch, bnn.arch)
     gen = torch.Generator(device="cuda").manual_seed(13)
     n, iters = 2 * B, 2 * 40
     x = torch.rand((n, 28, 28, 1), generator=gen, device="cuda")
     y = torch.nn.functional.one_hot(torch.randint(0, 10, (n,), generator=gen, device="cuda"), 10).float()
     run = lambda: attack(bnn, x, y, method="pgd", n_samples=S, fused=True, save=False, verbose=False)  # noqa: E731
+    print_pgd_profile(torch, "attack-profile", "PGD", run, n, iters)
+
+
+def print_pgd_profile(torch, phase: str, what: str, run, n: int, iters: int) -> None:
+    """The median wall time of three unprofiled attacks against the device
+    time of a fourth's kernels, per PGD iteration."""
     run()
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    device_us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-                    for e in prof.key_averages())
-    if device_us <= 0:
-        fail("[attack-profile] torch.profiler saw no device time")
+    walls = [wall_s(torch, run) for _ in range(3)]
     wall = statistics.median(walls)
-    it_ms, dev_ms = 1e3 * wall / iters, 1e-3 * device_us / iters
-    print(f"[attack-profile] PGD, 40 steps on {n} images, S={S}: {n / wall:.1f} images/s (median of "
+    dev_ms, prof_ms = profiled_device_ms(torch, run, phase)
+    it_ms, dev_ms, prof_ms = 1e3 * wall / iters, dev_ms / iters, prof_ms / iters
+    print(f"[{phase}] {what}, 40 steps on {n} images, S={S}: {n / wall:.1f} images/s (median of "
           f"{[round(n / w, 1) for w in walls]}); an iteration {it_ms:.3f} ms wall, {dev_ms:.3f} ms of "
-          f"device kernels (device idle {100 * (1 - dev_ms / it_ms):.1f}% of the iteration)")
+          f"device kernels (device idle {100 * (1 - dev_ms / it_ms):.1f}% of the iteration; under the "
+          f"profiler {prof_ms:.3f} ms wall, idle {100 * (1 - dev_ms / prof_ms):.1f}%)")
 
 
 def phase_training(torch) -> None:
@@ -679,8 +721,6 @@ def phase_train_profile(torch) -> None:
     """Host and device time of 20 SVI steps at model_7's widths: the wall clock
     of an unprofiled epoch, and the device time of its kernels under
     ``torch.profiler`` in a second, identical epoch."""
-    from torch.profiler import ProfilerActivity, profile
-
     from robustbnns_tpu_torch.inference.svi import svi_train
     from robustbnns_tpu_torch.models.architectures import build_architecture
 
@@ -691,17 +731,250 @@ def phase_train_profile(torch) -> None:
     y = torch.nn.functional.one_hot(torch.randint(0, 10, (n,), generator=gen, device="cuda"), 10).float()
     run = lambda: svi_train(arch, x, y, epochs=1, lr=0.02, batch_size=B, verbose=False, device="cuda")  # noqa: E731
     wall = run()[1]["seconds"][0]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    device_us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-                    for e in prof.key_averages())
-    if device_us <= 0:
-        fail("[train-profile] torch.profiler saw no device time")
-    step_ms, dev_ms = 1e3 * wall / steps, 1e-3 * device_us / steps
+    step_ms, dev_ms = 1e3 * wall / steps, profiled_device_ms(torch, run, "train-profile")[0] / steps
     print(f"[train-profile] SVI step at fc2-1024, batch {B}, 10-draw train accuracy: "
           f"{step_ms:.3f} ms wall, {dev_ms:.3f} ms of device kernels "
           f"(device idle {100 * (1 - dev_ms / step_ms):.1f}% of the step)")
+
+
+CONV_TOL_OF_MAX = 1e-4  # f32 against float64 through two convs, softmax and CE
+LOOP_TOL_OF_MAX = 1e-5  # stacked against one draw at a time, both float64
+
+
+def conv_reference(torch, arch, weights, x, pools=None):
+    """model_0's network written out one draw at a time: (S, B, classes)
+    logits and the max-pools' argmax indices. Given ``pools``, each max-pool
+    takes its value at those indices instead: float64 then follows the f32
+    run's choices, and a near-tie that rounds the other way in float64 does
+    not reroute a window's gradient."""
+    import torch.nn.functional as F
+
+    from robustbnns_tpu_torch.models.architectures import ACTIVATIONS
+
+    act, logits, chosen = ACTIVATIONS[arch.activation], [], []
+
+    def pool(h, stride, at):
+        if at is None:
+            h, at = F.max_pool2d(h, 2, stride, return_indices=True)
+            return h, at
+        return h.flatten(2).gather(2, at.flatten(2)).reshape(at.shape), at
+
+    for s in range(weights[0]["w"].shape[0]):
+        (c1, c2, head), idx = ({k: v[s] for k, v in layer.items()} for layer in weights), []
+        h = x.permute(0, 3, 1, 2)
+        for layer, stride in ((c1, 2), (c2, 1)):
+            h = act(F.conv2d(h, layer["w"].permute(3, 2, 0, 1), layer["b"]))
+            h, at = pool(h, stride, None if pools is None else pools[s][len(idx)])
+            idx.append(at)
+        logits.append(h.permute(0, 2, 3, 1).reshape(h.shape[0], -1) @ head["w"] + head["b"])
+        chosen.append(idx)
+    return torch.stack(logits), chosen
+
+
+def phase_conv(torch) -> None:
+    """model_0's seeded 10-draw predictive on the card: against float64 (a
+    written-out reference that follows the f32 run's max-pool choices), the
+    stacked apply against a loop over draws, and the time of one forward plus
+    input gradient."""
+    from robustbnns_tpu_torch.attacks.gradient_attacks import ce_on_outputs
+    from robustbnns_tpu_torch.config import saved_BNNs
+    from robustbnns_tpu_torch.inference.svi import sample_meanfield_eps
+    from robustbnns_tpu_torch.models.bnn import BNN
+    from robustbnns_tpu_torch.predict import sample_eps
+    from robustbnns_tpu_torch.utils.pytree import map_params, tree_leaves
+
+    arch = BNN.from_config(saved_BNNs["model_0"], (28, 28, 1), 10, device="cuda").arch
+    post = seeded_posterior(torch, arch, rel_scale=0.5)
+    n_params = sum(v.numel() for v in tree_leaves(post.loc))
+    w = sample_meanfield_eps(post, sample_eps(post.loc, S, seeds=range(S), device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.rand((B, 28, 28, 1), generator=gen, device="cuda")
+    labels = torch.randint(0, 10, (B,), generator=gen, device="cuda")
+
+    def probs_and_grad(apply, weights, inp):
+        inp = inp.clone().requires_grad_(True)
+        probs = torch.softmax(apply(weights, inp), -1).mean(0)
+        (grad,) = torch.autograd.grad(ce_on_outputs(probs, labels).sum(), inp)
+        return probs.detach(), grad
+
+    p32, g32 = probs_and_grad(arch.apply, w, x)
+    with torch.no_grad():
+        pools = conv_reference(torch, arch, w, x)[1]
+    p64, g64 = probs_and_grad(lambda ws, inp: conv_reference(torch, arch, ws, inp, pools)[0],
+                              map_params(torch.Tensor.double, w), x.double())
+    if not (torch.isfinite(p32).all() and torch.isfinite(g32).all()):
+        fail("[conv] the model_0 predictive gave non-finite values")
+    errs = []
+    for name, got, ref in (("probabilities", p32, p64), ("input gradient", g32, g64)):
+        errs.append(float((got.double() - ref).abs().max() / ref.abs().max()))
+        if errs[-1] > CONV_TOL_OF_MAX:
+            fail(f"[conv] model_0 {name}: {errs[-1]:.3e} of max|float64| from float64 (tol {CONV_TOL_OF_MAX:.0e})")
+    # The stacked apply against a loop of one-draw applies, both in float64, so
+    # that a layout fault shows and f32 rounding does not: the head sums 25,088
+    # products some 160 times larger than the logits, which leaves f32 logits
+    # about 1e-5 of max from float64 in any order. The f32 stacked and looped
+    # logits are held to float64 at the 1e-4 of the other float64 gates.
+    w64, x64 = map_params(torch.Tensor.double, w), x.double()
+    with torch.no_grad():
+        looped64 = torch.stack([arch.apply(map_params(lambda v: v[s], w64), x64) for s in range(S)])
+        scale = float(looped64.abs().max())
+        loop_err = float((arch.apply(w64, x64) - looped64).abs().max()) / scale
+        f32_errs = [float((logits.double() - looped64).abs().max()) / scale for logits in (
+            arch.apply(w, x), torch.stack([arch.apply(map_params(lambda v: v[s], w), x) for s in range(S)]))]
+    if loop_err > LOOP_TOL_OF_MAX:
+        fail(f"[conv] stacked apply: {loop_err:.3e} of max|loop| from a loop over draws, both float64 "
+             f"(tol {LOOP_TOL_OF_MAX:.0e})")
+    if max(f32_errs) > CONV_TOL_OF_MAX:
+        fail(f"[conv] f32 logits (stacked, looped) {f32_errs} of max from float64 (tol {CONV_TOL_OF_MAX:.0e})")
+    run = lambda: probs_and_grad(arch.apply, w, x)  # noqa: E731
+    run()
+    walls = [wall_s(torch, run) for _ in range(5)]
+    dev_ms, prof_ms = profiled_device_ms(torch, run, "conv")
+    print(f"[conv] model_0 conv-512, {n_params} parameters ({2 * n_params} variational), B={B} S={S} "
+          f"seeded: probabilities within {errs[0]:.3e} and input gradient within {errs[1]:.3e} of max|float64| "
+          f"(tol {CONV_TOL_OF_MAX:.0e}); float64 stacked logits within {loop_err:.3e} of a float64 loop over "
+          f"draws (tol {LOOP_TOL_OF_MAX:.0e}); f32 logits from float64: stacked {f32_errs[0]:.3e}, looped "
+          f"{f32_errs[1]:.3e} (tol {CONV_TOL_OF_MAX:.0e}); forward + input gradient "
+          f"{1e3 * statistics.median(walls):.3f} ms wall (median of 5), {dev_ms:.3f} ms of device kernels "
+          f"({prof_ms:.3f} ms wall under the profiler)")
+
+
+def phase_model0_attack(torch, workdir: str) -> None:
+    """FGSM and PGD on a seeded random model_0 posterior through the attack
+    CLI, unfused, with no sampled-dense launch; then PGD's wall against device time."""
+    from robustbnns_tpu_torch.attacks.gradient_attacks import attack
+    from robustbnns_tpu_torch.cli import attacks as cli
+    from robustbnns_tpu_torch.config import DATA, saved_BNNs
+    from robustbnns_tpu_torch.models.bnn import BNN
+    from robustbnns_tpu_torch.ops.sampled_dense import launch_counts, reset_launch_counts
+
+    if not os.path.abspath(DATA).startswith(workdir):
+        fail(f"ROBUSTBNNS_DATA was not redirected to the temporary directory ({DATA})")
+    bnn = BNN.from_config(saved_BNNs["model_0"], (28, 28, 1), 10, device="cuda")
+    bnn.posterior = seeded_posterior(torch, bnn.arch)
+    bnn.save(rel_path=DATA)
+
+    n_inputs, eps = 256, 0.3
+    flags = ["--model_type=bnn", "--model_idx=0", "--train=False", "--test=True",
+             f"--n_inputs={n_inputs}", "--device=cuda"]
+    reset_launch_counts()
+    runs = {m: cli.main(flags + [f"--attack_method={m}"]) for m in ("fgsm", "pgd")}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"[model0-attack] the conv attack launched a sampled-dense kernel: {counts}")
+    for method, r in runs.items():
+        xa = r["x_attack"]
+        x = torch.as_tensor(r["x_test"], device=xa.device)
+        if xa.shape != x.shape or not bool(torch.isfinite(xa).all()):
+            fail(f"[model0-attack] {method}: adversarial set has shape {tuple(xa.shape)} or non-finite values")
+        if float((xa - x).abs().max()) > eps + 1e-6 or float(xa.min()) < 0 or float(xa.max()) > 1:
+            fail(f"[model0-attack] {method}: adversarial set leaves the eps-ball or [0, 1]")
+        moved = float(((xa - x).abs() > 1e-6).float().mean())
+        if moved < 0.2:
+            fail(f"[model0-attack] {method}: only {moved:.1%} of pixels moved")
+        print(f"[model0-attack] {method}: test acc {r['test_accuracy']:.2f}% | clean acc "
+              f"{r['clean_accuracy']:.2f}% adversarial acc {r['adversarial_accuracy']:.2f}% | "
+              f"{moved:.1%} pixels moved | attack {r['attack_seconds']:.3f} s = "
+              f"{n_inputs / r['attack_seconds']:.1f} images/s; sampled-dense launches {json.dumps(counts)}")
+    x = torch.as_tensor(runs["pgd"]["x_test"], device="cuda")
+    y = torch.as_tensor(runs["pgd"]["y_test"], device="cuda")
+    run = lambda: attack(bnn, x, y, method="pgd", n_samples=S, save=False, verbose=False)  # noqa: E731
+    print_pgd_profile(torch, "model0-attack", "PGD on model_0 (unfused)", run, len(x), -(-len(x) // B) * 40)
+
+
+NORTHSTAR_ATTACK_IMAGES, NORTHSTAR_ATTACK_SAMPLES, NORTHSTAR_DEFENCE_SAMPLES = 1000, 100, 500
+
+
+def phase_northstar(torch):
+    """``scripts/northstar.py`` through the port: train model_0, evaluate,
+    PGD at S = 100, the 500-draw defence evaluation. Returns the trained BNN."""
+    from robustbnns_tpu_torch.attacks import attack, attack_evaluation
+    from robustbnns_tpu_torch.config import saved_BNNs
+    from robustbnns_tpu_torch.data.datasets import load_dataset
+    from robustbnns_tpu_torch.inference.svi import svi_init
+    from robustbnns_tpu_torch.models.bnn import BNN
+    from robustbnns_tpu_torch.utils.pytree import tree_leaves
+
+    t_start = time.perf_counter()
+    x_train, y_train, x_test, y_test, inp_shape, out = load_dataset(
+        "mnist", n_inputs=60000, shuffle=True, fallback="synthetic")
+    bnn = BNN.from_config(saved_BNNs["model_0"], inp_shape, out, device="cuda")
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        result = []
+        seconds = wall_s(torch, lambda: result.append(fn()))
+        stages[name] = (seconds, torch.cuda.max_memory_allocated() / 2**30)
+        return result[0]
+
+    stage("train", lambda: bnn.train(x_train, y_train, batch_size=128, train_acc_samples=10, verbose=False))
+    loss, acc = bnn.history["loss"], bnn.history["accuracy"]
+    n_train, epochs = len(x_train), bnn.config.epochs
+    if not all(math.isfinite(v) for v in loss):
+        fail(f"[northstar] non-finite epoch loss: {loss}")
+    if not loss[-1] < loss[0]:
+        fail(f"[northstar] the loss did not fall: {loss}")
+    leaves = tree_leaves(bnn.posterior.loc) + tree_leaves(bnn.posterior.rho)
+    if any(v.requires_grad for v in leaves):
+        fail("[northstar] the trained posterior keeps requires_grad leaves")
+    init = svi_init(bnn.arch, torch.Generator(device="cuda").manual_seed(0))
+    if all(torch.equal(a, b) for a, b in zip(leaves, tree_leaves(init.loc) + tree_leaves(init.rho))):
+        fail("[northstar] the posterior equals its init")
+    test_acc = stage("evaluate", lambda: bnn.evaluate(x_test, y_test, n_samples=10, verbose=False))
+
+    n = NORTHSTAR_ATTACK_IMAGES
+    xt = torch.as_tensor(x_test[:n], device="cuda")
+    yt = torch.as_tensor(y_test[:n], device="cuda")
+    x_adv = stage("pgd", lambda: attack(bnn, xt, yt, method="pgd", epsilon=0.3,
+                                        n_samples=NORTHSTAR_ATTACK_SAMPLES, save=False, verbose=False))
+    if x_adv.shape != xt.shape or not bool(torch.isfinite(x_adv).all()):
+        fail(f"[northstar] x_adv has shape {tuple(x_adv.shape)} or non-finite values")
+    if float((x_adv - xt).abs().max()) > 0.3 + 1e-6 or float(x_adv.min()) < 0 or float(x_adv.max()) > 1:
+        fail("[northstar] x_adv leaves the eps-ball or [0, 1]")
+    moved = float(((x_adv - xt).abs() > 1e-6).float().mean())
+    clean, adv, rob = stage("defence", lambda: attack_evaluation(
+        bnn, xt, x_adv, yt, n_samples=NORTHSTAR_DEFENCE_SAMPLES, verbose=False))
+    images = {"train": epochs * n_train, "evaluate": len(x_test), "pgd": n, "defence": 2 * n}
+    later = bnn.history["seconds"][1:]
+    print(f"[northstar] model_0 conv-512, {epochs} epochs of {n_train} surrogate images, batch 128: loss per image "
+          f"{[round(v / n_train, 4) for v in loss]}; train accuracy {[round(a, 2) for a in acc]}; seconds per "
+          f"epoch {[round(v, 3) for v in bnn.history['seconds']]} (epochs 2-{epochs} at "
+          f"{len(later) * n_train / sum(later):.1f} images/s)")
+    print(f"[northstar] 10-draw test accuracy {test_acc:.2f}%; PGD S={NORTHSTAR_ATTACK_SAMPLES} on {n} images: "
+          f"{moved:.1%} pixels moved; {NORTHSTAR_DEFENCE_SAMPLES}-draw defence: clean {clean:.2f}% adversarial "
+          f"{adv:.2f}% softmax robustness {float(rob.mean()):.4f}")
+    for name, (seconds, gib) in stages.items():
+        print(f"[northstar] {name}: {seconds:.3f} s, {images[name] / seconds:.1f} images/s, "
+              f"peak {gib:.2f} GiB allocated")
+    print(f"[northstar] total {time.perf_counter() - t_start:.3f} s with the surrogate's generation")
+    return bnn
+
+
+def phase_loss_gradients(torch, bnn) -> None:
+    """``cli.loss_gradients`` on the trained model_0 for S = 1, 10, 50, 100."""
+    import numpy as np
+
+    from robustbnns_tpu_torch.analysis import compute_vanishing_norms_idxs
+    from robustbnns_tpu_torch.cli import loss_gradients as cli
+    from robustbnns_tpu_torch.config import DATA
+
+    bnn.save(rel_path=DATA)
+    n = NORTHSTAR_ATTACK_IMAGES
+    result = []
+    seconds = wall_s(torch, lambda: result.append(
+        cli.main(["--model_idx=0", f"--n_inputs={n}", "--savedir=DATA", "--device=cuda"])))
+    grads = result[0]
+    for samples, g in grads.items():
+        if g.shape != (n, 28, 28) or not np.isfinite(g).all():
+            fail(f"[loss-gradients] S={samples}: shape {g.shape} or non-finite values")
+    stacked = np.stack([grads[k] for k in cli.POSTERIOR_SAMPLES_LIST], axis=1)
+    vanishing = len(compute_vanishing_norms_idxs(stacked, cli.POSTERIOR_SAMPLES_LIST, verbose=False)) / n
+    null = float((np.abs(stacked[:, 0]).reshape(n, -1).max(-1) == 0).mean())
+    print(f"[loss-gradients] model_0 trained, {n} images, S={cli.POSTERIOR_SAMPLES_LIST}: {seconds:.3f} s; "
+          f"max |grad| {[float(np.abs(grads[k]).max()) for k in cli.POSTERIOR_SAMPLES_LIST]}; vanishing "
+          f"{vanishing:.3f}, increasing {1 - vanishing - null:.3f}, null {null:.3f} of the images")
 
 
 def main() -> None:
@@ -710,6 +983,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
+    t_start = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         os.environ["ROBUSTBNNS_DATA"] = os.path.join(workdir, "data") + "/"
         os.environ["ROBUSTBNNS_TESTS"] = os.path.join(workdir, "tests_out") + "/"
@@ -732,6 +1006,11 @@ def main() -> None:
         phase_attack_profile(torch)
         phase_training(torch)
         phase_train_profile(torch)
+        phase_conv(torch)
+        phase_model0_attack(torch, workdir)
+        trained = phase_northstar(torch)
+        phase_loss_gradients(torch, trained)
+    print(f"[total] {time.perf_counter() - t_start:.1f} s")
     line = []
     for name, r in kernels.items():
         line.append({

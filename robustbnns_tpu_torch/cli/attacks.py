@@ -6,7 +6,10 @@ Example::
         --train=False --attack_method=pgd --fused=True --n_inputs=256
 
 ``--train=True`` trains the SVI posterior first (:meth:`.models.bnn.BNN.train`)
-and saves it. The NN and ensemble branches wait for their slice.
+and saves it. Every SVI model of the zoo runs: ``fc``/``fc2`` models also
+through the fused kernels (``--fused=True``), the ``conv`` models (``model_0``,
+``2``, ``4``, ``6``, ``8``) through the unfused predictive. The NN and ensemble
+branches wait for their slice.
 """
 from __future__ import annotations
 
@@ -65,9 +68,8 @@ def main(args) -> dict:
         raise NotImplementedError(
             f"--model_type={args.model_type} is not ported yet (NN/ensemble slice, ROADMAP.md)"
         )
-    if not args.attack:
-        raise NotImplementedError("--attack=False (evaluate a saved attack) waits for the NN slice")
-
+    # The BNN branch attacks whatever --attack says, as the JAX package's
+    # does; only the NN branch loads a saved attack for --attack=False.
     bayesian_attack_samples = [10]  # reference :251
     bayesian_defence_samples = [10]  # reference :252
     cfg = saved_BNNs[f"model_{args.model_idx}"]

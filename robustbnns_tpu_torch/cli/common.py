@@ -6,7 +6,7 @@ import argparse
 
 import torch
 
-from robustbnns_tpu_torch.utils.device import exact_f32, resolve_device
+from robustbnns_tpu_torch.utils.device import resolve_device
 
 
 def boolean(value: str) -> bool:
@@ -20,14 +20,14 @@ def boolean(value: str) -> bool:
 
 
 def setup_device(device: str, mesh: str | None = None) -> torch.device:
-    """Map ``--device cuda|cpu`` to a ``torch.device`` with exact f32 products.
+    """Map ``--device cuda|cpu`` to a ``torch.device`` with exact f32 products
+    (:func:`.utils.device.resolve_device`).
 
     ``cuda`` on a machine without a card raises. Meshes (``--mesh``) wait for the
     parallelism slice.
     """
     if mesh is not None:
         raise NotImplementedError("--mesh is not ported yet (parallelism slice, ROADMAP.md)")
-    exact_f32()
     return resolve_device(device)
 
 

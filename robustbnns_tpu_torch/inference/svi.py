@@ -12,7 +12,9 @@
 * An epoch is a Python loop over the padded batches: draw → forward → ELBO
   backward → Adam, then the reference's 10-draw train-accuracy predictive
   (``model_bnn.py:327``) under ``torch.no_grad``. The draws are materialised and
-  their products go to ``torch.matmul``, as the JAX package leaves them to XLA;
+  their products go to ``torch.matmul`` (and ``F.conv2d`` for the conv
+  architectures: the ELBO draw through the one-draw ``apply``, the accuracy
+  draws through the stacked one), as the JAX package leaves them to XLA;
   the fused sampled-dense kernels' parameter backward computes the same
   gradient from in-kernel noise (``tests/test_torch_svi.py`` holds the two to
   each other).

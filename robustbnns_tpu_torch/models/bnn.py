@@ -3,8 +3,9 @@
 A dataclass holding the configuration, the architecture, the device and the
 mean-field posterior, with ``train`` / ``forward`` / ``evaluate`` /
 ``predictive_fn`` / ``save`` / ``load`` mirroring the reference surface
-(``model_bnn.py:69``). ``train`` runs SVI (:func:`.inference.svi.svi_train`);
-the HMC/NUTS branch waits for its slice.
+(``model_bnn.py:69``), for every SVI model of the zoo: ``fc``/``fc2`` and the
+``conv`` models (``model_0``, ``2``, ``4``, ``6``, ``8``). ``train`` runs SVI
+(:func:`.inference.svi.svi_train`); the HMC/NUTS branch waits for its slice.
 """
 from __future__ import annotations
 
@@ -115,17 +116,13 @@ class BNN:
         ``n_samples=None`` means the reference's default of 10. Draws are seeded
         by ``seeds`` or fresh from the CPU ``generator``.
         """
-        from robustbnns_tpu_torch.predict import (
-            resolve_sample_keys,
-            svi_avg_posterior_predict,
-            svi_predict,
-        )
+        from robustbnns_tpu_torch.predict import sample_eps, svi_avg_posterior_predict, svi_predict
 
         posterior = self._require_posterior()
         if avg_posterior:
             return svi_avg_posterior_predict(self.arch, posterior, x)
-        keys = resolve_sample_keys(n_samples or 10, generator, seeds, self.device)
-        return svi_predict(self.arch, posterior, x, keys)
+        eps = sample_eps(posterior.loc, n_samples or 10, generator=generator, seeds=seeds, device=self.device)
+        return svi_predict(self.arch, posterior, x, eps)
 
     def evaluate(
         self,
@@ -167,13 +164,11 @@ class BNN:
         it draws fresh weights from the generator on every call, as the
         reference does at attack time (``adversarialAttacks.py:97``).
         ``fused=True`` (fresh-draw mode, fc/fc2) routes through the CUDA
-        sampled-dense kernels.
+        sampled-dense kernels; the conv architectures have no fused path and
+        raise, as in the JAX package.
         """
-        from robustbnns_tpu_torch.predict import (
-            resolve_sample_keys,
-            stacked_draws,
-            svi_predict,
-        )
+        from robustbnns_tpu_torch.inference.svi import sample_meanfield_eps
+        from robustbnns_tpu_torch.predict import sample_eps, svi_predict
 
         n_samples = n_samples or 10
         posterior = self._require_posterior()
@@ -197,7 +192,9 @@ class BNN:
             def fn(x, generator=None):
                 return apply(posterior.loc, x)
         elif seeds is not None:
-            weights = stacked_draws(posterior, resolve_sample_keys(n_samples, None, seeds, self.device))
+            weights = sample_meanfield_eps(
+                posterior, sample_eps(posterior.loc, n_samples, seeds=seeds, device=self.device)
+            )
 
             def fn(x, generator=None):
                 return torch.softmax(apply(weights, x), dim=-1).mean(dim=0)
@@ -205,8 +202,8 @@ class BNN:
             def fn(x, generator=None):
                 if generator is None:
                     raise ValueError("the fresh-draw predictive needs a CPU generator")
-                keys = resolve_sample_keys(n_samples, generator, None, self.device)
-                return svi_predict(self.arch, posterior, x, keys)
+                eps = sample_eps(posterior.loc, n_samples, generator=generator, device=self.device)
+                return svi_predict(self.arch, posterior, x, eps)
         self._fn_cache[cache_key] = fn
         return fn
 

@@ -27,7 +27,7 @@ from robustbnns_tpu_torch.attacks import gradient_attacks as attacks
 from robustbnns_tpu_torch.attacks import measures
 from robustbnns_tpu_torch.models.architectures import build_architecture
 from robustbnns_tpu_torch.ops.fused_predict import fused_predictive_fn
-from robustbnns_tpu_torch.predict import resolve_sample_keys, svi_predict
+from robustbnns_tpu_torch.predict import sample_eps, svi_predict
 from robustbnns_tpu_torch.utils.checkpoint import meanfield_from_numpy
 
 SHAPE, CLASSES, HIDDEN, N, S = (6, 6, 1), 10, 32, 12, 3
@@ -55,7 +55,7 @@ def forwards(zero_scale, fused):
         return jax_svi_predict(jarch, jpost, x, jax.random.split(key, S))
 
     def torch_fn(x, generator):
-        return svi_predict(tarch, tpost, x, resolve_sample_keys(S, generator, None))
+        return svi_predict(tarch, tpost, x, sample_eps(tpost.loc, S, generator=generator))
 
     return jax_fn, torch_fn
 

@@ -6,8 +6,9 @@ FGSM/PGD on it.
   agree at zero posterior scale (where every draw is the mean, so the noise
   streams do not matter) up to bounded sign flips of f32-level gradients;
 * the attack CLI runs end to end on the CPU at ``model_7``'s full width, on a
-  saved posterior and after training one; the training CLI trains, saves,
-  evaluates and loads.
+  saved posterior and after training one, and attacks with ``--attack=False``
+  as JAX's BNN branch does; the training CLI trains, saves, evaluates and loads;
+* ``resolve_device`` alone turns TF32 off.
 """
 import ast
 import dataclasses
@@ -202,6 +203,37 @@ def test_attack_cli_trains_then_attacks_on_the_cpu(cli_workdir, monkeypatch):
 def test_cli_refuses_what_is_not_ported(flags, error):
     with pytest.raises(error):
         cli.main(flags)
+
+
+def test_resolve_device_alone_turns_tf32_off():
+    """Every entry point resolves its device, so a library caller gets exact
+    f32 without the CLI: the flags (plain attributes on a CPU build) end False."""
+    from robustbnns_tpu_torch.utils.device import resolve_device
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_attack_false_still_attacks_the_bnn(monkeypatch, tmp_path):
+    """``--attack=False`` on the BNN branch produces and evaluates an attack, as
+    the JAX package's BNN branch (which never reads the flag) does."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("ROBUSTBNNS_SYNTH_CACHE", str(tmp_path / "synthetic"))
+    monkeypatch.setattr(config, "DATA", str(tmp_path / "data") + "/")
+    bnn = BNN.from_config(config.saved_BNNs["model_7"], (28, 28, 1), 10, device="cpu")
+    loc = bnn.arch.init(torch.Generator().manual_seed(7))
+    bnn.posterior = MeanFieldPosterior(loc, tuple({k: torch.full_like(v, -6.0) for k, v in p.items()} for p in loc))
+    bnn.save(rel_path=config.DATA)
+    out = cli.main(["--model_type=bnn", "--model_idx=7", "--train=False", "--attack=False",
+                    "--test=False", "--n_inputs=8", "--device=cpu", "--attack_method=fgsm"])
+    x, xa = torch.as_tensor(out["x_test"]), out["x_attack"]
+    assert xa.shape == (8, 28, 28, 1) and float((xa - x).abs().max()) <= 0.3 + 1e-6
+    assert float(((xa - x).abs() > 0).float().mean()) > 0.2
+    assert 0.0 <= out["adversarial_accuracy"] <= 100.0 and 0.0 <= out["clean_accuracy"] <= 100.0
+    assert os.path.exists(tmp_path / "data" / bnn.name / f"{bnn.name}_fgsm_attackSamp=10_attack.npz")
 
 
 def test_cli_refuses_a_missing_card():

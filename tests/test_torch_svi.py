@@ -1,7 +1,8 @@
 """The port's SVI trainer against the JAX package's, at small widths.
 
-The ELBO and its gradient, one full ``svi_train`` run with JAX's own
-permutation and step noise replayed, the S = 1 identity between the fused
+The ELBO and its gradient, full ``svi_train`` runs (fc2 and conv) with JAX's
+own permutation and step noise replayed, the input gradients of posteriors
+trained that way, the S = 1 identity between the fused
 sampled-dense parameter gradient and the ELBO likelihood term's gradient on
 the materialised draw, determinism, the metric-only bf16 accuracy, and
 checkpoints that cross between the packages both ways. Inputs come from numpy;
@@ -59,10 +60,10 @@ def post_leaves(post):
     return tree_leaves(post.loc) + tree_leaves(post.rho)
 
 
-def data(n=N_ROWS, seed=0):
+def data(n=N_ROWS, seed=0, shape=SHAPE):
     """Uniform images whose label is the brightest of ten pixel groups, so SVI can learn it."""
     rng = np.random.default_rng(seed)
-    x = rng.uniform(size=(n,) + SHAPE).astype(np.float32)
+    x = rng.uniform(size=(n,) + shape).astype(np.float32)
     labels = x.reshape(n, -1)[:, :30].reshape(n, CLASSES, 3).sum(-1).argmax(-1)
     return x, np.eye(CLASSES, dtype=np.float32)[labels]
 
@@ -131,6 +132,24 @@ def replayed_draws(epoch_key, loc, n, batch_size, train_acc_samples):
     return EpochDraws(torch.tensor(perm), elbo_eps, acc_eps)
 
 
+def train_both(jarch, tarch, x, y, *, seed, epochs, lr, batch, acc_samples):
+    """``svi_train`` in both packages from JAX's init for ``seed``, the port
+    with JAX's permutation and step noise replayed; returns the port's and
+    JAX's posteriors and histories, and the init, as numpy where JAX's."""
+    post_ref, hist_ref = jax_svi.svi_train(
+        jarch, x, y, epochs=epochs, lr=lr, batch_size=batch, seed=seed,
+        train_acc_samples=acc_samples, verbose=False,
+    )
+    init_key, train_key = jax.random.split(make_key(seed))
+    init = to_np(jax_svi.init_meanfield(init_key, jarch.init(jax.random.key(0))))
+    post, hist = svi_train(
+        tarch, x, y, epochs=epochs, lr=lr, batch_size=batch, train_acc_samples=acc_samples,
+        verbose=False, device="cpu", init=meanfield_from_numpy(*init),
+        draws=lambda e: replayed_draws(jax.random.fold_in(train_key, e), init.loc, len(x), batch, acc_samples),
+    )
+    return post, hist, post_ref, hist_ref, init
+
+
 def test_svi_train_matches_jax_with_its_draws_replayed(nets):
     """``svi_train`` against JAX's, both from JAX's init for seed 3, two epochs
     of five steps (the last batch padded), with JAX's permutation and step noise
@@ -141,18 +160,9 @@ def test_svi_train_matches_jax_with_its_draws_replayed(nets):
     loss to 1e-5 relative, and the 4-draw accuracy to at most one row of 300."""
     jarch, tarch, _ = nets
     x, y = data()
-    seed, epochs, lr, acc_samples = 3, 2, 1e-2, 4
-    post_ref, hist_ref = jax_svi.svi_train(
-        jarch, x, y, epochs=epochs, lr=lr, batch_size=BATCH, seed=seed,
-        train_acc_samples=acc_samples, verbose=False,
-    )
-    init_key, train_key = jax.random.split(make_key(seed))
-    init = to_np(jax_svi.init_meanfield(init_key, jarch.init(jax.random.key(0))))
-    post, hist = svi_train(
-        tarch, x, y, epochs=epochs, lr=lr, batch_size=BATCH, train_acc_samples=acc_samples,
-        verbose=False, device="cpu", init=meanfield_from_numpy(*init),
-        draws=lambda e: replayed_draws(jax.random.fold_in(train_key, e), init.loc, N_ROWS, BATCH, acc_samples),
-    )
+    lr = 1e-2
+    post, hist, post_ref, hist_ref, init = train_both(jarch, tarch, x, y, seed=3, epochs=2, lr=lr,
+                                                      batch=BATCH, acc_samples=4)
     for got, want, start in zip(post_leaves(post), jax.tree_util.tree_leaves(post_ref),
                                 jax.tree_util.tree_leaves(init), strict=True):
         assert not np.array_equal(np.asarray(want), start)
@@ -160,6 +170,30 @@ def test_svi_train_matches_jax_with_its_draws_replayed(nets):
     np.testing.assert_allclose(hist["loss"], hist_ref["loss"], rtol=1e-5)
     for acc, acc_ref in zip(hist["accuracy"], hist_ref["accuracy"], strict=True):
         assert abs(acc - acc_ref) <= 100.0 / N_ROWS + 1e-9
+
+
+def test_svi_train_conv_matches_jax_with_its_draws_replayed():
+    """The same on ``conv``-16 over 28x28 images: 80 rows in batches of 32 (the
+    last padded), two epochs, 2-draw train accuracy. The ELBO draw runs the
+    one-draw ``apply``, the accuracy draws the stacked one. The summed loss is
+    held to 1e-5 relative as above and the accuracy to one row of 80; the
+    posteriors to 2e-3·lr, since the 12,800 weights of the second conv hold
+    more entries whose near-zero gradient lets Adam's rounding move them (one
+    reached 1.0e-3·lr after six steps)."""
+    shape = (28, 28, 1)
+    jarch = jax_build("conv", "leaky", shape, CLASSES, HIDDEN, "mnist")
+    tarch = build_architecture("conv", "leaky", shape, CLASSES, HIDDEN, "mnist")
+    x, y = data(80, seed=1, shape=shape)
+    lr = 1e-2
+    post, hist, post_ref, hist_ref, init = train_both(jarch, tarch, x, y, seed=5, epochs=2, lr=lr,
+                                                      batch=32, acc_samples=2)
+    for got, want, start in zip(post_leaves(post), jax.tree_util.tree_leaves(post_ref),
+                                jax.tree_util.tree_leaves(init), strict=True):
+        assert got.shape == np.shape(want) and not np.array_equal(np.asarray(want), start)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-3 * lr)
+    np.testing.assert_allclose(hist["loss"], hist_ref["loss"], rtol=1e-5)
+    for acc, acc_ref in zip(hist["accuracy"], hist_ref["accuracy"], strict=True):
+        assert abs(acc - acc_ref) <= 100.0 / 80 + 1e-9
 
 
 def test_fused_s1_gradient_is_the_elbo_likelihood_gradient(nets):
@@ -271,3 +305,83 @@ def test_trained_posterior_crosses_packages(tmp_path, trained_by):
     logits = np.asarray(ref.forward(x, avg_posterior=True))
     np.testing.assert_allclose(ours.forward(torch.from_numpy(x), avg_posterior=True).numpy(), logits,
                                rtol=0, atol=1e-5 * np.abs(logits).max())
+
+
+@pytest.fixture
+def surrogate_mnist(monkeypatch, tmp_path):
+    """300 training and 64 test images of the synthetic MNIST surrogate, with
+    the process's surrogate records emptied and restored (see
+    ``fresh_surrogate_state`` in ``tests/test_torch_predict.py``)."""
+    from robustbnns_tpu_torch.data import datasets
+
+    monkeypatch.setenv("ROBUSTBNNS_SYNTH_CACHE", str(tmp_path))
+    monkeypatch.setattr(datasets, "_surrogate_served", set())
+    datasets._synthetic_image_dataset.cache_clear()
+    x_train, y_train, x_test, y_test, shape, _ = datasets.load_dataset("mnist", n_inputs=300, fallback="synthetic")
+    datasets._synthetic_image_dataset.cache_clear()
+    return x_train, y_train, x_test[:64], y_test[:64], tuple(shape)
+
+
+def seeded_input_gradients(jarch, tarch, jpost, tpost, x, y, n_samples=10):
+    """∇ₓ of the attack loss (CE of the seeded predictive's probabilities,
+    seeds 0..S-1) in JAX on ``jpost`` and in the port on ``tpost`` with JAX's
+    draws injected."""
+    from robustbnns_tpu.attacks.gradient_attacks import ce_on_outputs as jax_ce_on_outputs
+    from robustbnns_tpu.predict import svi_predict as jax_svi_predict
+    from robustbnns_tpu_torch.attacks.gradient_attacks import ce_on_outputs
+
+    seeds, labels = list(range(n_samples)), y.argmax(-1)
+    keys = jax_resolve_sample_keys(n_samples, None, seeds)
+    jpost = jax_svi.MeanFieldPosterior(*jax.tree_util.tree_map(jnp.asarray, tuple(jpost)))
+    want = jax.grad(lambda a: jnp.sum(jax_ce_on_outputs(jax_svi_predict(jarch, jpost, a, keys), labels)))(x)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    probs = svi_predict(tarch, tpost, xt, _jax_draws_as_eps(to_np(jpost.loc), seeds))
+    (got,) = torch.autograd.grad(ce_on_outputs(probs, torch.from_numpy(labels)).sum(), xt)
+    return got.numpy(), np.asarray(want)
+
+
+def test_trained_posterior_input_gradients_match_jax(surrogate_mnist):
+    """fc2-16 trained for 5 epochs (lr 0.02, as model_7) on 300 surrogate
+    images in both packages, JAX's draws replayed: the seeded 10-draw
+    predictive's input gradients on 64 test images agree within 2e-3 of their
+    largest entry (each on its trainer's posterior, and the two differ by
+    Adam's rounding: 4.8e-4 seen), their signs, which PGD steps by, agree on
+    all but 1e-3 of the pixels (6e-5 seen), and both have the same share of
+    exact zeros."""
+    x_train, y_train, x, y, shape = surrogate_mnist
+    jarch = jax_build("fc2", "leaky", shape, CLASSES, 16)
+    tarch = build_architecture("fc2", "leaky", shape, CLASSES, 16)
+    post, _, post_ref, _, _ = train_both(jarch, tarch, x_train, y_train, seed=0, epochs=5, lr=0.02,
+                                         batch=BATCH, acc_samples=2)
+    got, want = seeded_input_gradients(jarch, tarch, post_ref, post, x, y)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3 * np.abs(want).max())
+    assert (np.sign(got) != np.sign(want)).mean() <= 1e-3
+    assert (got == 0).mean() == (want == 0).mean()
+
+
+def test_saturated_posterior_input_gradients_match_jax_up_to_denormals(surrogate_mnist):
+    """fc2-64 trained by JAX as above: its softmax saturates on some images.
+    On that posterior the port's input gradients equal JAX's within 1e-4 of
+    their largest entry (f32 chains of 784-term sums; 1.8e-5 seen), and they
+    are exactly zero on the same pixels once torch flushes denormals as XLA's
+    CPU backend does: without the flush an image that JAX's gradient zeroes
+    whole keeps gradients near 1e-42 in the port. A saturated softmax zeroes
+    the reference's input gradient (the CE-on-probabilities quirk), the
+    mechanism behind PGD moving no pixel of a trained model."""
+    x_train, y_train, x, y, shape = surrogate_mnist
+    jarch = jax_build("fc2", "leaky", shape, CLASSES, 64)
+    tarch = build_architecture("fc2", "leaky", shape, CLASSES, 64)
+    _, _, post_ref, _, _ = train_both(jarch, tarch, x_train, y_train, seed=0, epochs=5, lr=0.02,
+                                      batch=BATCH, acc_samples=2)
+    ref_post = meanfield_from_numpy(*to_np(tuple(post_ref)))
+    got, want = seeded_input_gradients(jarch, tarch, post_ref, ref_post, x, y)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+    zeroed = (want == 0).reshape(len(x), -1).all(-1)
+    assert zeroed.any() and np.abs(got[zeroed]).max() < 1e-37
+    flushing = torch.set_flush_denormal(True)
+    try:
+        flushed, _ = seeded_input_gradients(jarch, tarch, post_ref, ref_post, x, y)
+    finally:
+        torch.set_flush_denormal(False)
+    if flushing:  # the CPU supports flushing (x86 with SSE3)
+        np.testing.assert_array_equal(flushed == 0, want == 0)
