@@ -59,15 +59,38 @@ Phases, each fatal on failure:
    ``requires_grad`` leaf, ``x_adv`` finite inside the ε-ball and [0, 1];
 12. loss gradients: ``cli.loss_gradients`` on the trained posterior for
    S = 1, 10, 50, 100 on 1,000 test images: finite arrays of the input's shape;
-13. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
+13. HMC parity (``[hmc-parity]``): ``hmc_sample`` on an fc-64 BNN potential
+   (Half Moons widths) with the same injected draws on the card and on the
+   CPU (within 1e-4·max, every accept decision at least 1e-3 from its
+   threshold), 20 dual-averaging updates on both, and one fc-64 leapfrog
+   trajectory at MNIST widths against float64 (1e-5·max);
+14. HMC training (``[hmc]``): ``cli.train_bnn --model_idx=3`` (Fashion-MNIST
+   fc2-1024, 1,863,690 parameters) on the 60,000-image surrogate, faithful:
+   12 batches of 5,000, warmup 50, 10 leapfrog steps, 100 draws: finite draws
+   of that shape that all left the init, step sizes inside [1e-10, 1e3], a
+   bit-equal reload; evaluations per second;
+15. HMC profile (``[hmc-profile]``): one warmup transition at B = 5,000 with
+   CUDA's sync debug mode set to error, wall against device-busy time, and one
+   value-and-gradient evaluation against its bound;
+16. HMC attack (``[hmc-attack]``): FGSM and 40-step PGD at S = 10 on the
+   trained ``model_3`` through the attack CLI, 1,000 images: inside the
+   ε-ball and [0, 1];
+17. HMC loss gradients (``[hmc-loss-gradients]``): ``cli.loss_gradients
+   --model_idx=3`` on 1,000 images, S = 1, 10, 50, 100: finite, the input's shape;
+   each of phases 13-17 fails if a sampled-dense kernel launched in it;
+18. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
    ``launches`` counts the dparams kernels over phase 6 and the others over
    phase 7.
+
+Device-busy time (every idle share printed) is the union of the intervals
+of the device events ``torch.profiler`` records.
 
 Imports nothing of JAX. Writes only under a temporary directory and the
 kernel build directory ``build/kernels``.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -157,19 +180,28 @@ def device_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
 
 
 def profiled_device_ms(torch, fn, phase: str) -> tuple[float, float]:
-    """Device time of the kernels ``fn`` runs, summed under ``torch.profiler``,
-    and the wall ms of that profiled call (the profiler slows the host and, for
-    cuDNN's kernels, the device too, so a device-bound call can read more
-    device time than an unprofiled call's wall)."""
+    """Device-busy ms of ``fn`` under ``torch.profiler`` and the wall ms of
+    that profiled call. Busy time is the union of the intervals of the device
+    events (kernels, copies, fills) in the profiler's events: overlapping
+    kernels count once, and nothing is counted twice through the host ops
+    that launched it, so busy time cannot exceed the window. (A sum of
+    ``self_device_time_total`` over ``key_averages()`` overran the wall for
+    cuDNN-bound calls.)"""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall = wall_s(torch, fn)
-    device_us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-                    for e in prof.key_averages())
-    if device_us <= 0:
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    busy_us, reach = 0.0, -math.inf
+    for start, end in spans:
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    if busy_us <= 0:
         fail(f"[{phase}] torch.profiler saw no device time")
-    return 1e-3 * device_us, 1e3 * wall
+    return 1e-3 * busy_us, 1e3 * wall
 
 
 def wall_s(torch, fn) -> float:
@@ -977,6 +1009,316 @@ def phase_loss_gradients(torch, bnn) -> None:
           f"{vanishing:.3f}, increasing {1 - vanishing - null:.3f}, null {null:.3f} of the images")
 
 
+HMC_PARITY_TOL_OF_MAX = 1e-4  # card against CPU, both f32: a 14-transition chain with mass adaptation
+LEAPFROG_TOL_OF_MAX = 1e-5  # card f32 against CPU float64: one 10-step trajectory
+HMC_MODEL_D = 1_863_690  # model_3's flat parameter vector: 784·1024 + 1024 + 1024·1024 + 1024 + 1024·10 + 10
+HMC_TRAIN_IMAGES, HMC_ATTACK_IMAGES = 60000, 1000
+
+
+@contextlib.contextmanager
+def no_sampled_dense_launch(torch, phase: str):
+    """Fail ``phase`` if a sampled-dense kernel launched inside the block: the
+    HMC path reaches none."""
+    from robustbnns_tpu_torch.ops.sampled_dense import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    yield
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"[{phase}] launched a sampled-dense kernel: {counts}")
+    print(f"[{phase}] sampled-dense launches: {json.dumps(counts)}")
+
+
+@contextlib.contextmanager
+def timed_stages(torch, stages: dict, *targets):
+    """Time calls to ``getattr(owner, name)`` between two synchronisations with
+    the card, summed into ``stages[label]``, for each ``(owner, name, label)``
+    while the context is open."""
+    originals = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+
+    def timer(fn, label):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                stages[label] = stages.get(label, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    for (owner, name, fn), (_, _, label) in zip(originals, targets):
+        setattr(owner, name, timer(fn, label))
+    try:
+        yield stages
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+
+
+class ReplayDraws:
+    """Injected HMC draws (``inference.hmc.GeneratorDraws``'s methods), one
+    queue per kind, moved to the asking tensor's device and dtype."""
+
+    def __init__(self, search, momentum, uniform):
+        self.queues = {"search": iter(search), "momentum": iter(momentum), "uniform": iter(uniform)}
+
+    def search_normal(self, like):
+        return next(self.queues["search"]).to(like)
+
+    def momentum(self, like):
+        return next(self.queues["momentum"]).to(like)
+
+    def uniform(self, like):
+        return next(self.queues["uniform"]).to(like)
+
+
+def phase_hmc_parity(torch) -> None:
+    """``hmc_sample`` on an fc-64 BNN potential at the Half Moons widths (2
+    inputs, 2 classes, D = 322; 256 points) with the same injected draws on
+    the card and on the CPU, both f32: a fixed step of 0.05, a warmup of 8
+    with mass adaptation (a Welford window of 4 draws and the mass switch), 6
+    draws of 5 leapfrog steps, accepts and rejects mixed. The widths keep the
+    Hamiltonian small (about 400): at MNIST widths (D = 50,890) the kinetic
+    energy alone is about 25,000, so an f32 log acceptance carries about 1e-3
+    of rounding, the size of the decision margin, and two roundings take
+    different decisions (a first card run parted at 0.38 of max). The step
+    stays fixed for the same reason: dual averaging amplifies accept-rate
+    noise (×20·sqrt(t)) until chains of any two roundings part; it is held on
+    its own instead, 20 updates on the card against the CPU. Then one 10-step
+    leapfrog trajectory of fc-64 at MNIST widths on the card against float64
+    on the CPU."""
+    from robustbnns_tpu_torch.inference import hmc
+    from robustbnns_tpu_torch.models.architectures import build_architecture
+    from robustbnns_tpu_torch.models.bnn import bnn_potential
+    from robustbnns_tpu_torch.utils.pytree import flatten_tree_to_vector
+
+    arch = build_architecture("fc", "leaky", (1, 2, 1), 2, 64, "half_moons")
+    gen = torch.Generator().manual_seed(34)
+    q0, unravel = flatten_tree_to_vector(arch.init(gen))
+    d = q0.numel()
+    x = torch.rand((256, 1, 2, 1), generator=gen)
+    labels = torch.randint(0, 2, (256,), generator=gen)
+    cfg = hmc.HMCConfig(num_samples=6, warmup=8, step_size=0.05, num_steps=5, adapt_step_size=False)
+    n_trans = cfg.warmup + cfg.num_samples
+    draws = ((), torch.randn((n_trans, d), generator=gen), torch.rand((n_trans,), generator=gen))
+    potential = bnn_potential(arch, unravel)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        trace = []
+        samples, info = hmc.hmc_sample(potential, q0.to(device), None, cfg, data=(x.to(device), labels.to(device)),
+                                       draws=ReplayDraws(*draws), trace=trace)
+        runs[device] = (samples.cpu(), info, trace)
+    samples_gpu, info_gpu, _ = runs["cuda"]
+    samples_cpu, info_cpu, trace = runs["cpu"]
+    margins = [abs(float(u) - float(p)) for _, u, p in trace]
+    if min(margins) <= 1e-3:  # the precondition of a whole-chain comparison
+        fail(f"[hmc-parity] precondition: an accept decision within {min(margins):.2e} of its threshold")
+    scale = float(samples_cpu.abs().max())
+    err = float((samples_gpu - samples_cpu).abs().max()) / scale
+    accept_err = float((info_gpu.accept_prob.cpu() - info_cpu.accept_prob).abs().max())
+    mass_err = float(((info_gpu.inv_mass.cpu() - info_cpu.inv_mass).abs() / info_cpu.inv_mass).max())
+    if not bool(torch.isfinite(samples_gpu).all()) or err > HMC_PARITY_TOL_OF_MAX or mass_err > HMC_PARITY_TOL_OF_MAX:
+        fail(f"[hmc-parity] card chain {err:.3e} of max|cpu| and inverse mass {mass_err:.3e} (relative) from the "
+             f"CPU's (tol {HMC_PARITY_TOL_OF_MAX:.0e}); accept probabilities card "
+             f"{info_gpu.accept_prob.tolist()}, cpu {info_cpu.accept_prob.tolist()}")
+
+    accept = torch.rand(20, generator=gen)
+    states = []
+    for device in ("cuda", "cpu"):
+        state = hmc._fresh_dual_averaging(torch.full((), 0.0123, device=device))
+        for it in range(20):
+            state = hmc._dual_averaging_update(state, accept[it].to(device), 0.8, it)
+        states.append(torch.stack(state).cpu())
+    da_err = float(((states[0] - states[1]).abs() / states[1].abs()).max())
+    if da_err > 1e-6:
+        fail(f"[hmc-parity] dual averaging on the card {da_err:.3e} (relative) from the CPU's (tol 1e-6)")
+
+    arch = build_architecture("fc", "leaky", (28, 28, 1), 10, 64, "mnist")
+    gen = torch.Generator().manual_seed(32)
+    q0, unravel = flatten_tree_to_vector(arch.init(gen))
+    potential = bnn_potential(arch, unravel)
+    x = torch.rand((256, 28, 28, 1), generator=gen)
+    labels = torch.randint(0, 10, (256,), generator=gen)
+    p = torch.randn(q0.numel(), generator=gen)
+    inv_mass = torch.rand(q0.numel(), generator=gen) + 0.5
+    ref = hmc._leapfrog(lambda q: potential(q, x.double(), labels), q0.double(), p.double(), 0.01,
+                        inv_mass.double(), 10)
+    got = hmc._leapfrog(lambda q: potential(q, x.cuda(), labels.cuda()), q0.cuda(), p.cuda(), 0.01,
+                        inv_mass.cuda(), 10)
+    lf_err = [float((g.cpu().double() - r).abs().max() / r.abs().max()) for g, r in zip(got, ref)]
+    if max(lf_err) > LEAPFROG_TOL_OF_MAX:
+        fail(f"[hmc-parity] leapfrog (q, p) {lf_err} of max from float64 (tol {LEAPFROG_TOL_OF_MAX:.0e})")
+    print(f"[hmc-parity] fc-64 at the Half Moons widths (D={d}), 256 points, step {cfg.step_size}, warmup "
+          f"{cfg.warmup} with mass adaptation, {cfg.num_samples} draws of {cfg.num_steps} steps (accept "
+          f"{[round(a, 3) for a in info_cpu.accept_prob.tolist()]}), injected draws: card chain within "
+          f"{err:.3e} of max|cpu| (tol {HMC_PARITY_TOL_OF_MAX:.0e}), accept probabilities within {accept_err:.3e}, "
+          f"inverse mass within {mass_err:.3e} (relative); {len(trace)} accept decisions, the closest "
+          f"{min(margins):.3e} from its threshold; 20 dual-averaging updates within {da_err:.3e} (relative, tol "
+          f"1e-6); fc-64 at MNIST widths (D={q0.numel()}), 10-step leapfrog (q, p) within {lf_err[0]:.3e}, "
+          f"{lf_err[1]:.3e} of max|float64| "
+          f"(tol {LEAPFROG_TOL_OF_MAX:.0e})")
+
+
+def phase_hmc(torch, workdir: str):
+    """``cli.train_bnn --model_idx=3``: HMC training of Fashion-MNIST fc2-1024
+    at full width on the 60,000-image surrogate (faithful: 12 batches of 5,000,
+    each a warmup of 50 and 9 draws of 10 leapfrog steps; 100 draws resampled
+    from the last), the 10-draw test evaluation, and the reload. Returns the
+    trained BNN."""
+    from robustbnns_tpu_torch.cli import train_bnn
+    from robustbnns_tpu_torch.config import DATA
+    from robustbnns_tpu_torch.data.datasets import load_dataset
+    from robustbnns_tpu_torch.models.bnn import BNN
+    from robustbnns_tpu_torch.utils.pytree import tree_leaves
+
+    if not os.path.abspath(DATA).startswith(workdir):
+        fail(f"ROBUSTBNNS_DATA was not redirected to the temporary directory ({DATA})")
+    flags = ["--model_idx=3", f"--n_inputs={HMC_TRAIN_IMAGES}", "--savedir=DATA", "--device=cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    result, stages = [], {}
+    with timed_stages(torch, stages, (train_bnn, "load_data", "data"), (BNN, "train", "train"),
+                      (BNN, "save", "save"), (BNN, "evaluate", "evaluate")):
+        seconds = wall_s(torch, lambda: result.append(train_bnn.main(flags + ["--train=True", "--test=True"])))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    bnn = result[0]
+    cfg, h = bnn.config, bnn.history
+    leaves = tree_leaves(bnn.samples)
+    d = sum(v[0].numel() for v in leaves)
+    if d != HMC_MODEL_D or any(v.shape[0] != cfg.n_samples for v in leaves):
+        fail(f"[hmc] draws of shape ({[v.shape[0] for v in leaves]}, {d}), expected ({cfg.n_samples}, {HMC_MODEL_D})")
+    if not all(bool(torch.isfinite(v).all()) for v in leaves):
+        fail("[hmc] non-finite draws")
+    init = tree_leaves(bnn.arch.init(torch.Generator(device="cuda").manual_seed(0)))
+    moved = torch.stack([(v != i).reshape(cfg.n_samples, -1).any(-1) for v, i in zip(leaves, init)]).any(0)
+    if not bool(moved.all()):
+        fail(f"[hmc] {int((~moved).sum())} of {cfg.n_samples} draws equal the chain's init")
+    steps = h["step_size"]
+    if not all(math.isfinite(s) and 1e-10 <= s <= 1e3 for s in steps):
+        fail(f"[hmc] step sizes not finite or outside [1e-10, 1e3]: {steps}")
+    loaded = []
+    reload_s = wall_s(torch, lambda: loaded.append(train_bnn.main(flags + ["--train=False", "--test=False"])))
+    loaded = loaded[0]
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(loaded.samples), leaves)):
+        fail("[hmc] the reloaded checkpoint differs from the trained draws")
+    _, _, x_test, y_test, _, _ = load_dataset("fashion_mnist", n_inputs=HMC_TRAIN_IMAGES, fallback="synthetic")
+    accuracy = bnn.evaluate(x_test, y_test, n_samples=10, verbose=False)
+    evals, train_s = sum(h["evaluations"]), sum(h["seconds"])
+    print(f"[hmc] model_3 fashion_mnist fc2-1024 (D={d}), {len(steps)} batches of 5000, faithful, "
+          f"{cfg.n_samples} draws, warmup {cfg.warmup}, {cfg.num_steps} leapfrog steps: {seconds:.3f} s for the "
+          f"CLI call (surrogate, training, save, the 11 test evaluations), {train_s:.3f} s in the batch runs; "
+          f"{evals} value-and-gradient evaluations = {evals / train_s:.1f} evaluations/s "
+          f"({[e for e in h['evaluations']]} per batch); peak {peak_gib:.2f} GiB allocated; 10-draw test "
+          f"accuracy {accuracy:.2f}%; reload bit-equal")
+    print(f"[hmc] the CLI call's {seconds:.3f} s: loading the surrogate {stages['data']:.3f} s, BNN.train "
+          f"{stages['train']:.3f} s (the batch runs {train_s:.3f}), the save of {cfg.n_samples} draws (compressed "
+          f"npz) {stages['save']:.3f} s, the 11 test evaluations {stages['evaluate']:.3f} s, the rest "
+          f"{seconds - sum(stages.values()):.3f} s; the reload through the CLI {reload_s:.3f} s")
+    print(f"[hmc] per batch: mean accept {[round(a, 3) for a in h['accept']]}; step size "
+          f"{[float(f'{s:.4g}') for s in steps]}; seconds {[round(s, 3) for s in h['seconds']]}")
+    return bnn
+
+
+def phase_hmc_profile(torch, bnn) -> None:
+    """One faithful warmup transition (10 leapfrog steps, dual averaging and
+    Welford) at B = 5,000 on model_3 from a trained draw: wall against
+    device-busy time, with CUDA's sync debug mode set to error (a host read
+    of a device value inside the transition fails the phase); then one
+    value-and-gradient evaluation against its bound."""
+    from robustbnns_tpu_torch.data.datasets import load_dataset
+    from robustbnns_tpu_torch.inference import hmc
+    from robustbnns_tpu_torch.models.bnn import bnn_potential
+    from robustbnns_tpu_torch.utils.pytree import flatten_tree_to_vector, index_tree
+
+    batch, cfg = 5000, bnn.config
+    x, y, _, _, _, _ = load_dataset("fashion_mnist", n_inputs=HMC_TRAIN_IMAGES, fallback="synthetic")
+    x = torch.as_tensor(x[:batch], device="cuda")
+    labels = torch.as_tensor(y[:batch], device="cuda").argmax(-1)
+    q, unravel = flatten_tree_to_vector(index_tree(bnn.samples, 0))
+    vg = hmc._Potential(bnn_potential(bnn.arch, unravel), (x, labels))
+    draws = hmc.GeneratorDraws(torch.Generator(device="cuda").manual_seed(5))
+    eps = float(bnn.hmc_info.step_size)
+    carry = (q, hmc._fresh_dual_averaging(torch.full((), eps, device="cuda")), hmc._welford_start(q),
+             bnn.hmc_info.inv_mass)
+
+    def transition():
+        return hmc._hmc_warmup_chunk(vg, draws, carry, 0, 1, eps, cfg.num_steps, True, True, 0.8)
+
+    transition()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        transition()
+    except RuntimeError as e:
+        fail(f"[hmc-profile] a transition synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    walls = [wall_s(torch, transition) for _ in range(3)]
+    busy_ms, prof_ms = profiled_device_ms(torch, transition, "hmc-profile")
+    wall_ms = 1e3 * statistics.median(walls)
+    eval_walls = [wall_s(torch, lambda: vg(q)) for _ in range(5)]
+    eval_busy = profiled_device_ms(torch, lambda: [vg(q) for _ in range(10)], "hmc-profile")[0] / 10
+    dims = bnn.arch.dims
+    flops = 2.0 * batch * (2 * sum(i * o for i, o in dims) + sum(i * o for i, o in dims[1:]))
+    nbytes = 4.0 * (x.numel() + 3 * q.numel() + labels.numel())  # x, q read; gradient written; U
+    b_ms, b_by = bound_ms(flops, nbytes)
+    print(f"[hmc-profile] model_3 B={batch}, one warmup transition of {cfg.num_steps} leapfrog steps "
+          f"({cfg.num_steps + 1} evaluations): {wall_ms:.3f} ms wall (median of {[round(1e3 * w, 3) for w in walls]}), "
+          f"{busy_ms:.3f} ms device-busy (union of kernel intervals; {prof_ms:.3f} ms wall under the profiler), "
+          f"device idle {100 * (1 - busy_ms / wall_ms):.1f}% of the wall; no host synchronisation inside "
+          f"(sync debug mode 'error'); one evaluation {1e3 * statistics.median(eval_walls):.3f} ms wall, "
+          f"{eval_busy:.3f} ms device-busy against a bound of {b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP at "
+          f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s), {100 * b_ms / eval_busy:.1f}% of the bound; "
+          f"{flops / eval_busy / 1e9:.1f} TFLOP/s")
+
+
+def phase_hmc_attack(torch) -> None:
+    """FGSM and 40-step PGD at S = 10 on the trained model_3 through the
+    attack CLI, on 1,000 test images: inside the ε-ball and [0, 1]. The
+    share of pixels moved is printed, not gated (a trained posterior may
+    saturate the softmax)."""
+    from robustbnns_tpu_torch.cli import attacks as cli
+
+    flags = ["--model_type=bnn", "--model_idx=3", "--train=False", "--test=False",
+             f"--n_inputs={HMC_ATTACK_IMAGES}", "--device=cuda"]
+    runs = {m: cli.main(flags + [f"--attack_method={m}"]) for m in ("fgsm", "pgd")}
+    for method, r in runs.items():
+        xa = r["x_attack"]
+        x = torch.as_tensor(r["x_test"], device=xa.device)
+        if xa.shape != x.shape or not bool(torch.isfinite(xa).all()):
+            fail(f"[hmc-attack] {method}: adversarial set has shape {tuple(xa.shape)} or non-finite values")
+        if float((xa - x).abs().max()) > 0.3 + 1e-6 or float(xa.min()) < 0 or float(xa.max()) > 1:
+            fail(f"[hmc-attack] {method}: adversarial set leaves the eps-ball or [0, 1]")
+        moved = float(((xa - x).abs() > 1e-6).float().mean())
+        print(f"[hmc-attack] {method}, S={S}, {len(x)} images: {len(x) / r['attack_seconds']:.1f} images/s "
+              f"({r['attack_seconds']:.3f} s); clean acc {r['clean_accuracy']:.2f}% adversarial acc "
+              f"{r['adversarial_accuracy']:.2f}%; {moved:.1%} of pixels moved")
+
+
+def phase_hmc_loss_gradients(torch) -> None:
+    """``cli.loss_gradients --model_idx=3`` on 1,000 test images, S = 1, 10, 50, 100."""
+    import numpy as np
+
+    from robustbnns_tpu_torch.analysis import compute_vanishing_norms_idxs
+    from robustbnns_tpu_torch.cli import loss_gradients as cli
+
+    n = HMC_ATTACK_IMAGES
+    result = []
+    seconds = wall_s(torch, lambda: result.append(
+        cli.main(["--model_idx=3", f"--n_inputs={n}", "--savedir=DATA", "--device=cuda"])))
+    grads = result[0]
+    for samples, g in grads.items():
+        if g.shape != (n, 28, 28) or not np.isfinite(g).all():
+            fail(f"[hmc-loss-gradients] S={samples}: shape {g.shape} or non-finite values")
+    stacked = np.stack([grads[k] for k in cli.POSTERIOR_SAMPLES_LIST], axis=1)
+    vanishing = len(compute_vanishing_norms_idxs(stacked, cli.POSTERIOR_SAMPLES_LIST, verbose=False)) / n
+    null = float((np.abs(stacked[:, 0]).reshape(n, -1).max(-1) == 0).mean())
+    print(f"[hmc-loss-gradients] model_3 trained by HMC, {n} images, S={cli.POSTERIOR_SAMPLES_LIST}: "
+          f"{seconds:.3f} s; max |grad| {[float(np.abs(grads[k]).max()) for k in cli.POSTERIOR_SAMPLES_LIST]}; "
+          f"vanishing {vanishing:.3f}, increasing {1 - vanishing - null:.3f}, null {null:.3f} of the images")
+
+
 def main() -> None:
     sys.path.insert(0, REPO)
     import torch
@@ -1010,6 +1352,20 @@ def main() -> None:
         phase_model0_attack(torch, workdir)
         trained = phase_northstar(torch)
         phase_loss_gradients(torch, trained)
+        del trained
+        torch.cuda.empty_cache()
+        with no_sampled_dense_launch(torch, "hmc-parity"):
+            phase_hmc_parity(torch)
+        with no_sampled_dense_launch(torch, "hmc"):
+            hmc_bnn = phase_hmc(torch, workdir)
+        with no_sampled_dense_launch(torch, "hmc-profile"):
+            phase_hmc_profile(torch, hmc_bnn)
+        del hmc_bnn
+        torch.cuda.empty_cache()
+        with no_sampled_dense_launch(torch, "hmc-attack"):
+            phase_hmc_attack(torch)
+        with no_sampled_dense_launch(torch, "hmc-loss-gradients"):
+            phase_hmc_loss_gradients(torch)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     line = []
     for name, r in kernels.items():

@@ -1,5 +1,5 @@
 """Expected loss gradients over the posterior (port of
-``robustbnns_tpu/analysis/gradients.py``, the SVI branch; reference
+``robustbnns_tpu/analysis/gradients.py``, the SVI and HMC branches; reference
 ``lossGradients.py``).
 
 The paper's second result: ``⟨∂L/∂x⟩_{p(w|D)}`` estimated with S posterior
@@ -20,9 +20,11 @@ expected-gradient norms over increasing sample counts "vanish" iff they are
 monotone non-increasing and the first is nonzero; zero-first-norm images are
 "null", the rest "increasing".
 
-The deterministic branch (``n_samples=None``, NN models) waits for the NN
-slice, the HMC and ensemble branches for theirs; ``mesh=`` for the
-parallelism slice.
+The draws are an SVI posterior's seeded reparameterized samples or an HMC
+posterior's stacked samples indexed by the seeds (JAX ``gradients.py:115-119``);
+everything after is shared. The deterministic branch (``n_samples=None``, NN
+models) waits for the NN slice, the ensemble branch for its own; ``mesh=`` for
+the parallelism slice.
 """
 from __future__ import annotations
 
@@ -78,10 +80,12 @@ def expected_loss_gradients(
     """Mean input gradient over S fixed posterior draws — shaped like ``x``, on
     ``model.device``.
 
-    ``model`` is an SVI :class:`.models.bnn.BNN`. The draws are seeded with
-    ``seeds``, by default ``range(n_samples)`` (the reference's fixed draws,
-    ``lossGradients.py:29-33``), or given as ``eps``, a stacked ``(S, ...)``
-    noise tree, so a test can inject another package's draws.
+    ``model`` is a :class:`.models.bnn.BNN`. The draws are ``seeds``, by
+    default ``range(n_samples)`` (the reference's fixed draws,
+    ``lossGradients.py:29-33``): an SVI posterior's seeded draws, or an HMC
+    posterior's samples of those indices (checked on the host). For SVI,
+    ``eps``, a stacked ``(S, ...)`` noise tree, can replace the seeded noise,
+    so a test can inject another package's draws.
     """
     from robustbnns_tpu_torch.inference.svi import sample_meanfield_eps
     from robustbnns_tpu_torch.predict import sample_eps
@@ -92,18 +96,24 @@ def expected_loss_gradients(
         raise NotImplementedError(
             "the deterministic branch (n_samples=None) waits for the NN/ensemble slice (ROADMAP.md)"
         )
-    if getattr(model, "posterior", None) is None:
-        for attr, branch in (("samples", "HMC"), ("stacked_params", "ensemble")):
-            if getattr(model, attr, None) is not None:
-                raise NotImplementedError(f"the {branch} branch waits for its slice (ROADMAP.md)")
+    seeds = list(range(n_samples)) if seeds is None else list(seeds)
+    if getattr(model, "posterior", None) is not None:  # SVI
+        posterior = model.posterior
+        if eps is None:
+            eps = sample_eps(posterior.loc, n_samples, seeds=seeds, device=model.device)
+        if eps[0]["w"].shape[0] != n_samples:
+            raise ValueError("Number of draws in `eps` should match number of samples.")
+        weights = sample_meanfield_eps(posterior, eps)
+    elif getattr(model, "samples", None) is not None:  # HMC
+        if eps is not None:
+            raise ValueError("`eps` is SVI noise: an HMC posterior's draws are its samples")
+        if len(seeds) != n_samples:
+            raise ValueError("Number of seeds should match number of samples.")
+        weights = model.sample_draws(seeds)
+    elif getattr(model, "stacked_params", None) is not None:
+        raise NotImplementedError("the ensemble branch waits for its slice (ROADMAP.md)")
+    else:
         raise ValueError("model has no posterior — train() or load() first")
-    posterior = model.posterior
-    if eps is None:
-        seeds = list(range(n_samples)) if seeds is None else list(seeds)
-        eps = sample_eps(posterior.loc, n_samples, seeds=seeds, device=model.device)
-    if eps[0]["w"].shape[0] != n_samples:
-        raise ValueError("Number of draws in `eps` should match number of samples.")
-    weights = sample_meanfield_eps(posterior, eps)
 
     x = torch.as_tensor(x, device=model.device)
     y = torch.as_tensor(y, device=model.device)

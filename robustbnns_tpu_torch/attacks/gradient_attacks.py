@@ -10,7 +10,9 @@ Reference semantics (``adversarialAttacks.py:69-198``):
 * **CE-on-outputs quirk**: the loss is ``CrossEntropyLoss`` applied to whatever
   the model emits — averaged *probabilities* for a BNN;
 * **Bayesian re-sampling**: every forward draws fresh weights, so every PGD
-  iteration sees new ones.
+  iteration sees new ones (an HMC posterior's predictive is its fixed draws);
+* **denormal gradients count as zero** before the sign, as XLA's flush to
+  zero makes them in the JAX package.
 
 Batches are attacked whole: per-image CE losses are summed and differentiated
 in one backward pass. The draws of an iteration are shared across the images
@@ -49,6 +51,15 @@ def _input_gradients(forward_fn, x, labels, generator):
     return grad
 
 
+def _gradient_sign(grads: torch.Tensor) -> torch.Tensor:
+    """``sign(grads)`` with denormal entries counted as zero, as XLA's flush
+    to zero gives the JAX package on the CPU and the TPU: a saturated softmax
+    can leave a gradient near 1e-42 where JAX's is exactly 0, and its sign
+    would move a pixel that JAX's attack leaves."""
+    tiny = torch.finfo(grads.dtype).tiny
+    return torch.sign(torch.where(grads.abs() < tiny, 0.0, grads))
+
+
 def fgsm_attack(
     forward_fn: Callable,
     x: torch.Tensor,
@@ -61,7 +72,7 @@ def fgsm_attack(
     one-hot or integer labels; ``generator`` seeds the posterior draws."""
     generator = generator if generator is not None else torch.Generator().manual_seed(0)
     grads = _input_gradients(forward_fn, x, _labels(y), generator)
-    return torch.clamp(x + epsilon * torch.sign(grads), 0.0, 1.0)
+    return torch.clamp(x + epsilon * _gradient_sign(grads), 0.0, 1.0)
 
 
 def pgd_attack(
@@ -90,7 +101,7 @@ def pgd_attack(
     x0 = x
     for _ in range(iters):
         grads = _input_gradients(forward_fn, x, labels, generator)
-        eta = torch.clamp(x + alpha * torch.sign(grads) - x0, -epsilon, epsilon)
+        eta = torch.clamp(x + alpha * _gradient_sign(grads) - x0, -epsilon, epsilon)
         x = torch.clamp(x0 + eta, 0.0, 1.0)
     return x
 

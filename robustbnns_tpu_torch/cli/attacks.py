@@ -5,11 +5,13 @@ Example::
     python -m robustbnns_tpu_torch.cli.attacks --model_type=bnn --model_idx=7 \
         --train=False --attack_method=pgd --fused=True --n_inputs=256
 
-``--train=True`` trains the SVI posterior first (:meth:`.models.bnn.BNN.train`)
-and saves it. Every SVI model of the zoo runs: ``fc``/``fc2`` models also
+``--train=True`` trains the posterior first (:meth:`.models.bnn.BNN.train`)
+and saves it. Every BNN of the zoo runs: the SVI ``fc``/``fc2`` models also
 through the fused kernels (``--fused=True``), the ``conv`` models (``model_0``,
-``2``, ``4``, ``6``, ``8``) through the unfused predictive. The NN and ensemble
-branches wait for their slice.
+``2``, ``4``, ``6``, ``8``) through the unfused predictive, and the HMC models
+(``model_1``, ``3``, ``9``) on their first 10 stacked draws, trained by HMC in
+batches of 5,000 with ``--train=True`` (``--fused=True`` raises for them, as
+in the JAX package). The NN and ensemble branches wait for their slice.
 """
 from __future__ import annotations
 

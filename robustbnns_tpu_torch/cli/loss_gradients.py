@@ -7,7 +7,8 @@ Example::
     python -m robustbnns_tpu_torch.cli.loss_gradients --n_inputs=10 --model_idx=0 \
         --device=cpu
 
-Loads the saved SVI posterior of ``--model_idx`` and saves one
+Loads the saved posterior of ``--model_idx`` (SVI, or an HMC model's stacked
+draws, of which S = 100 needs all of the configured 100) and saves one
 ``<name>_samp=<n>_lossGrads.npz`` per sample count.
 """
 from __future__ import annotations

@@ -1,12 +1,14 @@
-"""Train/evaluate an SVI BNN (port of ``robustbnns_tpu/cli/train_bnn.py``,
+"""Train/evaluate a BNN (port of ``robustbnns_tpu/cli/train_bnn.py``,
 reference ``model_bnn.py`` main, ``:393-426``).
 
 Example::
 
-    python -m robustbnns_tpu_torch.cli.train_bnn --model_idx=7 --n_inputs=1000 \
+    python -m robustbnns_tpu_torch.cli.train_bnn --model_idx=3 --n_inputs=1000 \
         --train=True --test=True --savedir=TESTS --device=cpu
 
-HMC/NUTS configurations and flags wait for the HMC slice.
+SVI models train by SVI and ignore the HMC flags; HMC models (``model_1``,
+``3``, ``9``) train by HMC in batches of 5,000 (``--hmc_mode``, ``--hmc_init``,
+``--num_chains``). ``--hmc_sampler=nuts`` raises until NUTS is ported.
 """
 from __future__ import annotations
 
@@ -15,8 +17,6 @@ import os
 
 from robustbnns_tpu_torch.cli.common import add_common_flags, load_data, setup_device
 from robustbnns_tpu_torch.config import bnn_batch_size, resolve_rel_path, saved_BNNs
-
-_HMC_DEFAULTS = {"hmc_mode": "faithful", "hmc_init": "random", "hmc_sampler": "hmc", "num_chains": 1}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,9 +35,6 @@ def main(args):
     """Train (or load) and evaluate; ``args`` is a parsed namespace or a list of flags."""
     if not isinstance(args, argparse.Namespace):
         args = build_parser().parse_args(args)
-    changed = [f"--{k}" for k, v in _HMC_DEFAULTS.items() if getattr(args, k, v) != v]
-    if changed:
-        raise NotImplementedError(f"{', '.join(changed)} wait for the HMC/NUTS slice (ROADMAP.md)")
     device = setup_device(args.device, args.mesh)
 
     from robustbnns_tpu_torch.models.bnn import BNN
@@ -48,11 +45,15 @@ def main(args):
     bnn = BNN.from_config(cfg, inp_shape, out_size, device=device)
 
     if args.train:
-        bnn.train(x_train, y_train, batch_size=bnn_batch_size(cfg))
+        bnn.train(
+            x_train, y_train, batch_size=bnn_batch_size(cfg), hmc_mode=args.hmc_mode,
+            hmc_init=args.hmc_init, hmc_sampler=args.hmc_sampler, num_chains=args.num_chains,
+        )
         bnn.save(rel_path=rel_path)
-        from robustbnns_tpu_torch.utils.plotting import plot_loss_accuracy
+        if cfg.inference == "svi":
+            from robustbnns_tpu_torch.utils.plotting import plot_loss_accuracy
 
-        plot_loss_accuracy(bnn.history, os.path.join(rel_path, bnn.name, bnn.name + "_training.png"))
+            plot_loss_accuracy(bnn.history, os.path.join(rel_path, bnn.name, bnn.name + "_training.png"))
     else:
         bnn.load(rel_path=rel_path)
 

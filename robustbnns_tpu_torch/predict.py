@@ -1,4 +1,4 @@
-"""The SVI posterior predictive (port of ``robustbnns_tpu/predict.py``, the slice's part).
+"""The BNN posterior predictives (port of ``robustbnns_tpu/predict.py``, the SVI and HMC parts).
 
 * **SVI BNN** — average of per-sample **softmax probabilities** over
   ``n_samples`` reparameterized draws (reference ``model_bnn.py:134-136,257``).
@@ -6,7 +6,12 @@
   the same weights (``model_bnn.py:222-226``); without, each call draws
   fresh noise, one ``randn`` per leaf for all S draws;
 * **SVI avg_posterior** — the variational means plugged into the network, **raw
-  logits** (``model_bnn.py:206-216``).
+  logits** (``model_bnn.py:206-216``);
+* **HMC BNN** — the stacked posterior indexed by ``seeds`` (default
+  ``range(n_samples)``, ``model_bnn.py:248-249``), each draw's softmax
+  averaged (``model_bnn.py:243-257``). Seeds are checked on the host: the
+  reference raises past the last draw, where JAX would clamp the index and a
+  bad index on the card would poison the CUDA context.
 
 The unfused path materialises the S sampled weight sets and runs the network
 on them with ``torch.matmul`` and, for the conv architectures, ``F.conv2d``
@@ -22,7 +27,7 @@ import torch
 
 from robustbnns_tpu_torch.inference.svi import MeanFieldPosterior, sample_meanfield_eps
 from robustbnns_tpu_torch.utils.prng import draw_seed, key_from_seed, keys_from_seeds
-from robustbnns_tpu_torch.utils.pytree import Params, map_params, normal_like_tree
+from robustbnns_tpu_torch.utils.pytree import Params, index_tree, map_params, normal_like_tree
 
 
 def sample_eps(
@@ -70,6 +75,24 @@ def svi_predict(arch, posterior: MeanFieldPosterior, x: torch.Tensor, eps: Param
 def svi_avg_posterior_predict(arch, posterior: MeanFieldPosterior, x: torch.Tensor) -> torch.Tensor:
     """Raw logits at the variational mean (reference ``model_bnn.py:206-216``)."""
     return arch.apply(posterior.loc, x)
+
+
+def hmc_sample_index(stacked_params: Params, seeds: Sequence[int], device="cpu") -> torch.Tensor:
+    """``seeds`` as an index of the stacked draws, on ``device``; raises
+    ``IndexError`` for a seed outside ``[-S, S)``, before anything is indexed."""
+    n_draws = stacked_params[0]["w"].shape[0]
+    seeds = [int(s) for s in seeds]
+    bad = [s for s in seeds if not -n_draws <= s < n_draws]
+    if bad:
+        raise IndexError(f"posterior draws {bad} out of range for a posterior of {n_draws} samples")
+    return torch.tensor(seeds, dtype=torch.long, device=device)
+
+
+def hmc_predict(arch, stacked_params: Params, x: torch.Tensor, sample_idx: torch.Tensor) -> torch.Tensor:
+    """Mean softmax over the indexed posterior draws, through the stacked
+    ``apply`` (reference ``model_bnn.py:243-257``) — ``(batch, classes)``."""
+    params = index_tree(stacked_params, sample_idx)
+    return torch.softmax(arch.apply(params, x), dim=-1).mean(dim=0)
 
 
 @torch.no_grad()

@@ -142,3 +142,26 @@ def meanfield_from_numpy(loc, rho, device="cpu"):
         )
 
     return MeanFieldPosterior(loc=convert(loc), rho=convert(rho))
+
+
+def hmc_samples_from_numpy(samples, like=None, device="cpu"):
+    """The JAX package's stacked HMC draws as the port's stacked parameter
+    tree of float32 tensors on ``device``.
+
+    ``samples`` is either the tree of JAX's ``bnn.samples`` (a sequence of
+    ``{"w", "b"}`` dicts of ``(S, ...)`` arrays) or a flat ``(S, D)`` array in
+    ``ravel_pytree`` order, which ``like`` (one parameter tree, e.g.
+    ``arch.init(...)``) gives the shapes of.
+    """
+    from robustbnns_tpu_torch.utils.pytree import flatten_tree_to_vector
+
+    if isinstance(samples, (tuple, list)):
+        return tuple(
+            {k: torch.tensor(np.asarray(v, np.float32), device=device) for k, v in layer.items()}
+            for layer in samples
+        )
+    if like is None:
+        raise ValueError("a flat (S, D) array needs `like`, a parameter tree, for its leaf shapes")
+    _, unravel = flatten_tree_to_vector(like)
+    flat = torch.tensor(np.asarray(samples, np.float32), device=device)
+    return tuple({k: v.contiguous() for k, v in layer.items()} for layer in unravel(flat))

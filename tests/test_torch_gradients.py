@@ -7,7 +7,8 @@ JAX package's, and the SVI cases of ``tests/test_gradients.py`` on the port.
   JAX averages S gradients);
 * the file names, the save/load round trip and ``compute_vanishing_norms_idxs``
   equal JAX's;
-* the branches of later slices raise;
+* the HMC branch equals JAX's on the same stacked draws; the branches of
+  later slices raise;
 * ``cli.loss_gradients`` runs ``model_0`` at full width on the CPU.
 """
 import dataclasses
@@ -172,18 +173,35 @@ def test_vanishing_norms_shape_guard():
 
 
 def test_branches_of_later_slices_raise(trained_svi_bnn):
-    """The deterministic (NN), HMC and ensemble branches and meshes wait for their slices."""
+    """The deterministic (NN) and ensemble branches and meshes wait for their
+    slices; the HMC branch (ported) computes JAX's gradients on the same
+    stacked draws, seeds indexing them."""
     bnn, x, y = trained_svi_bnn
     with pytest.raises(NotImplementedError, match="NN"):
         expected_loss_gradients(bnn, x, y, n_samples=None)
     with pytest.raises(NotImplementedError, match="mesh"):
         expected_loss_gradients(bnn, x, y, n_samples=2, mesh="auto")
 
-    class Sampled:
-        posterior, samples = None, ({"w": torch.zeros(1)},)
+    from robustbnns_tpu_torch.utils.checkpoint import hmc_samples_from_numpy
 
-    with pytest.raises(NotImplementedError, match="HMC"):
-        expected_loss_gradients(Sampled(), x, y, n_samples=2)
+    hmc_cfg = config.BNNConfig("mnist", 16, "leaky", "fc2", "hmc", n_samples=5, warmup=1)
+    ref = JaxBNN.from_config(JaxBNNConfig(**dataclasses.asdict(hmc_cfg)), NETS["fc2"], CLASSES)
+    rng = np.random.default_rng(3)
+    ref.samples = jax.tree_util.tree_map(
+        lambda p: (rng.normal(size=(5,) + p.shape) * 0.5).astype(np.float32), to_np(ref.arch.init(jax.random.key(0))))
+    ours = BNN.from_config(hmc_cfg, NETS["fc2"], CLASSES, device="cpu")
+    ours.samples = hmc_samples_from_numpy(ref.samples)
+    xh = rng.uniform(size=(6,) + NETS["fc2"]).astype(np.float32)
+    yh = np.eye(CLASSES, dtype=np.float32)[rng.integers(0, CLASSES, 6)]
+    for kw in ({"n_samples": 5}, {"n_samples": 2, "seeds": [3, 0]}):
+        close(expected_loss_gradients(ours, xh, yh, batch_size=4, **kw),
+              jax_expected_loss_gradients(ref, xh, yh, batch_size=4, **kw))
+
+    class Ensemble:
+        posterior, samples, stacked_params = None, None, ({"w": torch.zeros(1)},)
+
+    with pytest.raises(NotImplementedError, match="ensemble"):
+        expected_loss_gradients(Ensemble(), x, y, n_samples=2)
     unloaded = BNN.from_config(bnn.config, (1, 2, 1), 2, device="cpu")
     with pytest.raises(ValueError, match="load"):
         expected_loss_gradients(unloaded, x, y, n_samples=2)

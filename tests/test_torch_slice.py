@@ -149,7 +149,9 @@ def cli_workdir(monkeypatch, tmp_path):
 def test_train_cli_trains_and_evaluates_model_7_on_the_cpu(cli_workdir):
     """``cli/train_bnn`` trains model_7 at full width for its 5 epochs on 200
     surrogate images, saves the posterior and the training curves, evaluates,
-    and loads the checkpoint back with ``--train=False``."""
+    and loads the checkpoint back with ``--train=False``; with the HMC flags
+    it trains the same SVI posterior, and on an HMC model ``--hmc_sampler=nuts``
+    raises."""
     from robustbnns_tpu_torch.cli import train_bnn
 
     flags = ["--model_idx=7", "--n_inputs=200", "--savedir=DATA", "--device=cpu"]
@@ -164,8 +166,15 @@ def test_train_cli_trains_and_evaluates_model_7_on_the_cpu(cli_workdir):
     for tree, other in zip(bnn.posterior, loaded.posterior):
         for layer, layer2 in zip(tree, other):
             assert all(torch.equal(layer[k], layer2[k]) for k in layer)
-    with pytest.raises(NotImplementedError, match="HMC"):
-        train_bnn.main(flags + ["--hmc_sampler=nuts"])
+    # An SVI model ignores the HMC flags, as JAX's does: the same posterior.
+    flagged = train_bnn.main(flags + ["--train=True", "--test=False", "--hmc_sampler=nuts", "--hmc_mode=full",
+                                      "--hmc_init=map", "--num_chains=2"])
+    for tree, other in zip(bnn.posterior, flagged.posterior):
+        for layer, layer2 in zip(tree, other):
+            assert all(torch.equal(layer[k], layer2[k]) for k in layer)
+    # NUTS on an HMC model (model_3) raises, naming what it waits for.
+    with pytest.raises(NotImplementedError, match="NUTS"):
+        train_bnn.main(["--model_idx=3", "--n_inputs=200", "--savedir=DATA", "--device=cpu", "--hmc_sampler=nuts"])
 
 
 def test_attack_cli_trains_then_attacks_on_the_cpu(cli_workdir, monkeypatch):

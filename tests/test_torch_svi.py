@@ -385,3 +385,39 @@ def test_saturated_posterior_input_gradients_match_jax_up_to_denormals(surrogate
         torch.set_flush_denormal(False)
     if flushing:  # the CPU supports flushing (x86 with SSE3)
         np.testing.assert_array_equal(flushed == 0, want == 0)
+
+
+def test_fgsm_moves_the_pixels_jax_moves_on_the_saturated_posterior(surrogate_mnist):
+    """One FGSM step on the saturated fc2-64 posterior of the test above
+    (JAX's, its seeded 10-draw predictive, JAX's draws injected), without
+    ``torch.set_flush_denormal``: on the images whose gradient JAX zeroes
+    whole, where the port's raw gradient keeps denormals, neither package
+    moves a pixel (the attack counts denormals as zero before the sign, as
+    XLA's flush does); elsewhere the port moves exactly the pixels JAX's
+    moves, to the same values, wherever the gradient is above f32 noise
+    (1e-6 of its largest entry: below it, about 3% of the pixels here, both
+    packages' signs are rounding and differ on some)."""
+    from robustbnns_tpu.attacks.gradient_attacks import fgsm_attack as jax_fgsm
+    from robustbnns_tpu.predict import svi_predict as jax_svi_predict
+    from robustbnns_tpu_torch.attacks.gradient_attacks import fgsm_attack
+
+    x_train, y_train, x, y, shape = surrogate_mnist
+    jarch = jax_build("fc2", "leaky", shape, CLASSES, 64)
+    tarch = build_architecture("fc2", "leaky", shape, CLASSES, 64)
+    post_ref, _ = jax_svi.svi_train(jarch, x_train, y_train, epochs=5, lr=0.02, batch_size=BATCH, seed=0,
+                                    train_acc_samples=2, verbose=False)
+    seeds = list(range(10))
+    keys = jax_resolve_sample_keys(10, None, seeds)
+    want = np.asarray(jax_fgsm(lambda a: jax_svi_predict(jarch, post_ref, a, keys), x, y, epsilon=0.3))
+    ref_post = meanfield_from_numpy(*to_np(tuple(post_ref)))
+    eps = _jax_draws_as_eps(to_np(post_ref.loc), seeds)
+    got = fgsm_attack(lambda a, g: svi_predict(tarch, ref_post, a, eps), torch.from_numpy(x),
+                      torch.from_numpy(y), epsilon=0.3).numpy()
+    raw, ref_grads = seeded_input_gradients(jarch, tarch, post_ref, ref_post, x, y)
+    zeroed = (ref_grads == 0).reshape(len(x), -1).all(-1)
+    assert zeroed.any() and (raw[zeroed] != 0).any()  # denormals that sign() alone would move
+    np.testing.assert_array_equal(want[zeroed], x[zeroed])
+    np.testing.assert_array_equal(got[zeroed], x[zeroed])
+    clear = np.abs(ref_grads) > 1e-6 * np.abs(ref_grads).max()
+    np.testing.assert_array_equal((got != x)[clear], (want != x)[clear])
+    np.testing.assert_array_equal(got[clear], want[clear])
