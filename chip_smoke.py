@@ -78,7 +78,39 @@ Phases, each fatal on failure:
 17. HMC loss gradients (``[hmc-loss-gradients]``): ``cli.loss_gradients
    --model_idx=3`` on 1,000 images, S = 1, 10, 50, 100: finite, the input's shape;
    each of phases 13-17 fails if a sampled-dense kernel launched in it;
-18. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
+18. NUTS parity (``[nuts-parity]``): one NUTS transition on the fc-64 BNN
+   potential at the Half Moons widths (D = 322) at a fixed step, then a
+   10-draw fixed-step chain, on the card and on the CPU with the same
+   injected draws: every U-turn dot product, multinomial and merge
+   comparison at least 1e-3 of its scale from its threshold (checked
+   first), the same leaf counts and divergences, positions within 1e-4·max;
+19. NUTS rate (``[nuts-rate]``): the JAX bench's saturated configuration,
+   fc2-512 at MNIST widths (D = 669,706), 60,000 random inputs, 8 draws of
+   max_depth 8 at a fixed step of 1e-5: exactly 255 leaves a draw and
+   evaluations = leaves + 8; evaluations per second beside HMC's on the same
+   potential, one evaluation against its bound, peak memory;
+20. NUTS training (``[nuts]``): ``model_1`` (MNIST fc2-512) through
+   ``BNN.train(hmc_sampler="nuts")`` on one faithful batch of 5,000
+   surrogate images, cut to 10 draws and a warmup of 20: finite draws that
+   all left the init, a step inside [1e-10, 1e3], the 10-draw test
+   evaluation, a bit-equal reload;
+21. NUTS profile (``[nuts-profile]``): one draw at B = 5,000 from a trained
+   draw at the trained step: at most one host read per leaf (the
+   transition's own count and CUDA's sync debug mode), wall against
+   device-busy time, one evaluation against its bound;
+22. NN (``[nn]``): ``cli.train_nn --model_idx=0`` (MNIST conv-512, 5 epochs,
+   batch 64) on 60,000 surrogate images: a finite, falling loss; then
+   ``cli.attacks --model_type=nn``: FGSM and 40-step PGD on 1,000 images
+   inside the ε-ball and [0, 1], ``--attack=False`` reloading the PGD attack
+   bit-equal, and the deterministic expected loss gradient;
+23. ensemble (``[ensemble]``): ``cli.train_ensemble --model_idx=0
+   --ensemble_size=10`` (batch 100) on 60,000 images: a finite, falling mean
+   member loss, members that differ, the stacked logit average within
+   1e-5·max of a loop over members; ``cli.attacks --model_type=ensemble``:
+   FGSM and PGD on 1,000 images inside the ε-ball and [0, 1]; the expected
+   loss gradients over the 10 members;
+   each of phases 18-23 fails if a sampled-dense kernel launched in it;
+24. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
    ``launches`` counts the dparams kernels over phase 6 and the others over
    phase 7.
 
@@ -90,6 +122,7 @@ kernel build directory ``build/kernels``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib
 import json
@@ -1220,6 +1253,14 @@ def phase_hmc(torch, workdir: str):
     return bnn
 
 
+def evaluation_flops(arch, batch: int) -> float:
+    """One value-and-gradient evaluation of a dense BNN potential: the
+    forward, the weight gradients and the input gradients of every layer
+    but the first."""
+    dims = arch.dims
+    return 2.0 * batch * (2 * sum(i * o for i, o in dims) + sum(i * o for i, o in dims[1:]))
+
+
 def phase_hmc_profile(torch, bnn) -> None:
     """One faithful warmup transition (10 leapfrog steps, dual averaging and
     Welford) at B = 5,000 on model_3 from a trained draw: wall against
@@ -1259,8 +1300,7 @@ def phase_hmc_profile(torch, bnn) -> None:
     wall_ms = 1e3 * statistics.median(walls)
     eval_walls = [wall_s(torch, lambda: vg(q)) for _ in range(5)]
     eval_busy = profiled_device_ms(torch, lambda: [vg(q) for _ in range(10)], "hmc-profile")[0] / 10
-    dims = bnn.arch.dims
-    flops = 2.0 * batch * (2 * sum(i * o for i, o in dims) + sum(i * o for i, o in dims[1:]))
+    flops = evaluation_flops(bnn.arch, batch)
     nbytes = 4.0 * (x.numel() + 3 * q.numel() + labels.numel())  # x, q read; gradient written; U
     b_ms, b_by = bound_ms(flops, nbytes)
     print(f"[hmc-profile] model_3 B={batch}, one warmup transition of {cfg.num_steps} leapfrog steps "
@@ -1319,6 +1359,367 @@ def phase_hmc_loss_gradients(torch) -> None:
           f"vanishing {vanishing:.3f}, increasing {1 - vanishing - null:.3f}, null {null:.3f} of the images")
 
 
+NUTS_PARITY_TOL_OF_MAX = 1e-4  # card against CPU, both f32: one transition and a 10-draw chain
+NUTS_RATE_D = 669_706  # fc2-512: 784·512 + 512 + 512·512 + 512 + 512·10 + 10
+NUTS_RATE_BATCH, NUTS_RATE_DRAWS, NUTS_RATE_DEPTH = 60000, 8, 8
+NUTS_TRAIN_IMAGES = 5000  # model_1's one faithful batch
+NN_TRAIN_IMAGES, NN_ATTACK_IMAGES, ENSEMBLE_SIZE = 60000, 1000, 10
+
+
+class ReplayNutsDraws:
+    """Injected NUTS draws (``inference.hmc.GeneratorDraws``'s methods), one
+    queue per kind, moved to the asking tensor's device and dtype."""
+
+    def __init__(self, momentum, direction, merge, multinomial):
+        self.queues = {k: iter(v) for k, v in (("momentum", momentum), ("direction", direction), ("merge", merge),
+                                                ("multinomial", multinomial))}
+
+    def _next(self, kind, like):
+        return next(self.queues[kind]).to(like)
+
+    def momentum(self, like):
+        return self._next("momentum", like)
+
+    def direction(self, like):
+        return self._next("direction", like)
+
+    def merge(self, like):
+        return self._next("merge", like)
+
+    def multinomial(self, like):
+        return self._next("multinomial", like)
+
+
+def nuts_margins(torch, trace) -> float:
+    """The smallest distance of a NUTS decision from its threshold, in the
+    unit of its scale (``inference.nuts._nuts_transition``'s trace), over
+    the decisions that mattered (a threshold of ±inf decides for sure)."""
+    closest = math.inf
+    for _, value, threshold, scale, active in trace:
+        value, threshold, scale, active = (torch.as_tensor(v).cpu() for v in (value, threshold, scale, active))
+        gap = (value.double() - threshold.double()).abs() / scale.double()
+        mattered = active & torch.isfinite(threshold)
+        closest = min(closest, float(gap.masked_fill(~mattered.expand_as(gap), math.inf).min()))
+    return closest
+
+
+def phase_nuts_parity(torch) -> None:
+    """One NUTS transition on an fc-64 BNN potential at the Half Moons widths
+    (D = 322, 256 points) at a fixed step, with the same injected draws on the
+    card and on the CPU, then a 10-draw fixed-step chain: the same leaf counts
+    and divergences, positions within 1e-4·max, and every U-turn dot product,
+    multinomial and merge comparison at least 1e-3 of its scale from its
+    threshold (the precondition, checked first)."""
+    from robustbnns_tpu_torch.inference import hmc, nuts
+    from robustbnns_tpu_torch.models.architectures import build_architecture
+    from robustbnns_tpu_torch.models.bnn import bnn_potential
+    from robustbnns_tpu_torch.utils.pytree import flatten_tree_to_vector
+
+    arch = build_architecture("fc", "leaky", (1, 2, 1), 2, 64, "half_moons")
+    gen = torch.Generator().manual_seed(35)
+    q0, unravel = flatten_tree_to_vector(arch.init(gen))
+    d = q0.numel()
+    x = torch.rand((256, 1, 2, 1), generator=gen)
+    labels = torch.randint(0, 2, (256,), generator=gen)
+    potential = bnn_potential(arch, unravel)
+    inv_mass = torch.rand(d, generator=gen) + 0.5
+    draws = (torch.randn((11, d), generator=gen), torch.rand((200,), generator=gen),
+             torch.rand((200,), generator=gen), torch.rand((20000,), generator=gen))
+    # A step of 0.05 keeps trees near 63 leaves. At 0.02 (trees of 127-255)
+    # the card's chain parted from the CPU's by 0.85 of max with every
+    # decision clear of its threshold: long trajectories amplify rounding.
+    cfg = nuts.NUTSConfig(num_samples=10, warmup=0, step_size=0.05, max_depth=10, adapt_step_size=False,
+                          adapt_mass_matrix=False)
+    def run(device):
+        data = (x.to(device), labels.to(device))
+        replay = ReplayNutsDraws(*draws)
+        vg = hmc._Potential(potential, data)
+        trace = []
+        one = nuts._nuts_transition(vg, q0.to(device), torch.tensor(0.05, device=device), inv_mass.to(device), 10,
+                                    replay, trace)
+        samples, info = nuts.nuts_sample(potential, q0.to(device), None, cfg, data=data, draws=replay, trace=trace)
+        return one[0].cpu(), one[2], bool(one[3]), samples.cpu(), info, trace
+
+    (q1_gpu, n1_gpu, d1_gpu, s_gpu, i_gpu, t_gpu), (q1_cpu, n1_cpu, d1_cpu, s_cpu, i_cpu, t_cpu) = map(
+        run, ("cuda", "cpu"))
+    margin = min(nuts_margins(torch, t_cpu), nuts_margins(torch, t_gpu))
+    if margin <= 1e-3:  # the precondition of a trajectory comparison
+        fail(f"[nuts-parity] precondition: a decision within {margin:.2e} of its scale from its threshold")
+    leaves_gpu, leaves_cpu = [n1_gpu] + i_gpu.num_leapfrog.tolist(), [n1_cpu] + i_cpu.num_leapfrog.tolist()
+    div_gpu, div_cpu = [d1_gpu] + i_gpu.diverging.tolist(), [d1_cpu] + i_cpu.diverging.tolist()
+    if leaves_gpu != leaves_cpu or div_gpu != div_cpu:
+        fail(f"[nuts-parity] leaves card {leaves_gpu} cpu {leaves_cpu}; divergences card {div_gpu} cpu {div_cpu}")
+    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in ((q1_gpu, q1_cpu), (s_gpu, s_cpu))]
+    accept_err = float((i_gpu.accept_stat.cpu() - i_cpu.accept_stat).abs().max())
+    if max(errs) > NUTS_PARITY_TOL_OF_MAX or not bool(torch.isfinite(s_gpu).all()):
+        fail(f"[nuts-parity] the card's transition {errs[0]:.3e} and chain {errs[1]:.3e} of max|cpu| from the CPU's "
+             f"(tol {NUTS_PARITY_TOL_OF_MAX:.0e})")
+    print(f"[nuts-parity] fc-64 at the Half Moons widths (D={d}), 256 points: one transition at step 0.05 "
+          f"({n1_cpu} leaves) within {errs[0]:.3e} of max|cpu|; a 10-draw chain at the same step (leaves "
+          f"{leaves_cpu[1:]}, divergences {sum(div_cpu)}) within {errs[1]:.3e} (tol {NUTS_PARITY_TOL_OF_MAX:.0e}), "
+          f"accept statistics within {accept_err:.3e}; {len(t_cpu)} recorded decisions, the closest {margin:.3e} of "
+          f"its scale from its threshold")
+
+
+def phase_nuts_rate(torch) -> None:
+    """The JAX bench's saturated NUTS configuration (``bench.py:278-316``):
+    fc2-512 at MNIST widths, 60,000 random inputs, 8 draws of max_depth 8 at a
+    fixed step of 1e-5, no adaptation, so every draw runs 255 leaves; beside
+    it the port's HMC evaluations per second on the same potential."""
+    from robustbnns_tpu_torch.inference import hmc, nuts
+    from robustbnns_tpu_torch.models.architectures import build_architecture
+    from robustbnns_tpu_torch.models.bnn import bnn_potential
+    from robustbnns_tpu_torch.utils.pytree import flatten_tree_to_vector
+
+    arch = build_architecture("fc2", "leaky", (28, 28, 1), 10, 512, "mnist")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    q0, unravel = flatten_tree_to_vector(arch.init(gen))
+    data = (torch.rand((NUTS_RATE_BATCH, 28, 28, 1), generator=gen, device="cuda"),
+            torch.randint(0, 10, (NUTS_RATE_BATCH,), generator=gen, device="cuda"))
+    potential = bnn_potential(arch, unravel)
+    if q0.numel() != NUTS_RATE_D:
+        fail(f"[nuts-rate] D = {q0.numel()}, expected {NUTS_RATE_D}")
+    cfg = nuts.NUTSConfig(num_samples=NUTS_RATE_DRAWS, warmup=0, step_size=1e-5, max_depth=NUTS_RATE_DEPTH,
+                          adapt_step_size=False, adapt_mass_matrix=False)
+    torch.cuda.reset_peak_memory_stats()
+    result = []
+    seconds = wall_s(torch, lambda: result.append(nuts.nuts_sample(potential, q0, 7, cfg, data=data)))
+    samples, info = result[0]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    leaves = info.num_leapfrog.tolist()
+    if leaves != [2**NUTS_RATE_DEPTH - 1] * NUTS_RATE_DRAWS or info.evaluations != sum(leaves) + NUTS_RATE_DRAWS:
+        fail(f"[nuts-rate] leaves {leaves}, evaluations {info.evaluations}: expected 255 a draw and leaves + 8")
+    if not bool(torch.isfinite(samples).all()):
+        fail("[nuts-rate] non-finite draws")
+    rate = info.evaluations / seconds
+    hcfg = hmc.HMCConfig(num_samples=3, warmup=0, step_size=1e-5, num_steps=10, adapt_step_size=False,
+                         adapt_mass_matrix=False)
+    hmc.hmc_sample(potential, q0, 7, hcfg._replace(num_samples=1), data=data)  # warm
+    result = []
+    h_seconds = wall_s(torch, lambda: result.append(hmc.hmc_sample(potential, q0, 7, hcfg, data=data)))
+    h_rate = result[0][1].evaluations / h_seconds
+    vg = hmc._Potential(potential, data)
+    eval_busy = profiled_device_ms(torch, lambda: [vg(q0) for _ in range(10)], "nuts-rate")[0] / 10
+    flops = evaluation_flops(arch, NUTS_RATE_BATCH)
+    b_ms, b_by = bound_ms(flops, 4.0 * (data[0].numel() + 3 * q0.numel() + data[1].numel()))
+    print(f"[nuts-rate] fc2-512 (D={q0.numel()}), B={NUTS_RATE_BATCH}, {NUTS_RATE_DRAWS} draws of max_depth "
+          f"{NUTS_RATE_DEPTH} at step 1e-5: leaves {leaves}, {info.evaluations} evaluations in {seconds:.3f} s = "
+          f"{rate:.1f} evaluations/s; HMC on the same potential {h_rate:.1f} evaluations/s ({result[0][1].evaluations} "
+          f"in {h_seconds:.3f} s), NUTS/HMC {rate / h_rate:.3f}; one evaluation {eval_busy:.3f} ms device-busy "
+          f"against a bound of {b_ms:.3f} ms ({b_by}: {flops / 1e9:.1f} GFLOP at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s), "
+          f"{100 * b_ms / eval_busy:.1f}% of the bound; peak {peak_gib:.2f} GiB allocated")
+
+
+def phase_nuts(torch):
+    """model_1 (MNIST fc2-512, HMC config) trained by NUTS at full width
+    through ``BNN.train(hmc_sampler="nuts")`` on one faithful batch of 5,000
+    surrogate images, cut to 10 draws and a warmup of 20; the 10-draw test
+    evaluation, the save and a bit-equal reload. Returns the BNN and its batch."""
+    import dataclasses
+
+    from robustbnns_tpu_torch.config import DATA, saved_BNNs
+    from robustbnns_tpu_torch.data.datasets import load_dataset
+    from robustbnns_tpu_torch.models.bnn import BNN
+    from robustbnns_tpu_torch.utils.pytree import tree_leaves
+
+    cfg = dataclasses.replace(saved_BNNs["model_1"], n_samples=10, warmup=20)
+    x, y, x_test, y_test, shape, out = load_dataset("mnist", n_inputs=60000, fallback="synthetic")
+    x, y = x[:NUTS_TRAIN_IMAGES], y[:NUTS_TRAIN_IMAGES]
+    bnn = BNN.from_config(cfg, shape, out, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    seconds = wall_s(torch, lambda: bnn.train(x, y, hmc_sampler="nuts", verbose=False))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    info, h = bnn.hmc_info, bnn.history
+    leaves = tree_leaves(bnn.samples)
+    if not all(bool(torch.isfinite(v).all()) for v in leaves):
+        fail("[nuts] non-finite draws")
+    init = tree_leaves(bnn.arch.init(torch.Generator(device="cuda").manual_seed(0)))
+    moved = torch.stack([(v != i).reshape(cfg.n_samples, -1).any(-1) for v, i in zip(leaves, init)]).any(0)
+    if not bool(moved.all()):
+        fail(f"[nuts] {int((~moved).sum())} of {cfg.n_samples} draws equal the chain's init")
+    step = float(info.step_size)
+    if not (math.isfinite(step) and 1e-10 <= step <= 1e3):
+        fail(f"[nuts] step size {step} not finite or outside [1e-10, 1e3]")
+    accuracy = bnn.evaluate(x_test, y_test, n_samples=cfg.n_samples, verbose=False)
+    path = bnn.save(rel_path=DATA)
+    loaded = BNN.from_config(cfg, shape, out, device="cuda").load(rel_path=DATA)
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(loaded.samples), leaves)):
+        fail("[nuts] the reloaded checkpoint differs from the trained draws")
+    nl = info.num_leapfrog.tolist()
+    evals, run_s = h["evaluations"][0], h["seconds"][0]
+    print(f"[nuts] model_1 mnist fc2-512 (D={sum(v[0].numel() for v in leaves)}), one faithful batch of "
+          f"{len(x)} images, warmup {cfg.warmup} and {len(nl)} draws (resampled to {cfg.n_samples}): "
+          f"{seconds:.3f} s ({run_s:.3f} s in the run), {evals} evaluations = {evals / run_s:.1f} evaluations/s; "
+          f"leaves per draw {nl} (mean {sum(nl) / len(nl):.1f}, max {max(nl)}); divergences {int(h['divergences'][0])}; "
+          f"mean accept {h['accept'][0]:.3f}; step {step:.4g}; {cfg.n_samples}-draw test accuracy {accuracy:.2f}%; peak "
+          f"{peak_gib:.2f} GiB allocated; saved ({os.path.getsize(path) / 2**20:.1f} MiB) and reloaded bit-equal")
+    return bnn, (torch.as_tensor(x, device="cuda"), torch.as_tensor(y, device="cuda").argmax(-1))
+
+
+def phase_nuts_profile(torch, bnn, data) -> None:
+    """One NUTS draw on model_1 at B = 5,000 at a fixed step, from a trained
+    draw with the trained step and mass: wall against device-busy time, the
+    host reads per draw (the transition's own, and what CUDA's sync debug
+    mode counts), and one evaluation against its bound."""
+    import warnings
+
+    from robustbnns_tpu_torch.inference import hmc, nuts
+    from robustbnns_tpu_torch.models.bnn import bnn_potential
+    from robustbnns_tpu_torch.utils.pytree import flatten_tree_to_vector, index_tree
+
+    q, unravel = flatten_tree_to_vector(index_tree(bnn.samples, 0))
+    vg = hmc._Potential(bnn_potential(bnn.arch, unravel), data)
+    eps, inv_mass = bnn.hmc_info.step_size, bnn.hmc_info.inv_mass
+    max_depth = nuts.NUTSConfig(num_samples=1, warmup=0).max_depth
+
+    def draw(seed):
+        draws = hmc.GeneratorDraws(torch.Generator(device="cuda").manual_seed(seed))
+        return nuts._nuts_transition(vg, q, eps, inv_mass, max_depth, draws)
+
+    draw(1)
+    reads = []
+    flag = nuts._host_flag
+    nuts._host_flag = lambda v: reads.append(1) or flag(v)
+    torch.cuda.synchronize()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            n_leaves = draw(2)[2]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        nuts._host_flag = flag
+    sites = collections.Counter(f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+                                if "synchroniz" in str(w.message))
+    syncs = sum(sites.values())
+    if len(reads) > n_leaves or syncs > n_leaves:
+        fail(f"[nuts-profile] {len(reads)} host reads and {syncs} synchronisations in a draw of {n_leaves} leaves")
+    walls = [wall_s(torch, lambda: draw(2)) for _ in range(3)]
+    busy_ms, prof_ms = profiled_device_ms(torch, lambda: draw(2), "nuts-profile")
+    wall_ms = 1e3 * statistics.median(walls)
+    evals = n_leaves + 1
+    eval_busy = profiled_device_ms(torch, lambda: [vg(q) for _ in range(10)], "nuts-profile")[0] / 10
+    flops = evaluation_flops(bnn.arch, data[0].shape[0])
+    b_ms, b_by = bound_ms(flops, 4.0 * (data[0].numel() + 3 * q.numel() + data[1].numel()))
+    print(f"[nuts-profile] model_1 B={data[0].shape[0]}, one draw at the trained step {float(eps):.4g}: {n_leaves} "
+          f"leaves ({evals} evaluations), {wall_ms:.3f} ms wall (median of {[round(1e3 * w, 3) for w in walls]}), "
+          f"{busy_ms:.3f} ms device-busy ({prof_ms:.3f} ms wall under the profiler), device idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}% of the wall; {wall_ms / evals:.3f} ms wall and {busy_ms / evals:.3f} "
+          f"ms device-busy an evaluation; host reads in the draw: {len(reads)} by the transition, {syncs} "
+          f"synchronisations seen by CUDA's sync debug mode ({dict(sites)}); one evaluation {eval_busy:.3f} ms device-busy against a "
+          f"bound of {b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP), {100 * b_ms / eval_busy:.1f}% of the bound")
+
+
+def check_adversarial(torch, phase: str, method: str, xa, x, eps: float = 0.3) -> float:
+    """``x_adv`` finite, of ``x``'s shape, inside the ε-ball and [0, 1];
+    returns the share of pixels moved."""
+    x = torch.as_tensor(x, device=xa.device)
+    if xa.shape != x.shape or not bool(torch.isfinite(xa).all()):
+        fail(f"[{phase}] {method}: adversarial set has shape {tuple(xa.shape)} or non-finite values")
+    if float((xa - x).abs().max()) > eps + 1e-6 or float(xa.min()) < 0 or float(xa.max()) > 1:
+        fail(f"[{phase}] {method}: adversarial set leaves the eps-ball or [0, 1]")
+    return float(((xa - x).abs() > 1e-6).float().mean())
+
+
+def phase_nn(torch) -> None:
+    """``cli.train_nn --model_idx=0`` (MNIST conv-512, 5 epochs, lr 0.01,
+    batch 64) on 60,000 surrogate images; ``cli.attacks --model_type=nn``:
+    FGSM and 40-step PGD on 1,000 images, then ``--attack=False`` reloading
+    the saved PGD attack; then the deterministic expected loss gradient."""
+    from robustbnns_tpu_torch.analysis import expected_loss_gradients
+    from robustbnns_tpu_torch.cli import attacks as cli
+    from robustbnns_tpu_torch.cli import train_nn
+
+    out = []
+    seconds = wall_s(torch, lambda: out.append(train_nn.main(
+        ["--model_idx=0", f"--n_inputs={NN_TRAIN_IMAGES}", "--savedir=DATA", "--device=cuda"])))
+    model, accuracy = out[0]["model"], out[0]["test_accuracy"]
+    loss, acc, train_s = model.history["loss"], model.history["accuracy"], model.history["seconds"]
+    if not all(math.isfinite(v) for v in loss) or not loss[-1] < loss[0]:
+        fail(f"[nn] the loss is not finite and falling: {loss}")
+    epochs = len(loss)
+    print(f"[nn] model_0 conv-512 NN, {epochs} epochs of {NN_TRAIN_IMAGES} surrogate images, batch 64: loss per "
+          f"image {[float(f'{v:.4g}') for v in loss]}; train accuracy {[round(a, 2) for a in acc]}; {train_s:.3f} s "
+          f"training = {train_s / epochs:.3f} s an epoch ({epochs * NN_TRAIN_IMAGES / train_s:.1f} images/s); the "
+          f"CLI call {seconds:.3f} s; test accuracy {accuracy:.2f}%")
+    flags = ["--model_type=nn", "--model_idx=0", "--train=False", f"--n_inputs={NN_ATTACK_IMAGES}", "--device=cuda"]
+    runs = {m: cli.main(flags + [f"--attack_method={m}", "--test=False"]) for m in ("fgsm", "pgd")}
+    for method, r in runs.items():
+        moved = check_adversarial(torch, "nn", method, r["x_attack"], r["x_test"])
+        print(f"[nn] {method} on {NN_ATTACK_IMAGES} images: {NN_ATTACK_IMAGES / r['attack_seconds']:.1f} images/s "
+              f"({r['attack_seconds']:.3f} s); clean acc {r['clean_accuracy']:.2f}% adversarial acc "
+              f"{r['adversarial_accuracy']:.2f}%; {moved:.1%} of pixels moved")
+    again = cli.main(flags + ["--attack_method=pgd", "--test=False", "--attack=False"])
+    if not torch.equal(again["x_attack"], runs["pgd"]["x_attack"]):
+        fail("[nn] the reloaded PGD attack differs from the one saved")
+    r = runs["pgd"]
+    result = []
+    g_s = wall_s(torch, lambda: result.append(expected_loss_gradients(r["model"], r["x_test"], r["y_test"],
+                                                                      n_samples=None)))
+    grads = result[0]
+    if grads.shape != r["x_test"].shape or not bool(torch.isfinite(grads).all()):
+        fail(f"[nn] deterministic loss gradients of shape {tuple(grads.shape)} or non-finite")
+    print(f"[nn] --attack=False reloaded the PGD attack bit-equal (adversarial acc "
+          f"{again['adversarial_accuracy']:.2f}%); deterministic loss gradients on {len(grads)} images in "
+          f"{g_s:.3f} s, max |grad| {float(grads.abs().max()):.4g}")
+
+
+def phase_ensemble(torch) -> None:
+    """``cli.train_ensemble --model_idx=0 --ensemble_size=10`` (10 conv-512
+    members, 5 epochs, batch 100) on 60,000 surrogate images;
+    ``cli.attacks --model_type=ensemble``: FGSM and 40-step PGD on 1,000
+    images; the ensemble's expected loss gradients at S = 10."""
+    from robustbnns_tpu_torch.analysis import expected_loss_gradients
+    from robustbnns_tpu_torch.cli import attacks as cli
+    from robustbnns_tpu_torch.cli import train_ensemble
+    from robustbnns_tpu_torch.utils.pytree import index_tree
+
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    seconds = wall_s(torch, lambda: out.append(train_ensemble.main(
+        ["--model_idx=0", f"--n_inputs={NN_TRAIN_IMAGES}", "--savedir=DATA", "--device=cuda",
+         f"--ensemble_size={ENSEMBLE_SIZE}"])))
+    train_gib = torch.cuda.max_memory_allocated() / 2**30
+    ens, accuracy = out[0]["model"], out[0]["test_accuracy"]
+    (loss,), train_s = ens.history["loss"], ens.history["seconds"]
+    if not all(math.isfinite(v) for v in loss) or not loss[-1] < loss[0]:
+        fail(f"[ensemble] the mean member loss is not finite and falling: {loss}")
+    w = ens.stacked_params[0]["w"].reshape(ENSEMBLE_SIZE, -1)
+    if any(torch.equal(w[i], w[j]) for i in range(ENSEMBLE_SIZE) for j in range(i)):
+        fail("[ensemble] two members are equal")
+    x = torch.rand((B, 28, 28, 1), generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    loop = torch.stack([ens.arch.apply(index_tree(ens.stacked_params, e), x) for e in range(ENSEMBLE_SIZE)]).mean(0)
+    avg = ens.logits(x)
+    avg_err = float((avg - loop).abs().max() / loop.abs().max())
+    if avg_err > 1e-5:
+        fail(f"[ensemble] the stacked logit average is {avg_err:.3e} of max from a loop over members (tol 1e-5)")
+    epochs = len(loss)
+    print(f"[ensemble] model_0 conv-512, {ENSEMBLE_SIZE} members, {epochs} epochs of {NN_TRAIN_IMAGES} surrogate "
+          f"images, batch 100: mean member loss per image {[float(f'{v:.4g}') for v in loss]}; {train_s:.3f} s training "
+          f"= {train_s / epochs:.3f} s an epoch ({ENSEMBLE_SIZE * epochs * NN_TRAIN_IMAGES / train_s:.1f} member-"
+          f"images/s); the CLI call {seconds:.3f} s; peak {train_gib:.2f} GiB allocated; test accuracy "
+          f"{accuracy:.2f}%; logit average within {avg_err:.3e} of max of a loop over members")
+    flags = ["--model_type=ensemble", "--model_idx=0", f"--n_inputs={NN_ATTACK_IMAGES}", "--device=cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    runs = {m: cli.main(flags + [f"--attack_method={m}"]) for m in ("fgsm", "pgd")}
+    attack_gib = torch.cuda.max_memory_allocated() / 2**30
+    for method, r in runs.items():
+        moved = check_adversarial(torch, "ensemble", method, r["x_attack"], r["x_test"])
+        print(f"[ensemble] {method} on {len(r['x_test'])} images through the {ENSEMBLE_SIZE}-member mean logits: "
+              f"{len(r['x_test']) / r['attack_seconds']:.1f} images/s ({r['attack_seconds']:.3f} s); clean acc "
+              f"{r['clean_accuracy']:.2f}% adversarial acc {r['adversarial_accuracy']:.2f}%; {moved:.1%} of pixels "
+              f"moved; peak {attack_gib:.2f} GiB allocated")
+    r = runs["pgd"]
+    result = []
+    g_s = wall_s(torch, lambda: result.append(expected_loss_gradients(r["model"], r["x_test"], r["y_test"],
+                                                                      n_samples=ENSEMBLE_SIZE)))
+    grads = result[0]
+    if grads.shape != r["x_test"].shape or not bool(torch.isfinite(grads).all()):
+        fail(f"[ensemble] loss gradients of shape {tuple(grads.shape)} or non-finite")
+    print(f"[ensemble] expected loss gradients over the {ENSEMBLE_SIZE} members on {len(grads)} images in "
+          f"{g_s:.3f} s, max |grad| {float(grads.abs().max()):.4g}")
+
+
 def main() -> None:
     sys.path.insert(0, REPO)
     import torch
@@ -1366,6 +1767,22 @@ def main() -> None:
             phase_hmc_attack(torch)
         with no_sampled_dense_launch(torch, "hmc-loss-gradients"):
             phase_hmc_loss_gradients(torch)
+        torch.cuda.empty_cache()
+        with no_sampled_dense_launch(torch, "nuts-parity"):
+            phase_nuts_parity(torch)
+        with no_sampled_dense_launch(torch, "nuts-rate"):
+            phase_nuts_rate(torch)
+        torch.cuda.empty_cache()
+        with no_sampled_dense_launch(torch, "nuts"):
+            nuts_bnn, nuts_data = phase_nuts(torch)
+        with no_sampled_dense_launch(torch, "nuts-profile"):
+            phase_nuts_profile(torch, nuts_bnn, nuts_data)
+        del nuts_bnn, nuts_data
+        torch.cuda.empty_cache()
+        with no_sampled_dense_launch(torch, "nn"):
+            phase_nn(torch)
+        with no_sampled_dense_launch(torch, "ensemble"):
+            phase_ensemble(torch)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     line = []
     for name, r in kernels.items():

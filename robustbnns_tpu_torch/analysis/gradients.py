@@ -1,6 +1,5 @@
 """Expected loss gradients over the posterior (port of
-``robustbnns_tpu/analysis/gradients.py``, the SVI and HMC branches; reference
-``lossGradients.py``).
+``robustbnns_tpu/analysis/gradients.py``; reference ``lossGradients.py``).
 
 The paper's second result: ``⟨∂L/∂x⟩_{p(w|D)}`` estimated with S posterior
 draws. Reference semantics (``lossGradients.py:20-68``):
@@ -20,11 +19,13 @@ expected-gradient norms over increasing sample counts "vanish" iff they are
 monotone non-increasing and the first is nonzero; zero-first-norm images are
 "null", the rest "increasing".
 
-The draws are an SVI posterior's seeded reparameterized samples or an HMC
-posterior's stacked samples indexed by the seeds (JAX ``gradients.py:115-119``);
-everything after is shared. The deterministic branch (``n_samples=None``, NN
-models) waits for the NN slice, the ensemble branch for its own; ``mesh=`` for
-the parallelism slice.
+The draws are an SVI posterior's seeded reparameterized samples, an HMC
+posterior's stacked samples or an ensemble's members, the last two indexed by
+the seeds (JAX ``gradients.py:115-121``); everything after is shared. The
+deterministic branch (``n_samples=None``, JAX ``gradients.py:86-103``) takes
+the input gradient of the CE of the model's own output, an NN's raw logits;
+the reference's version is dead code (``lossGradients.py:42-48``). ``mesh=``
+waits for the parallelism slice.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ import torch
 
 from robustbnns_tpu_torch.attacks.gradient_attacks import ce_on_outputs
 from robustbnns_tpu_torch.config import DATA
-from robustbnns_tpu_torch.utils.pytree import map_params
+from robustbnns_tpu_torch.utils.pytree import index_tree, map_params
 
 
 def _summed_loss(apply_fn, stacked_params, x, labels) -> torch.Tensor:
@@ -80,22 +81,32 @@ def expected_loss_gradients(
     """Mean input gradient over S fixed posterior draws — shaped like ``x``, on
     ``model.device``.
 
-    ``model`` is a :class:`.models.bnn.BNN`. The draws are ``seeds``, by
-    default ``range(n_samples)`` (the reference's fixed draws,
+    ``model`` is a :class:`.models.bnn.BNN` or a
+    :class:`.models.ensemble.EnsembleNN`. The draws are ``seeds``, by default
+    ``range(n_samples)`` (the reference's fixed draws,
     ``lossGradients.py:29-33``): an SVI posterior's seeded draws, or an HMC
-    posterior's samples of those indices (checked on the host). For SVI,
-    ``eps``, a stacked ``(S, ...)`` noise tree, can replace the seeded noise,
-    so a test can inject another package's draws.
+    posterior's samples or an ensemble's members of those indices (checked on
+    the host). For SVI, ``eps``, a stacked ``(S, ...)`` noise tree, can
+    replace the seeded noise, so a test can inject another package's draws.
+
+    ``n_samples=None`` is the deterministic branch: the input gradient of the
+    CE of ``model.predictive_fn()``'s output, one per image (an NN's).
     """
+    from robustbnns_tpu_torch.attacks.gradient_attacks import _input_gradients
     from robustbnns_tpu_torch.inference.svi import sample_meanfield_eps
-    from robustbnns_tpu_torch.predict import sample_eps
+    from robustbnns_tpu_torch.predict import hmc_sample_index, sample_eps
 
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported yet (parallelism slice, ROADMAP.md)")
+    x = torch.as_tensor(x, device=model.device)
+    y = torch.as_tensor(y, device=model.device)
+    labels = y.argmax(dim=-1) if y.dim() > 1 else y
     if n_samples is None:
-        raise NotImplementedError(
-            "the deterministic branch (n_samples=None) waits for the NN/ensemble slice (ROADMAP.md)"
-        )
+        forward = model.predictive_fn()
+        return torch.cat([
+            _input_gradients(forward, x[i : i + batch_size], labels[i : i + batch_size], None)
+            for i in range(0, x.shape[0], batch_size)
+        ])
     seeds = list(range(n_samples)) if seeds is None else list(seeds)
     if getattr(model, "posterior", None) is not None:  # SVI
         posterior = model.posterior
@@ -110,14 +121,15 @@ def expected_loss_gradients(
         if len(seeds) != n_samples:
             raise ValueError("Number of seeds should match number of samples.")
         weights = model.sample_draws(seeds)
-    elif getattr(model, "stacked_params", None) is not None:
-        raise NotImplementedError("the ensemble branch waits for its slice (ROADMAP.md)")
+    elif getattr(model, "stacked_params", None) is not None:  # ensemble: the seeds index members
+        if eps is not None:
+            raise ValueError("`eps` is SVI noise: an ensemble's draws are its members")
+        if len(seeds) != n_samples:
+            raise ValueError("Number of seeds should match number of samples.")
+        weights = index_tree(model.stacked_params, hmc_sample_index(model.stacked_params, seeds, model.device))
     else:
         raise ValueError("model has no posterior — train() or load() first")
 
-    x = torch.as_tensor(x, device=model.device)
-    y = torch.as_tensor(y, device=model.device)
-    labels = y.argmax(dim=-1) if y.dim() > 1 else y
     return torch.cat([
         _mean_input_grads(model.arch.apply, weights, x[i : i + batch_size], labels[i : i + batch_size])
         for i in range(0, x.shape[0], batch_size)

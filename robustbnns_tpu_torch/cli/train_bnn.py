@@ -8,7 +8,7 @@ Example::
 
 SVI models train by SVI and ignore the HMC flags; HMC models (``model_1``,
 ``3``, ``9``) train by HMC in batches of 5,000 (``--hmc_mode``, ``--hmc_init``,
-``--num_chains``). ``--hmc_sampler=nuts`` raises until NUTS is ported.
+``--num_chains``), or by NUTS with ``--hmc_sampler=nuts``.
 """
 from __future__ import annotations
 

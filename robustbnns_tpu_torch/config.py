@@ -1,4 +1,4 @@
-"""Paths, the BNN zoo and typed configs (port of ``robustbnns_tpu/config.py``).
+"""Paths, the NN and BNN zoos and typed configs (port of ``robustbnns_tpu/config.py``).
 
 Same directory layout, the same ``ROBUSTBNNS_*`` environment overrides and the
 same zoo indices and values, so checkpoint names line up 1:1 with the JAX
@@ -22,6 +22,54 @@ TESTS = os.environ.get(
 def resolve_rel_path(savedir: str) -> str:
     """Map the reference's ``--savedir DATA|TESTS`` flag to a directory."""
     return DATA if savedir == "DATA" else TESTS
+
+
+@dataclasses.dataclass(frozen=True)
+class NNConfig:
+    """Hyperparameters of a deterministic NN (reference ``model_nn.py:19-31``)."""
+
+    dataset: str
+    hidden_size: int
+    activation: str  # relu | leaky | sigm | tanh
+    architecture: str  # fc | fc2 | conv | conv2
+    epochs: int
+    lr: float
+
+    @property
+    def name(self) -> str:
+        """Checkpoint identity string (reference ``model_nn.py:56-58``)."""
+        return (
+            f"{self.dataset}_nn_hid={self.hidden_size}_act={self.activation}"
+            f"_arch={self.architecture}_ep={self.epochs}_lr={self.lr}"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class EnsembleConfig:
+    """Hyperparameters of an NN ensemble (reference ``model_ensemble.py:14-31``)."""
+
+    dataset: str
+    hidden_size: int
+    activation: str
+    architecture: str
+    epochs: int
+    lr: float
+    ensemble_size: int
+    batch_size: int = 100  # reference model_ensemble.py:73
+
+    @property
+    def name(self) -> str:
+        return (
+            f"{self.dataset}_ensemble_hid={self.hidden_size}_act={self.activation}"
+            f"_arch={self.architecture}_size={self.ensemble_size}"
+        )
+
+    @classmethod
+    def from_nn(cls, nn_cfg: NNConfig, ensemble_size: int) -> "EnsembleConfig":
+        """The ensemble of ``ensemble_size`` members of one NN of the zoo."""
+        return cls(dataset=nn_cfg.dataset, hidden_size=nn_cfg.hidden_size, activation=nn_cfg.activation,
+                   architecture=nn_cfg.architecture, epochs=nn_cfg.epochs, lr=nn_cfg.lr,
+                   ensemble_size=ensemble_size)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +110,15 @@ class BNNConfig:
             )
         raise ValueError(f"unknown inference {self.inference!r}")
 
+
+saved_NNs: dict[str, NNConfig] = {
+    "model_0": NNConfig("mnist", 512, "leaky", "conv", 5, 0.01),
+    "model_5": NNConfig("mnist", 512, "leaky", "fc2", 10, 0.01),
+    "model_6": NNConfig("mnist", 256, "leaky", "conv", 10, 0.05),
+    "model_7": NNConfig("mnist", 1024, "leaky", "fc2", 5, 0.02),
+    "model_8": NNConfig("mnist", 1024, "leaky", "fc2", 10, 0.02),
+    "model_9": NNConfig("mnist", 1024, "leaky", "conv", 10, 0.01),
+}
 
 saved_BNNs: dict[str, BNNConfig] = {
     "model_0": BNNConfig("mnist", 512, "leaky", "conv", "svi", epochs=5, lr=0.01),

@@ -100,13 +100,8 @@ class HMCInfo(NamedTuple):
 
 
 def check_sampler(sampler: str) -> None:
-    """Refuse a sampler this package does not run."""
-    if sampler == "nuts":
-        raise NotImplementedError(
-            "sampler='nuts' is not ported yet: NUTS comes with its own slice "
-            "(ROADMAP.md Queue 1 item 6)"
-        )
-    if sampler != "hmc":
+    """Refuse a sampler other than ``hmc`` and ``nuts``."""
+    if sampler not in ("hmc", "nuts"):
         raise ValueError(f"unknown sampler {sampler!r}")
 
 
@@ -123,13 +118,15 @@ def check_precision(precision: str) -> None:
 class GeneratorDraws:
     """A chain's random draws from one ``torch.Generator`` on its device.
 
-    An injected draws object has the same four methods, each called in the
+    An injected draws object has the methods its sampler calls, each in the
     order the sampler needs the draw: ``search_normal(q)`` (a standard normal
     shaped like ``q`` for each step-size search), ``momentum(q)`` (each
     transition's standard normal, before the ``1/sqrt(inv_mass)`` scaling),
-    ``uniform(q)`` (each transition's uniform, shaped like ``q.shape[:-1]``)
-    and ``resample(n, high)`` (the faithful resample's ``n`` indices in
-    ``[0, high)``).
+    ``uniform(q)`` (each HMC transition's uniform, shaped like
+    ``q.shape[:-1]``) and ``resample(n, high)`` (the faithful resample's ``n``
+    indices in ``[0, high)``); NUTS (:mod:`.nuts`) asks, per doubling, for
+    ``direction(q)`` (right iff below 0.5) and ``merge(q)``, and per leaf for
+    ``multinomial(q)``, each a uniform like ``uniform``'s.
     """
 
     def __init__(self, generator: torch.Generator):
@@ -148,6 +145,8 @@ class GeneratorDraws:
     def uniform(self, like: torch.Tensor) -> torch.Tensor:
         g = self.generator
         return torch.rand(like.shape[:-1], generator=g, device=g.device, dtype=like.dtype)
+
+    direction = merge = multinomial = uniform
 
     def resample(self, n: int, high: int) -> torch.Tensor:
         g = self.generator
@@ -538,41 +537,53 @@ def hmc_train_batched(
     from the previous run's last position; keep the last batch's
     ``n_samples // num_batches + 1`` draws and resample ``n_samples`` of them
     **with replacement**. ``mode='full'``: one chain on the concatenated
-    batches. ``sampler='nuts'`` raises until NUTS is ported.
+    batches. ``sampler='nuts'`` runs :func:`.nuts.nuts_sample` instead, in
+    either mode (JAX ``hmc.py:632-655``); ``num_steps`` is then ignored.
 
     One draws object (or one generator seeded with ``seed``) serves every
     batch's run and then the resample. ``history``, a dict, gains per run the
-    mean accept probability, the mean step size, the seconds and the
-    evaluations; reading them (and ``verbose``'s line) is the batch's one
+    mean accept probability (NUTS: the accept statistic), the mean step size,
+    the seconds and the evaluations, and for NUTS the mean leaves per draw and
+    the divergences; reading them (and ``verbose``'s line) is the batch's one
     synchronisation with the card.
     """
+    from robustbnns_tpu_torch.inference.nuts import NUTSConfig, nuts_sample
+
     check_sampler(sampler)
     if mode not in ("faithful", "full"):
         raise ValueError(f"unknown HMC training mode {mode!r}")
     batches = list(batches)
+    nuts = sampler == "nuts"
     if draws is None:
         draws = _seeded_draws(seed, init_position.device)
 
     def config(num_samples):
+        if nuts:
+            return NUTSConfig(num_samples=num_samples, warmup=warmup, step_size=step_size, num_chains=num_chains)
         return HMCConfig(num_samples=num_samples, warmup=warmup, step_size=step_size,
                          num_steps=num_steps, num_chains=num_chains)
 
     def run(q, cfg, data):
         t0 = time.perf_counter()
-        samples, info = hmc_sample(potential_fn, q, None, cfg, data=data, draws=draws, trace=trace)
-        if history is not None or verbose:
-            acc, step = torch.stack([info.accept_prob.mean(), info.step_size.mean()]).tolist()
-            if history is not None:
-                for key, v in (("accept", acc), ("step_size", step), ("seconds", time.perf_counter() - t0),
-                               ("evaluations", info.evaluations)):
-                    history.setdefault(key, []).append(v)
-            return samples, info, acc, step
-        return samples, info, None, None
+        sample = nuts_sample if nuts else hmc_sample
+        samples, info = sample(potential_fn, q, None, cfg, data=data, draws=draws, trace=trace)
+        if history is None and not verbose:
+            return samples, info, {}
+        stats = [info.accept_stat if nuts else info.accept_prob, info.step_size]
+        if nuts:
+            stats += [info.num_leapfrog, info.diverging.sum()]
+        stats = dict(zip(("accept", "step_size", "leaves", "divergences"),
+                         torch.stack([v.float().mean() for v in stats]).tolist()))
+        stats.update(seconds=time.perf_counter() - t0, evaluations=info.evaluations)
+        if history is not None:
+            for key, v in stats.items():
+                history.setdefault(key, []).append(v)
+        return samples, info, stats
 
     if mode == "full":
         xs = torch.cat([b[0] for b in batches])
         ys = torch.cat([b[1] for b in batches])
-        samples, info, _, _ = run(init_position, config(n_samples), (xs, ys))
+        samples, info, _ = run(init_position, config(n_samples), (xs, ys))
         return samples, info
 
     num_batches = len(batches)
@@ -581,11 +592,14 @@ def hmc_train_batched(
     q = init_position
     samples = info = None
     for i, (x, labels) in enumerate(batches):
-        samples, info, acc, step = run(q, cfg, (x, labels))
+        samples, info, stats = run(q, cfg, (x, labels))
         q = samples[-1] if num_chains == 1 else samples[:, -1]
         if verbose:
-            print(f"[HMC batch {i + 1}/{num_batches}] {batch_samples} draws, "
-                  f"mean accept {acc:.2f}, step {step:.2e}")
+            line = (f"[{sampler.upper()} batch {i + 1}/{num_batches}] {batch_samples} draws, "
+                    f"mean accept {stats['accept']:.2f}, step {stats['step_size']:.2e}")
+            if nuts:
+                line += f", mean leaves {stats['leaves']:.1f}, divergences {int(stats['divergences'])}"
+            print(line)
 
     # get_samples(n_samples) with fewer stored draws resamples with replacement.
     idx = draws.resample(n_samples, batch_samples)

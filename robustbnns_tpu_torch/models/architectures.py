@@ -18,7 +18,9 @@ biases, with ``fan_in = C_in·25`` for a conv. ``apply`` also takes a stacked
 parameter tree (a leading sample axis S on every leaf) and then returns
 ``(S, batch, out)``: the conv trunk runs the S draws as one convolution with
 S·32 output channels, then one grouped convolution (``groups=S``), with no loop
-over draws.
+over draws. With stacked parameters the input may carry the leading axis too,
+``(S, batch, h, w, c)``, one batch per draw (an ensemble's members, each on its
+own shuffle): the first convolution then groups by draw as well.
 """
 from __future__ import annotations
 
@@ -73,13 +75,19 @@ def _conv_trunk_apply(act, params: Params, x: torch.Tensor) -> torch.Tensor:
     """The conv trunk and head on stacked parameters: ``(S, batch, out)``.
 
     conv5 VALID -> act -> max-pool 2/2 -> conv5 VALID -> act -> max-pool 2/1 ->
-    flatten in (h, w, c) order -> dense. The first conv's input is shared by
-    the draws, so it runs once with S·32 output channels; the second runs as a
-    grouped conv, group s on draw s's 32 channels.
+    flatten in (h, w, c) order -> dense. A shared input ``(batch, h, w, c)``
+    goes through the first conv once with S·32 output channels; inputs per
+    draw ``(S, batch, h, w, c)`` sit side by side as S·c channels of a conv
+    grouped by draw. The second conv runs grouped, group s on draw s's 32
+    channels.
     """
     n_draws = params[0]["w"].shape[0]
-    h = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
-    h = F.max_pool2d(act(F.conv2d(h, _oihw(params[0]["w"]), params[0]["b"].reshape(-1))), 2, 2)
+    if x.dim() == 5:
+        h, groups = x.permute(1, 0, 4, 2, 3).reshape(x.shape[1], -1, x.shape[2], x.shape[3]), n_draws
+    else:
+        h, groups = x.permute(0, 3, 1, 2), 1  # NHWC -> NCHW
+    h = F.conv2d(h, _oihw(params[0]["w"]), params[0]["b"].reshape(-1), groups=groups)
+    h = F.max_pool2d(act(h), 2, 2)
     h = F.conv2d(h, _oihw(params[1]["w"]), params[1]["b"].reshape(-1), groups=n_draws)
     h = F.max_pool2d(act(h), 2, 1)  # (B, S·hidden, h4, w4)
     batch, _, h4, w4 = h.shape
@@ -166,7 +174,7 @@ def build_architecture(
             if params[0]["w"].dim() == 5:  # a leading sample axis
                 return _conv_trunk_apply(act, params, x)
             return _conv_trunk_apply(act, map_params(lambda v: v[None], params), x)[0]
-        h = x.reshape(x.shape[0], -1)
+        h = x.flatten(-3) if x.dim() == 5 else x.reshape(x.shape[0], -1)
         for p in params[:-1]:
             h = act(_dense(h, p))
         return _dense(h, params[-1])

@@ -6,8 +6,8 @@ trained posterior state — a :class:`MeanFieldPosterior` for SVI or a stacked
 ``(S, ...)`` parameter tree for HMC — with ``train`` / ``forward`` /
 ``evaluate`` / ``predictive_fn`` / ``save`` / ``load`` mirroring the reference
 surface (``model_bnn.py:69``), for every model of the zoo: the SVI ``fc``/``fc2``
-and ``conv`` models and the HMC models (``model_1``, ``3``, ``9``). NUTS
-(``hmc_sampler='nuts'``) waits for its slice.
+and ``conv`` models and the HMC models (``model_1``, ``3``, ``9``), sampled by
+HMC or, with ``hmc_sampler='nuts'``, by NUTS (:mod:`.inference.nuts`).
 
 The probabilistic model is the reference's (``model_bnn.py:105-119``): iid
 ``N(0, 1)`` priors on every parameter and a categorical likelihood on the
@@ -19,12 +19,13 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 
 from robustbnns_tpu_torch.config import BNNConfig, TESTS, bnn_batch_size
 from robustbnns_tpu_torch.inference.hmc import HMCInfo, check_sampler, hmc_train_batched, map_warm_start
+from robustbnns_tpu_torch.inference.nuts import NUTSInfo
 from robustbnns_tpu_torch.inference.svi import MeanFieldPosterior, svi_train
 from robustbnns_tpu_torch.models.architectures import Architecture, build_architecture
 from robustbnns_tpu_torch.utils.checkpoint import load_pytree, save_pytree
@@ -58,9 +59,10 @@ class BNN:
     posterior: Optional[MeanFieldPosterior] = None  # SVI
     samples: Optional[Params] = None  # HMC: stacked (S, ...) parameter tree
     # SVI: per-epoch loss, accuracy and seconds of the last train(); HMC: per
-    # batch run, the mean accept probability, step size, seconds and evaluations
+    # batch run, the mean accept probability, step size, seconds and
+    # evaluations (NUTS: also the mean leaves per draw and the divergences)
     history: Optional[dict] = None
-    hmc_info: Optional[HMCInfo] = None  # the last HMC run's
+    hmc_info: Optional[Union[HMCInfo, NUTSInfo]] = None  # the last HMC or NUTS run's
     # Memoized predictive closures, one per (n_samples, seeds, avg_posterior).
     _fn_cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -120,7 +122,9 @@ class BNN:
         ragged tail included), from ``arch.init`` seeded with ``seed``, or
         ``init`` (a parameter tree or flat vector), or the MAP point from there
         (``hmc_init='map'``); chains merge into one sample axis. ``draws``
-        replaces the sampler's generator.
+        replaces the sampler's generator. ``hmc_sampler='nuts'`` samples by
+        NUTS instead (``num_steps`` unused); the draws are saved under the
+        same leaf names.
         """
         if mesh is not None:
             raise NotImplementedError("mesh= is not ported yet (parallelism slice, ROADMAP.md)")

@@ -1,5 +1,6 @@
-"""The BNN posterior predictives (port of ``robustbnns_tpu/predict.py``, the SVI and HMC parts).
+"""The posterior predictives of every model type (port of ``robustbnns_tpu/predict.py``).
 
+* **NN** — raw logits (reference ``model_nn.py:126``);
 * **SVI BNN** — average of per-sample **softmax probabilities** over
   ``n_samples`` reparameterized draws (reference ``model_bnn.py:134-136,257``).
   With ``seeds`` the draws are seeded per sample, so the same seed always yields
@@ -11,7 +12,10 @@
   ``range(n_samples)``, ``model_bnn.py:248-249``), each draw's softmax
   averaged (``model_bnn.py:243-257``). Seeds are checked on the host: the
   reference raises past the last draw, where JAX would clamp the index and a
-  bad index on the card would poison the CUDA context.
+  bad index on the card would poison the CUDA context;
+* **Ensemble** — the mean of the first ``n_samples`` members' **raw logits**
+  (``model_ensemble.py:63-67``), deliberately unlike the BNN's probability
+  average: attack gradients differ, so the reference's choice is kept.
 
 The unfused path materialises the S sampled weight sets and runs the network
 on them with ``torch.matmul`` and, for the conv architectures, ``F.conv2d``
@@ -27,7 +31,18 @@ import torch
 
 from robustbnns_tpu_torch.inference.svi import MeanFieldPosterior, sample_meanfield_eps
 from robustbnns_tpu_torch.utils.prng import draw_seed, key_from_seed, keys_from_seeds
-from robustbnns_tpu_torch.utils.pytree import Params, index_tree, map_params, normal_like_tree
+from robustbnns_tpu_torch.utils.pytree import Params, index_tree, map_params, normal_like_tree, slice_tree
+
+
+def nn_predict(arch, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Deterministic forward: raw logits (reference ``model_nn.py:126-141``)."""
+    return arch.apply(params, x)
+
+
+def ensemble_predict(arch, stacked_params: Params, x: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """Mean raw logits over the first ``n_samples`` members, through the
+    stacked ``apply`` (reference ``model_ensemble.py:63-67``)."""
+    return arch.apply(slice_tree(stacked_params, n_samples), x).mean(dim=0)
 
 
 def sample_eps(

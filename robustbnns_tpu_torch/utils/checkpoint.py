@@ -130,18 +130,22 @@ def load_meta(path: str) -> dict:
         return json.loads(bytes(data[_META_KEY]).decode("utf-8"))
 
 
+def params_from_numpy(tree, device="cpu"):
+    """A JAX parameter tree (a sequence of ``{"w", "b"}`` dicts of arrays) as
+    the port's tree of float32 tensors on ``device``: an NN's parameters, an
+    ensemble's stacked ``(E, ...)`` members or an HMC posterior's draws."""
+    return tuple(
+        {k: torch.tensor(np.asarray(v, np.float32), device=device) for k, v in layer.items()}
+        for layer in tree
+    )
+
+
 def meanfield_from_numpy(loc, rho, device="cpu"):
     """The JAX posterior's numpy leaves (two trees of ``{"w", "b"}`` dicts) as
     the port's :class:`MeanFieldPosterior` of float32 tensors on ``device``."""
     from robustbnns_tpu_torch.inference.svi import MeanFieldPosterior
 
-    def convert(tree):
-        return tuple(
-            {k: torch.tensor(np.asarray(v, np.float32), device=device) for k, v in layer.items()}
-            for layer in tree
-        )
-
-    return MeanFieldPosterior(loc=convert(loc), rho=convert(rho))
+    return MeanFieldPosterior(loc=params_from_numpy(loc, device), rho=params_from_numpy(rho, device))
 
 
 def hmc_samples_from_numpy(samples, like=None, device="cpu"):
@@ -156,10 +160,7 @@ def hmc_samples_from_numpy(samples, like=None, device="cpu"):
     from robustbnns_tpu_torch.utils.pytree import flatten_tree_to_vector
 
     if isinstance(samples, (tuple, list)):
-        return tuple(
-            {k: torch.tensor(np.asarray(v, np.float32), device=device) for k, v in layer.items()}
-            for layer in samples
-        )
+        return params_from_numpy(samples, device)
     if like is None:
         raise ValueError("a flat (S, D) array needs `like`, a parameter tree, for its leaf shapes")
     _, unravel = flatten_tree_to_vector(like)

@@ -7,8 +7,8 @@ JAX package's, and the SVI cases of ``tests/test_gradients.py`` on the port.
   JAX averages S gradients);
 * the file names, the save/load round trip and ``compute_vanishing_norms_idxs``
   equal JAX's;
-* the HMC branch equals JAX's on the same stacked draws; the branches of
-  later slices raise;
+* the HMC, deterministic (NN) and ensemble branches equal JAX's on the same
+  parameters; meshes raise;
 * ``cli.loss_gradients`` runs ``model_0`` at full width on the CPU.
 """
 import dataclasses
@@ -173,12 +173,16 @@ def test_vanishing_norms_shape_guard():
 
 
 def test_branches_of_later_slices_raise(trained_svi_bnn):
-    """The deterministic (NN) and ensemble branches and meshes wait for their
-    slices; the HMC branch (ported) computes JAX's gradients on the same
-    stacked draws, seeds indexing them."""
+    """Meshes wait for their slice. The HMC, deterministic and ensemble
+    branches (ported) compute JAX's gradients on the same parameters: the
+    stacked draws or members indexed by the seeds, and for an NN
+    (``n_samples=None``) the gradient of the CE of its raw logits."""
+    from robustbnns_tpu.models import DeterministicNN as JaxNN
+    from robustbnns_tpu.models import EnsembleNN as JaxEnsemble
+    from robustbnns_tpu_torch.models import DeterministicNN, EnsembleNN
+    from robustbnns_tpu_torch.utils.checkpoint import params_from_numpy
+
     bnn, x, y = trained_svi_bnn
-    with pytest.raises(NotImplementedError, match="NN"):
-        expected_loss_gradients(bnn, x, y, n_samples=None)
     with pytest.raises(NotImplementedError, match="mesh"):
         expected_loss_gradients(bnn, x, y, n_samples=2, mesh="auto")
 
@@ -197,11 +201,18 @@ def test_branches_of_later_slices_raise(trained_svi_bnn):
         close(expected_loss_gradients(ours, xh, yh, batch_size=4, **kw),
               jax_expected_loss_gradients(ref, xh, yh, batch_size=4, **kw))
 
-    class Ensemble:
-        posterior, samples, stacked_params = None, None, ({"w": torch.zeros(1)},)
-
-    with pytest.raises(NotImplementedError, match="ensemble"):
-        expected_loss_gradients(Ensemble(), x, y, n_samples=2)
+    params = to_np(ref.arch.init(jax.random.key(4)))
+    nn_ref, nn = JaxNN(arch=ref.arch, params=params), DeterministicNN(ours.arch, params_from_numpy(params))
+    close(expected_loss_gradients(nn, xh, yh, n_samples=None, batch_size=4),
+          jax_expected_loss_gradients(nn_ref, xh, yh, n_samples=None, batch_size=4))
+    members = ref.samples  # five stacked parameter sets serve as five members
+    ens_ref = JaxEnsemble(arch=ref.arch, stacked_params=members, ensemble_size=5)
+    ens = EnsembleNN(ours.arch, params_from_numpy(members), 5)
+    for kw in ({"n_samples": 5}, {"n_samples": 2, "seeds": [3, 0]}):
+        close(expected_loss_gradients(ens, xh, yh, batch_size=4, **kw),
+              jax_expected_loss_gradients(ens_ref, xh, yh, batch_size=4, **kw))
+    with pytest.raises(IndexError, match="out of range"):
+        expected_loss_gradients(ens, xh, yh, n_samples=1, seeds=[5])
     unloaded = BNN.from_config(bnn.config, (1, 2, 1), 2, device="cpu")
     with pytest.raises(ValueError, match="load"):
         expected_loss_gradients(unloaded, x, y, n_samples=2)

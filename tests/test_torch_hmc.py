@@ -432,10 +432,13 @@ def test_hmc_train_batched_full_mode_uses_all_data():
 
 
 def test_what_is_not_ported_raises(monkeypatch):
-    """NUTS, single-pass bf16, a chunk size below 1, unknown modes."""
+    """Single-pass bf16, a chunk size below 1, unknown samplers and modes
+    raise; ``sampler="nuts"``, ported, samples by NUTS."""
+    from robustbnns_tpu_torch.inference.nuts import NUTSInfo
+
     kw = dict(n_samples=4, warmup=2, verbose=False)
-    with pytest.raises(NotImplementedError, match="NUTS"):
-        hmc.hmc_train_batched(centre_potential, CENTRE_BATCHES, torch.zeros(3), 0, sampler="nuts", **kw)
+    samples, info = hmc.hmc_train_batched(centre_potential, CENTRE_BATCHES, torch.zeros(3), 0, sampler="nuts", **kw)
+    assert samples.shape == (4, 3) and isinstance(info, NUTSInfo) and bool(torch.isfinite(samples).all())
     with pytest.raises(ValueError, match="sampler"):
         hmc.hmc_train_batched(centre_potential, CENTRE_BATCHES, torch.zeros(3), 0, sampler="mala", **kw)
     with pytest.raises(ValueError, match="mode"):

@@ -224,7 +224,8 @@ def test_clis_train_attack_and_take_loss_gradients_of_an_hmc_model(hmc_zoo, monk
     """``cli.train_bnn`` trains model_9 (fc-512) by HMC on 64 surrogate images
     and reloads it bit-equal; ``cli.attacks --model_type=bnn`` attacks it
     without launching a sampled-dense kernel; ``cli.loss_gradients`` runs on
-    it (the S list cut to the 10 draws); ``--hmc_sampler=nuts`` raises."""
+    it (the S list cut to the 10 draws); ``--hmc_sampler=nuts`` then trains
+    it by NUTS, whose draws save and reload under the same names."""
     import importlib
 
     from robustbnns_tpu_torch.cli import attacks, loss_gradients, train_bnn
@@ -236,8 +237,6 @@ def test_clis_train_attack_and_take_loss_gradients_of_an_hmc_model(hmc_zoo, monk
     assert all(bool(torch.isfinite(v).all()) for v in tree_leaves(bnn.samples))
     loaded = train_bnn.main(flags + ["--train=False", "--test=False"])
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(loaded.samples), tree_leaves(bnn.samples)))
-    with pytest.raises(NotImplementedError, match="NUTS"):
-        train_bnn.main(flags + ["--hmc_sampler=nuts"])
 
     sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
     sd.reset_launch_counts()
@@ -255,3 +254,13 @@ def test_clis_train_attack_and_take_loss_gradients_of_an_hmc_model(hmc_zoo, monk
     assert sorted(grads) == [1, 5, 10]
     for g in grads.values():
         assert g.shape == (5, 28, 28) and np.isfinite(g).all()
+
+    from robustbnns_tpu_torch.inference.nuts import NUTSInfo
+
+    nuts_bnn = train_bnn.main(flags + ["--train=True", "--test=False", "--hmc_sampler=nuts"])
+    h = nuts_bnn.history
+    assert isinstance(nuts_bnn.hmc_info, NUTSInfo) and nuts_bnn.samples[0]["w"].shape == (10, 784, 512)
+    assert all(bool(torch.isfinite(v).all()) for v in tree_leaves(nuts_bnn.samples))
+    assert h["evaluations"][0] >= 11 * 2 + 4 and h["leaves"][0] >= 1 and 0 <= h["divergences"][0] <= 11
+    loaded = train_bnn.main(flags + ["--train=False", "--test=False"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(loaded.samples), tree_leaves(nuts_bnn.samples)))

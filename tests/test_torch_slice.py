@@ -8,7 +8,11 @@ FGSM/PGD on it.
 * the attack CLI runs end to end on the CPU at ``model_7``'s full width, on a
   saved posterior and after training one, and attacks with ``--attack=False``
   as JAX's BNN branch does; the training CLI trains, saves, evaluates and loads;
-* ``resolve_device`` alone turns TF32 off.
+* ``resolve_device`` alone turns TF32 off;
+* NNs and ensembles: FGSM and PGD on the same parameters move the pixels
+  JAX's attacks move (deterministic models: no draws to replay), and the NN
+  and ensemble CLIs train, save, load, attack and reload an attack on the
+  CPU at tiny sizes.
 """
 import ast
 import dataclasses
@@ -32,6 +36,7 @@ from robustbnns_tpu_torch.attacks import attack, attack_evaluation
 from robustbnns_tpu_torch.cli import attacks as cli
 from robustbnns_tpu_torch.inference.svi import MeanFieldPosterior
 from robustbnns_tpu_torch.models.bnn import BNN
+from robustbnns_tpu_torch.utils.pytree import tree_leaves
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "robustbnns_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -146,12 +151,14 @@ def cli_workdir(monkeypatch, tmp_path):
     return tmp_path
 
 
-def test_train_cli_trains_and_evaluates_model_7_on_the_cpu(cli_workdir):
+def test_train_cli_trains_and_evaluates_model_7_on_the_cpu(cli_workdir, monkeypatch):
     """``cli/train_bnn`` trains model_7 at full width for its 5 epochs on 200
     surrogate images, saves the posterior and the training curves, evaluates,
     and loads the checkpoint back with ``--train=False``; with the HMC flags
     it trains the same SVI posterior, and on an HMC model ``--hmc_sampler=nuts``
-    raises."""
+    samples by NUTS (model_3 cut to one draw, no warmup and a step of 1e3,
+    so that every draw diverges at its first leaf: two evaluations a draw at
+    fc2-1024 widths) and saves the draws under the HMC leaf names."""
     from robustbnns_tpu_torch.cli import train_bnn
 
     flags = ["--model_idx=7", "--n_inputs=200", "--savedir=DATA", "--device=cpu"]
@@ -172,9 +179,18 @@ def test_train_cli_trains_and_evaluates_model_7_on_the_cpu(cli_workdir):
     for tree, other in zip(bnn.posterior, flagged.posterior):
         for layer, layer2 in zip(tree, other):
             assert all(torch.equal(layer[k], layer2[k]) for k in layer)
-    # NUTS on an HMC model (model_3) raises, naming what it waits for.
-    with pytest.raises(NotImplementedError, match="NUTS"):
-        train_bnn.main(["--model_idx=3", "--n_inputs=200", "--savedir=DATA", "--device=cpu", "--hmc_sampler=nuts"])
+    # NUTS on an HMC model (model_3), cut to a run of two diverging draws.
+    from robustbnns_tpu_torch.inference.nuts import NUTSInfo
+
+    cut = dataclasses.replace(config.saved_BNNs["model_3"], n_samples=1, warmup=0, step_size=1e3)
+    monkeypatch.setitem(config.saved_BNNs, "model_3", cut)
+    hmc_flags = ["--model_idx=3", "--n_inputs=200", "--savedir=DATA", "--device=cpu", "--test=False"]
+    nuts_bnn = train_bnn.main(hmc_flags + ["--hmc_sampler=nuts"])
+    info = nuts_bnn.hmc_info
+    assert isinstance(info, NUTSInfo) and info.num_leapfrog.tolist() == [1, 1] and bool(info.diverging.all())
+    assert nuts_bnn.history["evaluations"] == [4] and nuts_bnn.samples[0]["w"].shape == (1, 784, 1024)
+    reloaded = train_bnn.main(hmc_flags + ["--train=False"])
+    assert all(torch.equal(reloaded.samples[i][k], nuts_bnn.samples[i][k]) for i in range(3) for k in ("b", "w"))
 
 
 def test_attack_cli_trains_then_attacks_on_the_cpu(cli_workdir, monkeypatch):
@@ -204,7 +220,7 @@ def test_attack_cli_trains_then_attacks_on_the_cpu(cli_workdir, monkeypatch):
 @pytest.mark.parametrize(
     "flags,error",
     [
-        (["--model_type=nn", "--device=cpu"], NotImplementedError),
+        (["--model_type=gp", "--device=cpu"], NotImplementedError),
         (["--model_type=bnn", "--bf16=True"], NotImplementedError),
         (["--model_type=bnn", "--mesh=auto", "--device=cpu"], NotImplementedError),
     ],
@@ -250,3 +266,91 @@ def test_cli_refuses_a_missing_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["--model_type=bnn", "--model_idx=7", "--train=False"])
+
+
+@pytest.mark.parametrize("kind", ["nn", "ensemble"])
+def test_nn_and_ensemble_attacks_match_jax(kind):
+    """FGSM and 3-step PGD on an fc2-32 NN, and on a 4-member ensemble's mean
+    raw logits, with the same parameters in both packages: the same pixels
+    move, to the same values (the final clip's rounding aside), and the
+    clean and adversarial accuracies are JAX's."""
+    from robustbnns_tpu.attacks.gradient_attacks import fgsm_attack as jax_fgsm
+    from robustbnns_tpu.attacks.gradient_attacks import pgd_attack as jax_pgd
+    from robustbnns_tpu.models import DeterministicNN as JaxNN
+    from robustbnns_tpu.models import EnsembleNN as JaxEnsemble
+    from robustbnns_tpu.models import build_architecture as jax_build
+    from robustbnns_tpu_torch.attacks.gradient_attacks import fgsm_attack, pgd_attack
+    from robustbnns_tpu_torch.models import DeterministicNN, EnsembleNN, build_architecture
+    from robustbnns_tpu_torch.utils.checkpoint import params_from_numpy
+
+    shape = (8, 8, 1)
+    jarch, tarch = jax_build("fc2", "leaky", shape, 10, 32), build_architecture("fc2", "leaky", shape, 10, 32)
+    if kind == "nn":
+        params = jax.tree_util.tree_map(np.asarray, jarch.init(jax.random.key(1)))
+        ref, ours = JaxNN(arch=jarch, params=params), DeterministicNN(tarch, params_from_numpy(params))
+    else:
+        params = jax.tree_util.tree_map(np.asarray, jax.vmap(jarch.init)(jax.random.split(jax.random.key(1), 4)))
+        ref, ours = JaxEnsemble(jarch, params, 4), EnsembleNN(tarch, params_from_numpy(params), 4)
+    rng = np.random.default_rng(3)
+    x = rng.uniform(size=(12,) + shape).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 12)]
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    fn, jfn = ours.predictive_fn(), ref.predictive_fn()
+    for got, want in ((fgsm_attack(fn, tx, ty, epsilon=0.3), jax_fgsm(jfn, x, y, epsilon=0.3)),
+                      (pgd_attack(fn, tx, ty, epsilon=0.3, iters=3), jax_pgd(jfn, x, y, epsilon=0.3, iters=3))):
+        want = np.asarray(want)
+        np.testing.assert_array_equal(got.numpy() != x, want != x)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+        scores = attack_evaluation(ours, x, got, y, verbose=False)
+        ref_scores = jax_attack_evaluation(ref, x, want, y, verbose=False)
+        assert scores[:2] == ref_scores[:2]
+        np.testing.assert_allclose(scores[2].numpy(), np.asarray(ref_scores[2]), atol=1e-5)
+
+
+def test_nn_and_ensemble_clis_run_on_the_cpu(cli_workdir, monkeypatch):
+    """``cli.train_nn`` trains model_0 (conv-512) on 64 surrogate images,
+    saves and reloads it bit-equal; ``cli.attacks --model_type=nn`` attacks
+    it (FGSM, 8 images, the data cut to 64 images) and with
+    ``--attack=False`` reloads that attack bit-equal; the deterministic loss
+    gradients run on it. ``cli.train_ensemble`` trains 10 members of model_5
+    (fc2-512) on 100 images and ``cli.attacks --model_type=ensemble`` loads
+    and attacks them. No sampled-dense kernel launches."""
+    import importlib
+
+    from robustbnns_tpu_torch.analysis import expected_loss_gradients
+    from robustbnns_tpu_torch.cli import train_ensemble, train_nn
+
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    sd.reset_launch_counts()
+    flags = ["--model_idx=0", "--n_inputs=64", "--savedir=DATA", "--device=cpu"]
+    out = train_nn.main(flags + ["--train=True", "--test=True"])
+    model = out["model"]
+    loss = model.history["loss"]
+    assert len(loss) == 5 and np.isfinite(loss).all() and 0 <= out["test_accuracy"] <= 100
+    assert (cli_workdir / "data" / model.name / f"{model.name}_weights.npz").exists()
+    loaded = train_nn.main(flags + ["--train=False", "--test=False"])["model"]
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(loaded.params), tree_leaves(model.params)))
+
+    load = cli.load_data
+    monkeypatch.setattr(cli, "load_data", lambda ds, n, shuffle=True: load(ds, n or 64, shuffle))
+    attack_flags = ["--model_type=nn", "--model_idx=0", "--train=False", "--n_inputs=8", "--device=cpu"]
+    r = cli.main(attack_flags + ["--test=True"])
+    x, xa = torch.as_tensor(r["x_test"]), r["x_attack"]
+    assert xa.shape == (8, 28, 28, 1) and float((xa - x).abs().max()) <= 0.3 + 1e-6
+    assert 0 <= float(xa.min()) and float(xa.max()) <= 1 and 0 <= r["test_accuracy"] <= 100
+    again = cli.main(attack_flags + ["--test=False", "--attack=False"])
+    assert torch.equal(again["x_attack"], xa) and again["adversarial_accuracy"] == r["adversarial_accuracy"]
+    grads = expected_loss_gradients(r["model"], x, r["y_test"], n_samples=None)
+    assert grads.shape == x.shape and bool(torch.isfinite(grads).all()) and float(grads.abs().max()) > 0
+
+    ens_flags = ["--model_idx=5", "--n_inputs=100", "--savedir=DATA", "--device=cpu", "--ensemble_size=10"]
+    ens = train_ensemble.main(ens_flags + ["--train=True", "--test=False"])["model"]
+    assert ens.stacked_params[0]["w"].shape == (10, 784, 512) and len(ens.history["loss"][0]) == 10
+    assert ens.history["loss"][0][-1] < ens.history["loss"][0][0]
+    r = cli.main(["--model_type=ensemble", "--model_idx=5", "--n_inputs=8", "--device=cpu", "--attack_method=pgd"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(r["model"].stacked_params),
+                                                 tree_leaves(ens.stacked_params)))
+    x, xa = torch.as_tensor(r["x_test"]), r["x_attack"]
+    assert xa.shape == (8, 28, 28, 1) and float((xa - x).abs().max()) <= 0.3 + 1e-6
+    assert os.path.exists(cli_workdir / "data" / ens.name / f"{ens.name}_pgd_attack.npz")
+    assert not any(sd.launch_counts().values())
