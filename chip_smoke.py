@@ -7,6 +7,8 @@ Run from the repo root, with no arguments::
 
 Phases, each fatal on failure:
 
+0. env: the versions of torch, CUDA, numpy and scipy, and which of
+   matplotlib, pandas, seaborn and sklearn import;
 1. device: a CUDA card, its name and power limit, and exact f32 (no TF32)
    from ``resolve_device`` alone, with both flags set True before it;
 2. build: every kernel under ``robustbnns_tpu_torch/csrc`` with nvcc;
@@ -91,9 +93,10 @@ Phases, each fatal on failure:
    potential, one evaluation against its bound, peak memory;
 20. NUTS training (``[nuts]``): ``model_1`` (MNIST fc2-512) through
    ``BNN.train(hmc_sampler="nuts")`` on one faithful batch of 5,000
-   surrogate images, cut to 10 draws and a warmup of 20: finite draws that
-   all left the init, a step inside [1e-10, 1e3], the 10-draw test
-   evaluation, a bit-equal reload;
+   surrogate images, cut to 2 draws after a warmup of 20 (the whole run's
+   time): finite draws that all left the init, a step inside [1e-10, 1e3],
+   a mean accept probability of at least 0.1, the 2-draw test evaluation,
+   a bit-equal reload;
 21. NUTS profile (``[nuts-profile]``): one draw at B = 5,000 from a trained
    draw at the trained step: at most one host read per leaf (the
    transition's own count and CUDA's sync debug mode), wall against
@@ -109,8 +112,25 @@ Phases, each fatal on failure:
    1e-5·max of a loop over members; ``cli.attacks --model_type=ensemble``:
    FGSM and PGD on 1,000 images inside the ε-ball and [0, 1]; the expected
    loss gradients over the 10 members;
+   then two one-epoch trainings from one seed on 5,000 images give
+   bit-equal stacked leaves;
    each of phases 18-23 fails if a sampled-dense kernel launched in it;
-24. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
+24. the paper's experiments through their CLIs' ``run``, each phase with its
+   wall seconds and peak memory, each failing on a sampled-dense launch:
+   ``[grid]`` one cell of the reference's Half Moons sweep (fc2-512, HMC
+   faithful, 250 draws, warmup 100, 5,000 points; JAX's checkpoint name, a
+   resuming rerun, gradients at S = 250, FGSM in the ε-ball, a transition
+   profiled); ``[overparam]`` its 100 rows of 15 columns written and read
+   back, the gradient columns equal to the saved gradients; ``[baseline]``
+   ``model_7``'s NN, 100-member ensemble and SVI BNN: 7,000 rows, every
+   attack in its ε-ball, the NN's and ensemble's first 64 rows within 1e-4
+   of the CPU's; ``[eps]`` 1,500 rows, each attack in its own ε-ball;
+   ``[gradients-components]`` S = 1, 10, 50, 100 on 1,000 images and the
+   reload bit-equal; ``[multimodal]`` ``model_10`` uncut (three full-batch
+   chains at 1,000, 10,000 and 60,000 points, 1,000 prior draws of D =
+   669,706): 1,150 rows, the card's PCA of the prior within 1e-3 of max of
+   numpy's float64 PCA with no sign flipped;
+25. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
    ``launches`` counts the dparams kernels over phase 6 and the others over
    phase 7.
 
@@ -223,10 +243,16 @@ def profiled_device_ms(torch, fn, phase: str) -> tuple[float, float]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall = wall_s(torch, fn)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall = wall_s(torch, fn)
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+        if spans:
+            break
+        # A trace with no device event at all has been seen after several good
+        # traces in one process: trace again, and say so.
+        print(f"[{phase}] torch.profiler's trace {attempt + 1} held no device event; tracing again")
     busy_us, reach = 0.0, -math.inf
     for start, end in spans:
         if end > reach:
@@ -1261,21 +1287,18 @@ def evaluation_flops(arch, batch: int) -> float:
     return 2.0 * batch * (2 * sum(i * o for i, o in dims) + sum(i * o for i, o in dims[1:]))
 
 
-def phase_hmc_profile(torch, bnn) -> None:
-    """One faithful warmup transition (10 leapfrog steps, dual averaging and
-    Welford) at B = 5,000 on model_3 from a trained draw: wall against
-    device-busy time, with CUDA's sync debug mode set to error (a host read
-    of a device value inside the transition fails the phase); then one
-    value-and-gradient evaluation against its bound."""
-    from robustbnns_tpu_torch.data.datasets import load_dataset
+def profile_hmc_transition(torch, phase: str, bnn, x, labels) -> float:
+    """One warmup transition of ``bnn``'s HMC config (``num_steps`` leapfrog
+    steps, dual averaging and Welford) on the batch ``(x, labels)`` from its
+    first draw at its last step size and mass: wall against device-busy
+    time, with CUDA's sync debug mode set to error (a host read of a device
+    value inside the transition fails the phase); then one value-and-gradient
+    evaluation against its bound. Returns the device's idle share."""
     from robustbnns_tpu_torch.inference import hmc
     from robustbnns_tpu_torch.models.bnn import bnn_potential
     from robustbnns_tpu_torch.utils.pytree import flatten_tree_to_vector, index_tree
 
-    batch, cfg = 5000, bnn.config
-    x, y, _, _, _, _ = load_dataset("fashion_mnist", n_inputs=HMC_TRAIN_IMAGES, fallback="synthetic")
-    x = torch.as_tensor(x[:batch], device="cuda")
-    labels = torch.as_tensor(y[:batch], device="cuda").argmax(-1)
+    cfg, batch = bnn.config, x.shape[0]
     q, unravel = flatten_tree_to_vector(index_tree(bnn.samples, 0))
     vg = hmc._Potential(bnn_potential(bnn.arch, unravel), (x, labels))
     draws = hmc.GeneratorDraws(torch.Generator(device="cuda").manual_seed(5))
@@ -1292,25 +1315,36 @@ def phase_hmc_profile(torch, bnn) -> None:
     try:
         transition()
     except RuntimeError as e:
-        fail(f"[hmc-profile] a transition synchronised with the host: {e}")
+        fail(f"[{phase}] a transition synchronised with the host: {e}")
     finally:
         torch.cuda.set_sync_debug_mode("default")
     walls = [wall_s(torch, transition) for _ in range(3)]
-    busy_ms, prof_ms = profiled_device_ms(torch, transition, "hmc-profile")
+    busy_ms, prof_ms = profiled_device_ms(torch, transition, phase)
     wall_ms = 1e3 * statistics.median(walls)
     eval_walls = [wall_s(torch, lambda: vg(q)) for _ in range(5)]
-    eval_busy = profiled_device_ms(torch, lambda: [vg(q) for _ in range(10)], "hmc-profile")[0] / 10
+    eval_busy = profiled_device_ms(torch, lambda: [vg(q) for _ in range(10)], phase)[0] / 10
     flops = evaluation_flops(bnn.arch, batch)
     nbytes = 4.0 * (x.numel() + 3 * q.numel() + labels.numel())  # x, q read; gradient written; U
     b_ms, b_by = bound_ms(flops, nbytes)
-    print(f"[hmc-profile] model_3 B={batch}, one warmup transition of {cfg.num_steps} leapfrog steps "
-          f"({cfg.num_steps + 1} evaluations): {wall_ms:.3f} ms wall (median of {[round(1e3 * w, 3) for w in walls]}), "
-          f"{busy_ms:.3f} ms device-busy (union of kernel intervals; {prof_ms:.3f} ms wall under the profiler), "
-          f"device idle {100 * (1 - busy_ms / wall_ms):.1f}% of the wall; no host synchronisation inside "
-          f"(sync debug mode 'error'); one evaluation {1e3 * statistics.median(eval_walls):.3f} ms wall, "
-          f"{eval_busy:.3f} ms device-busy against a bound of {b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP at "
-          f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s), {100 * b_ms / eval_busy:.1f}% of the bound; "
+    idle = 1 - busy_ms / wall_ms
+    print(f"[{phase}] {bnn.config.dataset} {bnn.arch.name}-{bnn.arch.hidden_size} (D={q.numel()}) B={batch}, one "
+          f"warmup transition of {cfg.num_steps} leapfrog steps ({cfg.num_steps + 1} evaluations): {wall_ms:.3f} ms "
+          f"wall (median of {[round(1e3 * w, 3) for w in walls]}), {busy_ms:.3f} ms device-busy (union of kernel "
+          f"intervals; {prof_ms:.3f} ms wall under the profiler), device idle {100 * idle:.1f}% of the wall; no host "
+          f"synchronisation inside (sync debug mode 'error'); one evaluation {1e3 * statistics.median(eval_walls):.3f} "
+          f"ms wall, {eval_busy:.3f} ms device-busy against a bound of {b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP "
+          f"at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s), {100 * b_ms / eval_busy:.1f}% of the bound; "
           f"{flops / eval_busy / 1e9:.1f} TFLOP/s")
+    return idle
+
+
+def phase_hmc_profile(torch, bnn) -> None:
+    """:func:`profile_hmc_transition` on model_3 at B = 5,000 from a trained draw."""
+    from robustbnns_tpu_torch.data.datasets import load_dataset
+
+    x, y, _, _, _, _ = load_dataset("fashion_mnist", n_inputs=HMC_TRAIN_IMAGES, fallback="synthetic")
+    profile_hmc_transition(torch, "hmc-profile", bnn, torch.as_tensor(x[:5000], device="cuda"),
+                           torch.as_tensor(y[:5000], device="cuda").argmax(-1))
 
 
 def phase_hmc_attack(torch) -> None:
@@ -1363,6 +1397,7 @@ NUTS_PARITY_TOL_OF_MAX = 1e-4  # card against CPU, both f32: one transition and 
 NUTS_RATE_D = 669_706  # fc2-512: 784·512 + 512 + 512·512 + 512 + 512·10 + 10
 NUTS_RATE_BATCH, NUTS_RATE_DRAWS, NUTS_RATE_DEPTH = 60000, 8, 8
 NUTS_TRAIN_IMAGES = 5000  # model_1's one faithful batch
+NUTS_MIN_ACCEPT = 0.1  # an adapted chain accepts far more (0.477 at warmup 20); an unadapted one 0.010
 NN_TRAIN_IMAGES, NN_ATTACK_IMAGES, ENSEMBLE_SIZE = 60000, 1000, 10
 
 
@@ -1513,8 +1548,10 @@ def phase_nuts_rate(torch) -> None:
 def phase_nuts(torch):
     """model_1 (MNIST fc2-512, HMC config) trained by NUTS at full width
     through ``BNN.train(hmc_sampler="nuts")`` on one faithful batch of 5,000
-    surrogate images, cut to 10 draws and a warmup of 20; the 10-draw test
-    evaluation, the save and a bit-equal reload. Returns the BNN and its batch."""
+    surrogate images, cut to 2 draws after a warmup of 20, where the step
+    size has adapted (10 draws took about 28,000 leaves, 66 s); a floor on
+    the mean accept probability; the 2-draw test evaluation, the save and a
+    bit-equal reload. Returns the BNN and its batch."""
     import dataclasses
 
     from robustbnns_tpu_torch.config import DATA, saved_BNNs
@@ -1522,7 +1559,7 @@ def phase_nuts(torch):
     from robustbnns_tpu_torch.models.bnn import BNN
     from robustbnns_tpu_torch.utils.pytree import tree_leaves
 
-    cfg = dataclasses.replace(saved_BNNs["model_1"], n_samples=10, warmup=20)
+    cfg = dataclasses.replace(saved_BNNs["model_1"], n_samples=2, warmup=20)
     x, y, x_test, y_test, shape, out = load_dataset("mnist", n_inputs=60000, fallback="synthetic")
     x, y = x[:NUTS_TRAIN_IMAGES], y[:NUTS_TRAIN_IMAGES]
     bnn = BNN.from_config(cfg, shape, out, device="cuda")
@@ -1540,6 +1577,8 @@ def phase_nuts(torch):
     step = float(info.step_size)
     if not (math.isfinite(step) and 1e-10 <= step <= 1e3):
         fail(f"[nuts] step size {step} not finite or outside [1e-10, 1e3]")
+    if not h["accept"][0] >= NUTS_MIN_ACCEPT:
+        fail(f"[nuts] mean accept probability {h['accept'][0]:.3f} below {NUTS_MIN_ACCEPT}")
     accuracy = bnn.evaluate(x_test, y_test, n_samples=cfg.n_samples, verbose=False)
     path = bnn.save(rel_path=DATA)
     loaded = BNN.from_config(cfg, shape, out, device="cuda").load(rel_path=DATA)
@@ -1664,6 +1703,32 @@ def phase_nn(torch) -> None:
           f"{g_s:.3f} s, max |grad| {float(grads.abs().max()):.4g}")
 
 
+DETERMINISM_IMAGES = 5000  # a subset: one epoch of 50 steps
+
+
+def check_ensemble_determinism(torch, ens) -> None:
+    """Two one-epoch trainings of the 10 conv-512 members from one seed on
+    5,000 surrogate images give bit-equal stacked leaves (cuDNN restricted to
+    its deterministic algorithms by ``resolve_device``)."""
+    from robustbnns_tpu_torch.data.datasets import load_dataset
+    from robustbnns_tpu_torch.models import train_ensemble
+    from robustbnns_tpu_torch.utils.pytree import tree_leaves
+
+    x, y, _, _, _, _ = load_dataset("mnist", n_inputs=60000, fallback="synthetic")
+    x = torch.as_tensor(x[:DETERMINISM_IMAGES], device="cuda")
+    y = torch.as_tensor(y[:DETERMINISM_IMAGES], device="cuda")
+    out, seconds = [], []
+    for _ in range(2):
+        seconds.append(wall_s(torch, lambda: out.append(tree_leaves(train_ensemble(
+            ens.arch, x, y, ensemble_size=ENSEMBLE_SIZE, device="cuda", epochs=1, lr=0.01, batch_size=100,
+            verbose=False).stacked_params))))
+    mismatched = [i for i, (a, b) in enumerate(zip(*out)) if not torch.equal(a, b)]
+    if mismatched or not torch.backends.cudnn.deterministic:
+        fail(f"[ensemble] two trainings from one seed differ in stacked leaves {mismatched}")
+    print(f"[ensemble] determinism: two one-epoch trainings of {ENSEMBLE_SIZE} conv-512 members from seed 0..9 on "
+          f"{DETERMINISM_IMAGES} images: all {len(out[0])} stacked leaves bit-equal ({[round(t, 3) for t in seconds]} s)")
+
+
 def phase_ensemble(torch) -> None:
     """``cli.train_ensemble --model_idx=0 --ensemble_size=10`` (10 conv-512
     members, 5 epochs, batch 100) on 60,000 surrogate images;
@@ -1699,6 +1764,7 @@ def phase_ensemble(torch) -> None:
           f"= {train_s / epochs:.3f} s an epoch ({ENSEMBLE_SIZE * epochs * NN_TRAIN_IMAGES / train_s:.1f} member-"
           f"images/s); the CLI call {seconds:.3f} s; peak {train_gib:.2f} GiB allocated; test accuracy "
           f"{accuracy:.2f}%; logit average within {avg_err:.3e} of max of a loop over members")
+    check_ensemble_determinism(torch, ens)
     flags = ["--model_type=ensemble", "--model_idx=0", f"--n_inputs={NN_ATTACK_IMAGES}", "--device=cuda"]
     torch.cuda.reset_peak_memory_stats()
     runs = {m: cli.main(flags + [f"--attack_method={m}"]) for m in ("fgsm", "pgd")}
@@ -1720,6 +1786,316 @@ def phase_ensemble(torch) -> None:
           f"{g_s:.3f} s, max |grad| {float(grads.abs().max()):.4g}")
 
 
+def phase_env(torch) -> None:
+    """Versions of the libraries the port uses, and which of the plotting and
+    analysis packages the JAX package's figures need import here."""
+    import numpy
+    import scipy
+
+    present = {}
+    for name in ("matplotlib", "pandas", "seaborn", "sklearn"):
+        try:
+            importlib.import_module(name)
+            present[name] = True
+        except ImportError:
+            present[name] = False
+    print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {numpy.__version__}, scipy "
+          f"{scipy.__version__}; imports: {json.dumps(present)}")
+
+
+def run_phase(torch, phase: str, fn, *args):
+    """``fn(torch, *args)`` as one phase: its wall seconds and peak device
+    memory printed, and a failure if it launched a sampled-dense kernel."""
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    with no_sampled_dense_launch(torch, phase):
+        seconds = wall_s(torch, lambda: out.append(fn(torch, *args)))
+    print(f"[{phase}] phase {seconds:.3f} s wall, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    return out[0]
+
+
+@contextlib.contextmanager
+def recorded_attacks(torch):
+    """Record ``(epsilon, x, x_adv, model, seconds)`` of every
+    ``attacks.attack`` call made through the package attribute (the
+    experiments import it at call time), each call timed between two
+    synchronisations with the card."""
+    import robustbnns_tpu_torch.attacks as package
+
+    original, record = package.attack, []
+
+    def wrapper(model, x_test, y_test, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_adv = original(model, x_test, y_test, **kwargs)
+        torch.cuda.synchronize()
+        record.append((kwargs.get("epsilon", 0.3), x_test, x_adv, model, time.perf_counter() - t0))
+        return x_adv
+
+    package.attack = wrapper
+    try:
+        yield record
+    finally:
+        package.attack = original
+
+
+GRID_CELL = ["--host_id=27", "--n_hosts=36"]  # cell 27 of the reference's 36: hidden 512, warmup 100, 5,000 points
+GRID_NAME = ("half_moons_bnn_hmc_hid=512_act=leaky_arch=fc2_inp=5000_samp=250_warm=100_stepsize=0.001"
+             "_numsteps=10")  # the JAX package's name for that cell (config.py:95-111)
+GRID_TEST_POINTS, GRID_SAMPLES, GRID_D = 100, 250, 265_218  # fc2-512 on 2 inputs: 2·512 + 512 + 512² + 512 + 512·2 + 2
+
+
+def phase_grid(torch) -> dict:
+    """``cli.grid_search_half_moons`` on one cell of the reference sweep, its
+    widest network: fc2-512, HMC faithful, 250 draws, warmup 100, 5,000
+    points in 5 batches of 1,024 (the last 904), the expected gradients at
+    S = 250 and FGSM on 100 test points; a rerun resumes from the checkpoint;
+    one transition profiled at B = 1,024."""
+    import numpy as np
+
+    from robustbnns_tpu_torch.cli import grid_search_half_moons as cli
+    from robustbnns_tpu_torch.data.datasets import load_dataset
+    from robustbnns_tpu_torch.models.bnn import BNN
+    from robustbnns_tpu_torch.utils.pytree import tree_leaves
+
+    flags = GRID_CELL + ["--savedir=DATA", "--device=cuda", "--compute_grads=True", "--compute_attacks=True",
+                         f"--test_points={GRID_TEST_POINTS}"]
+    r = cli.run(flags)
+    (bnn,) = r["trained"]
+    if bnn.name != GRID_NAME:
+        fail(f"[grid] the cell's name {bnn.name} is not the JAX package's {GRID_NAME}")
+    leaves = tree_leaves(bnn.samples)
+    d = sum(v[0].numel() for v in leaves)
+    if d != GRID_D or any(v.shape[0] != GRID_SAMPLES for v in leaves) or \
+            not all(bool(torch.isfinite(v).all()) for v in leaves):
+        fail(f"[grid] draws of {[v.shape[0] for v in leaves]} x {d}, expected {GRID_SAMPLES} x {GRID_D} finite")
+    (grads,) = r["grads"]
+    if np.squeeze(np.zeros((GRID_TEST_POINTS, 1, 2, 1))).shape != grads.shape or not np.isfinite(grads).all():
+        fail(f"[grid] gradients of shape {grads.shape} (the squeezed (100, 1, 2, 1) expected) or non-finite")
+    (x_adv,) = r["attacks"]
+    _, _, x_test, _, _, _ = load_dataset("half_moons", n_inputs=GRID_TEST_POINTS)
+    moved = check_adversarial(torch, "grid", "fgsm", x_adv, x_test)
+
+    def no_training(*args, **kwargs):
+        fail("[grid] the rerun trained a cell that has a checkpoint")
+
+    original, BNN.train = BNN.train, no_training
+    try:
+        rerun = cli.run(flags[:-3] + ["--compute_grads=False"])
+    finally:
+        BNN.train = original
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(rerun["trained"][0].samples), leaves)):
+        fail("[grid] the resumed cell's draws differ from the trained ones")
+    h = bnn.history
+    evals, run_s = sum(h["evaluations"]), sum(h["seconds"])
+    print(f"[grid] cell {GRID_CELL}: {bnn.name}: training {r['train_seconds']:.3f} s ({run_s:.3f} s in "
+          f"{len(h['seconds'])} batch runs), {evals} evaluations = {evals / run_s:.1f} evaluations/s; mean accept "
+          f"{[round(a, 3) for a in h['accept']]}; step {[float(f'{s:.4g}') for s in h['step_size']]}; expected "
+          f"gradients at S={GRID_SAMPLES} on {GRID_TEST_POINTS} points {r['grads_seconds']:.3f} s (max |grad| "
+          f"{float(np.abs(grads).max()):.4g}); FGSM {r['attack_seconds']:.3f} s, {moved:.1%} of coordinates moved; "
+          f"the rerun resumed from the checkpoint without training")
+    x, y, _, _, _, _ = load_dataset("half_moons", n_inputs=5000, shuffle=False)
+    profile_hmc_transition(torch, "grid", bnn, torch.as_tensor(x[:1024], device="cuda"),
+                           torch.as_tensor(y[:1024], device="cuda").argmax(-1))
+    return r
+
+
+def phase_overparam(torch, grid: dict) -> None:
+    """The overparam rows of the grid cell written by
+    ``build_overparam_scatterplot_dataset``, then ``cli.overparam.run
+    --rebuild=False`` reading them back: 100 rows of the 15 columns, the
+    gradient columns equal to the saved gradients."""
+    from robustbnns_tpu_torch.analysis import load_loss_gradients
+    from robustbnns_tpu_torch.cli import overparam as cli
+    from robustbnns_tpu_torch.config import DATA
+    from robustbnns_tpu_torch.experiments.overparam import build_overparam_scatterplot_dataset
+
+    rows = []
+    seconds = wall_s(torch, lambda: rows.extend(build_overparam_scatterplot_dataset(
+        grid["cells"], grid["posterior_samples"], GRID_TEST_POINTS, rel_path=DATA, out_dir=DATA, verbose=False)))
+    r = cli.run(["--rebuild=False", "--savedir=DATA", "--device=cuda", f"--test_points={GRID_TEST_POINTS}"])
+    if r["built"] or len(r["rows"]) != GRID_TEST_POINTS or any(len(row) != 15 for row in r["rows"]):
+        fail(f"[overparam] {len(r['rows'])} rows read (built again: {r['built']}), expected {GRID_TEST_POINTS} of 15 "
+             "columns from the CSV")
+    grads = load_loss_gradients(GRID_SAMPLES, GRID_NAME, GRID_NAME, DATA)
+    for row, built, g in zip(r["rows"], rows, grads):
+        if (row["loss_gradients_x"], row["loss_gradients_y"]) != (float(g[0]), float(g[1])) or row != built:
+            fail(f"[overparam] a row differs from the saved gradients or from what was written: {row}")
+    print(f"[overparam] {len(rows)} rows of 15 columns written in {seconds:.3f} s (test accuracy "
+          f"{rows[0]['test_acc']:.2f}% at S={GRID_SAMPLES}), read back by the CLI equal, the gradient columns equal "
+          f"to the saved gradients")
+
+
+BASELINE_IMAGES, BASELINE_MEMBERS, BASELINE_CHECKED = 1000, 100, 64
+CARD_CPU_RTOL = 1e-4  # the same checkpoint's softmax robustness on the card and on the CPU
+
+
+def phase_baseline(torch) -> None:
+    """``model_7``'s NN (``cli.train_nn``) and 100-member ensemble
+    (``cli.train_ensemble``) trained on 60,000 surrogate images beside the
+    SVI BNN that ``[train]`` saved, then ``cli.baseline_attacks.run`` at its
+    defaults (1,000 images, FGSM, defence 1/50/100): 7,000 rows, every
+    adversarial set in the ε-ball and [0, 1]; the NN's and the ensemble's rows
+    of the first 64 images against the same checkpoints on the CPU."""
+    from robustbnns_tpu_torch.attacks import attack as plain_attack
+    from robustbnns_tpu_torch.attacks import attack_evaluation
+    from robustbnns_tpu_torch.cli import baseline_attacks as cli
+    from robustbnns_tpu_torch.cli import train_ensemble, train_nn
+    from robustbnns_tpu_torch.config import DATA, EnsembleConfig, saved_NNs
+    from robustbnns_tpu_torch.models import DeterministicNN, EnsembleNN
+
+    flags = ["--model_idx=7", "--savedir=DATA", "--device=cuda"]
+    nn_s = wall_s(torch, lambda: train_nn.main(flags))
+    out = []
+    ens_s = wall_s(torch, lambda: out.append(train_ensemble.main(flags + [f"--ensemble_size={BASELINE_MEMBERS}"])))
+    ens_train = out[0]["model"].history["seconds"]
+    with recorded_attacks(torch) as attacks:
+        r = cli.run(flags)
+    rows = r["rows"]
+    if len(rows) != 7 * BASELINE_IMAGES:
+        fail(f"[baseline] {len(rows)} rows, expected {7 * BASELINE_IMAGES}")
+    if len(attacks) != 5:  # the NN, the BNN at one attack sample, the ensemble at 1, 50 and 100 members
+        fail(f"[baseline] {len(attacks)} attacks, expected 5")
+    ens_attack_s = [seconds for *_, model, seconds in attacks if isinstance(model, EnsembleNN)]
+    if len(ens_attack_s) != 3:
+        fail(f"[baseline] {len(ens_attack_s)} attacks on the ensemble, expected 3")
+    for eps, x, xa, *_ in attacks:
+        check_adversarial(torch, "baseline", "fgsm", xa, x, eps)
+    blocks = {(row["model_type"], row["defence_samples"]): i for i, row in reversed(list(enumerate(rows)))}
+    nn_cfg = saved_NNs["model_7"]
+    cpu = torch.device("cpu")
+    nn = DeterministicNN(arch=r["nn"].arch, params=None, name=nn_cfg.name, device=cpu).load(DATA)
+    ens = EnsembleNN(arch=r["nn"].arch, stacked_params=None, ensemble_size=BASELINE_MEMBERS,
+                     name=EnsembleConfig.from_nn(nn_cfg, BASELINE_MEMBERS).name, device=cpu).load(DATA)
+    x, y = r["x_test"][:BASELINE_CHECKED], r["y_test"][:BASELINE_CHECKED]
+    worst = 0.0
+    for model, key, n in [(nn, ("nn", None), None)] + [(ens, ("ensemble", k), k) for k in (1, 50, 100)]:
+        xa = plain_attack(model, x, y, method="fgsm", n_samples=n, save=False, verbose=False)
+        rob = attack_evaluation(model, x, xa, y, n_samples=n, verbose=False)[2].tolist()
+        card = [row["softmax_rob"] for row in rows[blocks[key]: blocks[key] + BASELINE_CHECKED]]
+        ref = torch.tensor(rob, dtype=torch.float64)
+        err = (torch.tensor(card, dtype=torch.float64) - ref).abs()
+        if not bool((err <= CARD_CPU_RTOL * (ref.abs() + ref.abs().max())).all()):
+            fail(f"[baseline] {key}: softmax robustness on the card parts from the CPU's by {float(err.max()):.3e}")
+        worst = max(worst, float(err.max()))
+    summary = {f"{k[0]}@{k[1]}": (rows[i]["test_acc"], rows[i]["adv_acc"]) for k, i in blocks.items()}
+    print(f"[baseline] model_7 fc2-1024: NN trained in {nn_s:.3f} s (the CLI call), {BASELINE_MEMBERS}-member "
+          f"ensemble {ens_train:.3f} s training = {ens_train / 5:.3f} s an epoch ({ens_s:.3f} s the CLI call); "
+          f"cli.baseline_attacks {r['attack_seconds']:.3f} s for {len(rows)} rows ({len(attacks)} attacks of "
+          f"{BASELINE_IMAGES} images, every one inside its eps-ball and [0, 1]); the {BASELINE_MEMBERS}-member "
+          f"ensemble's FGSM at 1, 50 and 100 members {[round(t, 3) for t in ens_attack_s]} s = "
+          f"{[round(BASELINE_IMAGES / t, 1) for t in ens_attack_s]} images/s; (clean, adversarial) accuracy by "
+          f"(model, defence samples) {json.dumps(summary)}; the NN's and the ensemble's rows of the first "
+          f"{BASELINE_CHECKED} images within {worst:.3e} of the CPU's (rtol {CARD_CPU_RTOL})")
+
+
+def phase_eps(torch) -> None:
+    """``cli.eps_attacks.run`` on ``model_7``'s posterior at its defaults: 100
+    images, ε in {0.1, 0.15, 0.2, 0.25, 0.3} by S in {1, 10, 50}."""
+    from robustbnns_tpu_torch.cli import eps_attacks as cli
+
+    with recorded_attacks(torch) as attacks:
+        r = cli.run(["--model_idx=7", "--savedir=DATA", "--device=cuda"])
+    if len(r["rows"]) != 1500 or len(attacks) != 15:
+        fail(f"[eps] {len(r['rows'])} rows from {len(attacks)} attacks, expected 1,500 from 15")
+    for eps, x, xa, *_ in attacks:
+        check_adversarial(torch, "eps", f"fgsm at eps {eps}", xa, x, eps)
+    adv = {(row["epsilon"], row["n_samples"]): row["adv_acc"] for row in r["rows"]}
+    print(f"[eps] model_7: 15 FGSM attacks of 100 images in {r['attack_seconds']:.3f} s, each inside its own eps-ball "
+          f"and [0, 1]; test accuracy {r['test_accuracy']:.2f}%; adversarial accuracy by (eps, S) "
+          f"{json.dumps({f'{e}/{s}': a for (e, s), a in adv.items()})}")
+
+
+def phase_gradients_components(torch) -> None:
+    """``cli.gradients_components.run --compute_grads=True`` on ``model_7``,
+    1,000 images: S in {1, 10, 50, 100} computed and saved, then S in {1, 10,
+    100} read back bit-equal."""
+    import numpy as np
+
+    from robustbnns_tpu_torch.analysis import compute_vanishing_norms_idxs
+    from robustbnns_tpu_torch.cli import gradients_components as cli
+
+    r = cli.run(["--model_idx=7", "--savedir=DATA", "--device=cuda", "--compute_grads=True"])
+    for s, g in zip(cli.STRIP_SAMPLES, r["strip"]):
+        if g.shape != (1000, 28, 28) or not np.isfinite(g).all():
+            fail(f"[gradients-components] S={s}: shape {g.shape} or non-finite values")
+    for s, g in zip(cli.HEATMAP_SAMPLES, r["heatmaps"]):
+        if not np.array_equal(g, r["strip"][cli.STRIP_SAMPLES.index(s)]):
+            fail(f"[gradients-components] S={s}: the reloaded gradients differ from the computed ones")
+    vanishing = compute_vanishing_norms_idxs(np.stack(r["heatmaps"], axis=1), cli.HEATMAP_SAMPLES, verbose=False)
+    print(f"[gradients-components] model_7, 1000 images: S={cli.STRIP_SAMPLES} computed and saved in "
+          f"{r['strip_seconds']:.3f} s, S={cli.HEATMAP_SAMPLES} read back bit-equal in {r['heatmaps_seconds']:.3f} s; "
+          f"{len(vanishing)} images flagged for heatmap rows")
+
+
+MULTIMODAL_TOL_OF_MAX = 1e-3  # the card's PCA (float64 products) against numpy's float64 on the CPU
+
+
+def phase_multimodal(torch) -> None:
+    """``cli.multimodal.run`` uncut: ``model_10`` (MNIST fc2-512, D = 669,706),
+    50 draws after a warmup of 100, one full-batch chain at each of 1,000,
+    10,000 and 60,000 points; 1,000 prior draws; the card's PCA of the prior
+    against numpy's float64 PCA on the CPU; one transition of the 60,000-point
+    chain profiled."""
+    import numpy as np
+
+    from robustbnns_tpu_torch.cli import multimodal as cli
+    from robustbnns_tpu_torch.experiments import multimodal
+    from robustbnns_tpu_torch.models.bnn import BNN
+
+    stages, chains, prior = {}, [], []
+
+    def train(self, x, y, **kwargs):
+        out = originals[0](self, x, y, **kwargs)
+        chains.append((self, x, y))
+        return out
+
+    def keep(fn, into):
+        def wrapper(*args, **kwargs):
+            into.append(fn(*args, **kwargs))
+            return into[-1]
+        return wrapper
+
+    originals = BNN.train, multimodal.prior_draws
+    BNN.train, multimodal.prior_draws = train, keep(multimodal.prior_draws, prior)
+    try:
+        with timed_stages(torch, stages, (multimodal, "prior_draws", "prior"), (multimodal, "pca_fit", "pca"),
+                          (multimodal, "pca_transform", "pca"), (BNN, "save", "save"),
+                          (BNN, "evaluate", "evaluate")):
+            r = cli.run(["--device=cuda"])
+    finally:
+        BNN.train, multimodal.prior_draws = originals
+    rows = r["rows"]
+    if len(rows) != 1000 + 3 * 50 or not all(math.isfinite(row["x"]) and math.isfinite(row["y"]) for row in rows):
+        fail(f"[multimodal] {len(rows)} rows, expected 1,150 finite")
+    t0 = time.perf_counter()
+    xc = prior[0].astype(np.float64)
+    xc -= xc.mean(0)
+    u = np.linalg.eigh(xc @ xc.T)[1][:, -2:][:, ::-1]
+    axes = (xc.T @ u).T
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    axes *= np.sign(axes[np.arange(2), np.abs(axes).argmax(1)])[:, None]
+    ref = xc @ axes.T
+    cpu_s = time.perf_counter() - t0
+    card = np.array([[row["x"], row["y"]] for row in rows[:1000]])
+    err = float(np.abs(card - ref).max() / np.abs(ref).max())
+    clear = np.abs(ref) > MULTIMODAL_TOL_OF_MAX * np.abs(ref).max()
+    if err > MULTIMODAL_TOL_OF_MAX or (np.sign(card) != np.sign(ref))[clear].any():
+        fail(f"[multimodal] the prior's PCA is {err:.3e} of max from the CPU's float64 PCA or flips a sign")
+    per_chain = [(x.shape[0], sum(b.history["evaluations"]), sum(b.history["seconds"]), b.history["accept"][0],
+                  float(b.hmc_info.step_size)) for b, x, _ in chains]
+    print(f"[multimodal] model_10 mnist fc2-512 (D={prior[0].shape[1]}), 50 draws after warmup 100, full batch: "
+          f"the CLI call {r['build_seconds']:.3f} s; prior draws {stages['prior']:.3f} s; PCA {stages['pca']:.3f} s "
+          f"(the prior's within {err:.3e} of max of numpy's float64 PCA on the CPU, {cpu_s:.3f} s there, no sign "
+          f"flipped); checkpoint saves {stages['save']:.3f} s, test evaluations {stages['evaluate']:.3f} s")
+    for n, evals, secs, accept, step in per_chain:
+        print(f"[multimodal] chain at {n} points: {secs:.3f} s, {evals} evaluations = {evals / secs:.1f} "
+              f"evaluations/s; mean accept {accept:.3f}; step {step:.4g}")
+    bnn, x, y = chains[-1]
+    profile_hmc_transition(torch, "multimodal", bnn, torch.as_tensor(x, device="cuda"),
+                           torch.as_tensor(y, device="cuda").argmax(-1))
+
+
 def main() -> None:
     sys.path.insert(0, REPO)
     import torch
@@ -1737,6 +2113,7 @@ def main() -> None:
             fail(f"the port is not importable ({e}): run from the repository root")
         if any(m == "jax" or m.startswith(("jax.", "robustbnns_tpu.")) for m in sys.modules):
             fail("the port imported JAX or the JAX package")
+        phase_env(torch)
         phase_device(torch)
         phase_build()
         kernels = phase_kernels(torch)
@@ -1783,6 +2160,15 @@ def main() -> None:
             phase_nn(torch)
         with no_sampled_dense_launch(torch, "ensemble"):
             phase_ensemble(torch)
+        torch.cuda.empty_cache()
+        grid = run_phase(torch, "grid", phase_grid)
+        run_phase(torch, "overparam", phase_overparam, grid)
+        del grid
+        run_phase(torch, "baseline", phase_baseline)
+        torch.cuda.empty_cache()
+        run_phase(torch, "eps", phase_eps)
+        run_phase(torch, "gradients-components", phase_gradients_components)
+        run_phase(torch, "multimodal", phase_multimodal)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     line = []
     for name, r in kernels.items():

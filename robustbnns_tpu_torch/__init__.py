@@ -5,13 +5,14 @@ found at the same relative path, and imports torch, numpy and the standard
 library only. The TPU's Pallas kernels become CUDA C++ kernels for ``sm_90a``
 under ``csrc/``, built with ``nvcc`` at first use (:mod:`.ops.build`).
 
-It carries SVI training of the ``fc``/``fc2`` models and the Bayesian
-FGSM/PGD attack path on them: :mod:`.config`, :mod:`.data`, :mod:`.models`
-(architectures and the SVI BNN), :mod:`.inference.svi` (the ELBO and the
-trainer), :mod:`.predict`, :mod:`.ops` (the six sampled-dense kernels, the
-op's full backward and the fused predictive), :mod:`.attacks`,
-:mod:`.cli.train_bnn` and :mod:`.cli.attacks`. Entry points run on ``cuda``
-unless asked for ``cpu``.
+It carries every model of the zoo (SVI, HMC and NUTS BNNs, deterministic
+NNs and ensembles: :mod:`.models`, :mod:`.inference`), the posterior
+predictive (:mod:`.predict`, and the six sampled-dense kernels under
+:mod:`.ops`), the Bayesian FGSM/PGD attacks (:mod:`.attacks`), the expected
+loss gradients (:mod:`.analysis`), the paper's experiments
+(:mod:`.experiments`) and their CLIs (:mod:`.cli`). Entry points run on
+``cuda`` unless asked for ``cpu``. Parallelism (``mesh=``) waits for a later
+slice.
 """
 
 __version__ = "0.1.0"

@@ -128,8 +128,11 @@ def attack(
 
     ``model`` has ``predictive_fn(n_samples, avg_posterior=..., fused=...)`` and a
     ``device``. ``fused=True`` selects the CUDA sampled-dense predictive. The
-    adversarial set is saved as npz under the JAX package's file name; the
-    image grids of the reference wait for the plotting utilities' slice.
+    adversarial set is saved as npz under the JAX package's file name. The
+    original and adversarial image grids that the JAX package draws beside it
+    (``gradient_attacks.py:288-294``) are not drawn: the card's machine has no
+    matplotlib. :func:`.utils.plotting.plot_save_grid_images` draws them from
+    the saved set where matplotlib is installed.
     """
     if verbose:
         print(f"\nProducing {method} attacks:")

@@ -25,11 +25,8 @@ through its mean raw logits.
 from __future__ import annotations
 
 import argparse
-import time
 
-import torch
-
-from robustbnns_tpu_torch.cli.common import add_common_flags, boolean, load_data, setup_device
+from robustbnns_tpu_torch.cli.common import add_common_flags, boolean, load_data, setup_device, timed
 from robustbnns_tpu_torch.config import EnsembleConfig, resolve_rel_path, saved_BNNs, saved_NNs
 
 EPSILON = 0.3  # reference adversarialAttacks.py:207
@@ -54,20 +51,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def _timed(device, fn):
-    """``fn()`` and its wall seconds between two synchronisations with the card."""
-    _synchronize(device)
-    t0 = time.perf_counter()
-    out = fn()
-    _synchronize(device)
-    return out, time.perf_counter() - t0
-
-
 def _attack_and_evaluate(model, args, x_test, y_test, filename, rel_path, result, n_samples=None, load=False,
                          **kwargs):
     """Attack the first ``--n_inputs`` test images (timed), or with ``load``
@@ -80,7 +63,7 @@ def _attack_and_evaluate(model, args, x_test, y_test, filename, rel_path, result
         result["x_attack"] = load_attack(method=args.attack_method, filename=filename, rel_path=rel_path,
                                          device=model.device)
     else:
-        result["x_attack"], result["attack_seconds"] = _timed(model.device, lambda: attack(
+        result["x_attack"], result["attack_seconds"] = timed(model.device, lambda: attack(
             model, x_test, y_test, method=args.attack_method, epsilon=EPSILON, n_samples=n_samples,
             filename=filename, rel_path=rel_path, **kwargs))
     clean, adv, rob = attack_evaluation(model, x_test, result["x_attack"], y_test, n_samples=n_samples)
@@ -95,7 +78,7 @@ def _build_nn(cfg, inp_shape, out_size, rel_path, args, device, x_train, y_train
 
     arch = build_architecture(cfg.architecture, cfg.activation, inp_shape, out_size, cfg.hidden_size, cfg.dataset)
     if args.train:
-        model, result["train_seconds"] = _timed(device, lambda: train_nn(
+        model, result["train_seconds"] = timed(device, lambda: train_nn(
             arch, x_train, y_train, epochs=cfg.epochs, lr=cfg.lr, name=cfg.name, device=device))
         result["train_images"] = len(x_train)
         model.save(rel_path)
@@ -127,7 +110,7 @@ def _bnn_branch(args, device, rel_path) -> dict:
     bnn = BNN.from_config(cfg, inp_shape, out_size, device=device)
     result = {"bnn": bnn, "model": bnn}
     if args.train:
-        _, result["train_seconds"] = _timed(device, lambda: bnn.train(x_train, y_train))
+        _, result["train_seconds"] = timed(device, lambda: bnn.train(x_train, y_train))
         result["train_images"] = len(x_train)
         bnn.save(rel_path=rel_path)
     else:

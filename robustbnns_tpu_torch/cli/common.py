@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import argparse
+import time
 
 import torch
 
@@ -59,3 +60,14 @@ def load_data(dataset: str, n_inputs, shuffle=True):
             "Accuracy numbers are not comparable to the real dataset."
         )
         return load_dataset(dataset, n_inputs=n_inputs, shuffle=shuffle, fallback="synthetic")
+
+
+def timed(device: torch.device, fn):
+    """``fn()`` and its wall seconds between two synchronisations with the card."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0

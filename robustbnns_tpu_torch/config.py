@@ -1,4 +1,4 @@
-"""Paths, the NN and BNN zoos and typed configs (port of ``robustbnns_tpu/config.py``).
+"""Paths, the NN, BNN and multimodality zoos and typed configs (port of ``robustbnns_tpu/config.py``).
 
 Same directory layout, the same ``ROBUSTBNNS_*`` environment overrides and the
 same zoo indices and values, so checkpoint names line up 1:1 with the JAX
@@ -131,6 +131,13 @@ saved_BNNs: dict[str, BNNConfig] = {
     "model_7": BNNConfig("mnist", 1024, "leaky", "fc2", "svi", epochs=5, lr=0.02),
     "model_8": BNNConfig("mnist", 1024, "leaky", "conv", "svi", epochs=10, lr=0.02),
     "model_9": BNNConfig("fashion_mnist", 512, "leaky", "fc", "hmc", n_samples=100, warmup=100),
+}
+
+# HMC multimodality configs (reference test_multimodal.py:35-38); n_samples is a
+# run-time argument there (--n_samples, default 50).
+multimodal_BNNs: dict[str, BNNConfig] = {
+    "model_10": BNNConfig("mnist", 512, "leaky", "fc2", "hmc", n_samples=50, warmup=100),
+    "model_11": BNNConfig("fashion_mnist", 512, "leaky", "fc2", "hmc", n_samples=50, warmup=100),
 }
 
 

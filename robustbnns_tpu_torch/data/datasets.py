@@ -1,19 +1,30 @@
-"""MNIST-family loading with the reference's preprocessing (port of
-``robustbnns_tpu/data/datasets.py``, the slice's part).
+"""Dataset loading with the reference's preprocessing (port of
+``robustbnns_tpu/data/datasets.py``).
 
-Numpy only, and byte-for-byte the JAX package's output: float32 ``/255`` NHWC
-images and one-hot(10) labels (reference ``utils.py:95-145``), ``n_inputs``
-truncation then an optional seeded shuffle (``utils.py:221-233``).
+Numpy only, and byte-for-byte the JAX package's output:
 
-Offline fallback: with no local copy (npz or IDX quad) the deterministic
-synthetic surrogate of the JAX package stands in, generated by the same code
-(``SURROGATE_VERSION`` 2) and kept in the same cross-process cache. Half Moons
-and CIFAR-10 wait for a later slice of the port.
+* Half Moons — sklearn's ``make_moons(30000, noise=0.1, random_state=0)``
+  (a numpy copy, :func:`make_moons`), global min-max to [0, 1], an 80/20
+  split, ``(N, 1, 2, 1)`` points and one-hot(2) labels (reference
+  ``utils.py:67-92``);
+* MNIST / Fashion-MNIST — float32 ``/255`` NHWC images and one-hot(10)
+  labels (reference ``utils.py:95-145``);
+* CIFAR-10 — the local pickle batches, NCHW transposed to NHWC, float32
+  ``/255``, one-hot(10) (reference ``utils.py:160-206``);
+* ``n_inputs`` truncation of train and test, then an optional seeded shuffle
+  (``utils.py:221-233``).
+
+Offline fallback: with no local copy the deterministic synthetic surrogate of
+the JAX package stands in for MNIST, Fashion-MNIST and CIFAR-10, generated by
+the same code (``SURROGATE_VERSION`` 2) and kept in the same cross-process
+cache. The port reads and serves NHWC only (the JAX package's
+``channels='first'`` is left out).
 """
 from __future__ import annotations
 
 import functools
 import os
+import pickle
 import warnings
 from typing import Optional, Tuple
 
@@ -47,6 +58,52 @@ def labels_to_onehot(integer_labels: np.ndarray, n_classes: Optional[int] = None
     onehot = np.zeros((n_rows, n_cols), dtype="float32")
     onehot[np.arange(n_rows), np.asarray(integer_labels, dtype=np.int64)] = 1.0
     return onehot
+
+
+def onehot_to_labels(y: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`labels_to_onehot` (reference ``utils.py:154-158``)."""
+    return np.argmax(y, axis=-1)
+
+
+def make_moons(n_samples: int, noise: float = 0.1, random_state: int = 0):
+    """sklearn's ``make_moons(n_samples, shuffle=True, noise, random_state)``,
+    bit for bit (sklearn 1.x, ``datasets/_samples_generator.py``): two
+    half-circles from ``linspace``, shuffled by a ``RandomState`` (sklearn's
+    ``utils.shuffle``), then Gaussian noise from the same generator."""
+    n_out = n_samples // 2
+    n_in = n_samples - n_out
+    generator = np.random.RandomState(random_state)
+    outer_x = np.cos(np.linspace(0, np.pi, n_out))
+    outer_y = np.sin(np.linspace(0, np.pi, n_out))
+    inner_x = 1 - np.cos(np.linspace(0, np.pi, n_in))
+    inner_y = 1 - np.sin(np.linspace(0, np.pi, n_in)) - 0.5
+    x = np.vstack([np.append(outer_x, inner_x), np.append(outer_y, inner_y)]).T
+    y = np.hstack([np.zeros(n_out, dtype=np.intp), np.ones(n_in, dtype=np.intp)])
+    order = np.arange(n_samples)
+    generator.shuffle(order)
+    x, y = x[order], y[order]
+    x += generator.normal(scale=noise, size=x.shape)
+    return x, y
+
+
+def load_half_moons(n_samples: int = 30000) -> Arrays:
+    """Half Moons with the reference's generation and normalization
+    (``utils.py:67-92``): global min-max to [0, 1], an 80/20 split, the
+    ``(N, 1, 2, 1)`` image-like shape and one-hot(2) labels."""
+    x, y = make_moons(n_samples, noise=0.1, random_state=0)
+    x, y = x.astype("float32"), y.astype("float32")
+    x = (x - np.min(x)) / (np.max(x) - np.min(x))
+    split = int(0.8 * len(x))
+    x_train = x[:split].reshape(split, 1, 2, 1)
+    x_test = x[split:].reshape(len(x) - split, 1, 2, 1)
+    return (
+        x_train,
+        labels_to_onehot(y[:split].astype(np.int64), 2),
+        x_test,
+        labels_to_onehot(y[split:].astype(np.int64), 2),
+        x_train.shape[1:],
+        2,
+    )
 
 
 def _search_roots() -> list[str]:
@@ -239,6 +296,52 @@ def _finish_image_dataset(train, test, rows, cols, n_chan) -> Arrays:
     return x_train, y_train, x_test, y_test, x_train.shape[1:], 10
 
 
+def load_cifar(fallback: str = "error") -> Arrays:
+    """CIFAR-10 from local pickle batches (reference ``utils.py:160-206``).
+
+    Search order: ``$ROBUSTBNNS_CIFAR_DIR``, ``data/cifar-10/``,
+    ``data/cifar-10-batches-py/``. Unlike the JAX package, the port does not
+    look in ``../cifar-10/`` (the reference's path, ``utils.py:164``): relative
+    to a checkout that is the directory beside it, which the port never reads.
+    The batches store NCHW rows; they are transposed to NHWC. With none found,
+    the synthetic 32×32×3 surrogate under ``fallback='synthetic'`` (or
+    ``ROBUSTBNNS_DATA_FALLBACK``), else ``FileNotFoundError``.
+    """
+    data_dirs = [
+        os.environ.get("ROBUSTBNNS_CIFAR_DIR", ""),
+        "data/cifar-10/",
+        "data/cifar-10-batches-py/",
+    ]
+    data_dir = next(
+        (d for d in data_dirs if d and os.path.exists(os.path.join(d, "data_batch_1"))), None
+    )
+    if data_dir is None:
+        fallback = os.environ.get(_FALLBACK_ENV, fallback)
+        if fallback == "synthetic":
+            train, test = _synthetic_image_dataset("cifar", 32, 32, 3, 50000, 10000)
+            return _finish_image_dataset(train, test, 32, 32, 3)
+        raise FileNotFoundError(
+            "No local CIFAR-10 pickle batches found (set $ROBUSTBNNS_CIFAR_DIR). "
+            f"Pass fallback='synthetic' or set {_FALLBACK_ENV}=synthetic."
+        )
+
+    def unpickle(path):  # the dataset's own format: python pickles of arrays and lists
+        with open(path, "rb") as f:
+            return pickle.load(f, encoding="latin-1")
+
+    xs, ys = [], []
+    for batch in range(1, 6):
+        d = unpickle(os.path.join(data_dir, f"data_batch_{batch}"))
+        xs.append(d["data"])
+        ys += list(d["labels"])
+    x_train = np.vstack(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    d = unpickle(os.path.join(data_dir, "test_batch"))
+    x_test = np.asarray(d["data"]).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    return _finish_image_dataset(
+        (x_train, np.array(ys, dtype=np.int64)), (x_test, np.array(d["labels"], dtype=np.int64)), 32, 32, 3
+    )
+
+
 def load_dataset(
     dataset_name: str,
     n_inputs: Optional[int] = None,
@@ -246,13 +349,15 @@ def load_dataset(
     fallback: str = "error",
     seed: int = 0,
 ) -> Arrays:
-    """Load MNIST or Fashion-MNIST, NHWC (reference ``utils.py:208-235``)."""
-    if dataset_name not in ("mnist", "fashion_mnist"):
-        raise NotImplementedError(
-            f"dataset {dataset_name!r} is not ported yet (the first slice serves "
-            "mnist/fashion_mnist; see ROADMAP.md)"
-        )
-    out = _finish_image_dataset(*_load_mnist_like(dataset_name, fallback), 28, 28, 1)
+    """Load any of the four datasets, NHWC (reference ``utils.py:208-235``)."""
+    if dataset_name in ("mnist", "fashion_mnist"):
+        out = _finish_image_dataset(*_load_mnist_like(dataset_name, fallback), 28, 28, 1)
+    elif dataset_name == "cifar":
+        out = load_cifar(fallback)
+    elif dataset_name == "half_moons":
+        out = load_half_moons()
+    else:
+        raise ValueError(f"Dataset {dataset_name!r} not available.")
     x_train, y_train, x_test, y_test, input_shape, num_classes = out
     if n_inputs:
         x_train, y_train = x_train[:n_inputs], y_train[:n_inputs]

@@ -1,4 +1,5 @@
-"""Pad-and-mask batching (port of ``robustbnns_tpu/data/loaders.py:36-60``).
+"""Pad-and-mask batching and per-class subsets (port of
+``robustbnns_tpu/data/loaders.py``).
 
 The reference's DataLoader keeps the partial last batch; the batches here are
 padded with zeros and carry a validity mask instead, so sums and accuracies
@@ -8,6 +9,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -41,3 +43,14 @@ def batch_arrays(
         y=y.reshape((num_batches, batch_size) + tuple(y.shape[1:])),
         mask=mask.reshape(num_batches, batch_size),
     )
+
+
+def classwise_arrays(
+    x: np.ndarray,
+    y: np.ndarray,
+    n_inputs: Optional[int],
+    num_classes: int,
+) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Per-class subsets, the first ``n_inputs`` of each (reference ``utils.py:39-64``)."""
+    labels = np.argmax(y, axis=-1)
+    return [(x[labels == c][:n_inputs], y[labels == c][:n_inputs]) for c in range(num_classes)]

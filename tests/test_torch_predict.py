@@ -117,8 +117,16 @@ def test_load_dataset_is_byte_equal(monkeypatch, tmp_path, fresh_surrogate_state
         assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
     assert tuple(ours[4]) == tuple(ref[4]) and ours[5] == ref[5]
     assert datasets.surrogate_fingerprint() == jax_datasets.surrogate_fingerprint()
-    with pytest.raises(NotImplementedError):
-        datasets.load_dataset("cifar")
+    # What neither package serves raises alike: CIFAR-10 with no local batches
+    # and no fallback, and an unknown name.
+    monkeypatch.delenv("ROBUSTBNNS_DATA_FALLBACK", raising=False)
+    monkeypatch.setenv("ROBUSTBNNS_CIFAR_DIR", str(tmp_path / "no_cifar"))
+    monkeypatch.chdir(tmp_path)
+    for module in (datasets, jax_datasets):
+        with pytest.raises(FileNotFoundError):
+            module.load_dataset("cifar")
+        with pytest.raises(ValueError, match="not available"):
+            module.load_dataset("svhn")
 
 
 def test_batch_arrays_matches_jax():

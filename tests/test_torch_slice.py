@@ -39,11 +39,13 @@ from robustbnns_tpu_torch.models.bnn import BNN
 from robustbnns_tpu_torch.utils.pytree import tree_leaves
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "robustbnns_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "robustbnns_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "scripts" / "torch_determinism_cost.py"]
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port (and chip_smoke) leaves JAX out."""
+    """Importing every module of the port (and chip_smoke and the
+    determinism script) leaves JAX out."""
     modules = [
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT_FILES
@@ -232,14 +234,17 @@ def test_cli_refuses_what_is_not_ported(flags, error):
 
 def test_resolve_device_alone_turns_tf32_off():
     """Every entry point resolves its device, so a library caller gets exact
-    f32 without the CLI: the flags (plain attributes on a CPU build) end False."""
+    f32 without the CLI: the flags (plain attributes on a CPU build) end False,
+    and cuDNN keeps to its deterministic algorithms."""
     from robustbnns_tpu_torch.utils.device import resolve_device
 
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
     assert resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cudnn.deterministic is True
 
 
 def test_attack_false_still_attacks_the_bnn(monkeypatch, tmp_path):
