@@ -39,11 +39,22 @@ Phases, each fatal on failure:
    kernels must not;
    then the wall clock of 40-step PGD (median of three) against the device
    time of its kernels (``torch.profiler``);
+   then ``[mesh]``, the mesh path at one NCCL rank, each stage bit-equal to
+   the same call without a mesh: the attack CLI with ``--mesh=auto`` (x_adv
+   and the launch counts of phase 7, NCCL's collective in the device trace
+   of one PGD batch), an epoch of ``svi_train`` on ``model_7`` (60,000
+   images), HMC and NUTS draws of ``model_3`` at batch 5,000 through
+   ``BNN.train``, a 10-member fc2-1024 ensemble epoch and ``model_0``'s
+   expected loss gradients at S = 10, each run without and with the mesh in
+   turns; and the cost of the mesh at one rank, an SVI step and a PGD
+   iteration, wall (in turns) and device time, with and without it; the
+   default mesh and the group are taken down after;
 8. training: ``model_7`` trained at full width for its 5 configured epochs on
-   60,000 surrogate MNIST images through the attack CLI with ``--train=True``,
-   then attacked by PGD: a finite, falling loss, a posterior that moved and
-   carries no ``requires_grad``, and no dparams launch during the attack;
-   then the wall and device time of 20 SVI steps (``torch.profiler``);
+   60,000 surrogate MNIST images through ``cli.train_bnn.run``, then
+   attacked by PGD through the attack CLI from the saved posterior: a
+   finite, falling loss, a posterior that moved and carries no
+   ``requires_grad``, the same posterior loaded, and no dparams launch during
+   the attack; then the wall and device time of 20 SVI steps (``torch.profiler``);
 9. conv: ``model_0`` (MNIST conv-512) at B = 128, S = 10 seeded draws: the
    predictive's probabilities and input gradient within 1e-4·max of the same
    computation in float64 (TF32 would show near 1e-3), the stacked-draw
@@ -725,7 +736,7 @@ def phase_main_path(torch, workdir: str) -> dict:
               f"softmax robustness {float(r['softmax_robustness'].mean()):.4f} | "
               f"{moved:.1%} pixels moved | attack {r['attack_seconds']:.3f} s = "
               f"{n_inputs / r['attack_seconds']:.1f} images/s")
-    return counts
+    return counts, runs
 
 
 def phase_attack_profile(torch) -> None:
@@ -762,26 +773,31 @@ def print_pgd_profile(torch, phase: str, what: str, run, n: int, iters: int) -> 
 
 
 def phase_training(torch) -> None:
-    """Train model_7 through the attack CLI, then attack the trained posterior."""
+    """Train model_7 through ``cli.train_bnn.run`` (training and the save; no
+    figure), then attack the saved posterior through the attack CLI."""
     from robustbnns_tpu_torch.cli import attacks as cli
+    from robustbnns_tpu_torch.cli import train_bnn
     from robustbnns_tpu_torch.inference.svi import svi_init
     from robustbnns_tpu_torch.ops.sampled_dense import launch_counts, reset_launch_counts
     from robustbnns_tpu_torch.utils.pytree import tree_leaves
 
-    flags = ["--model_type=bnn", "--model_idx=7", "--train=True", "--fused=True",
-             "--attack_method=pgd", "--n_inputs=256", "--device=cuda"]
     reset_launch_counts()
+    trained = []
+    train_s = wall_s(torch, lambda: trained.append(train_bnn.run(
+        ["--model_idx=7", "--train=True", "--test=False", "--savedir=DATA", "--device=cuda"])))
+    flags = ["--model_type=bnn", "--model_idx=7", "--train=False", "--fused=True",
+             "--attack_method=pgd", "--n_inputs=256", "--device=cuda"]
     r = cli.main(flags)
     torch.cuda.synchronize()
     counts = launch_counts()
-    bnn = r["bnn"]
+    bnn = trained[0]
     loss, acc, secs = bnn.history["loss"], bnn.history["accuracy"], bnn.history["seconds"]
-    epochs, n_train = bnn.config.epochs, r["train_images"]
+    epochs, n_train = bnn.config.epochs, 60000
     later = secs[1:] or secs  # the first epoch also pays the process's first training launches
-    print(f"[train] model_7 fc2-1024, {epochs} epochs of {n_train} images, batch 128: "
-          f"{r['train_seconds']:.3f} s in all, {epochs * n_train / r['train_seconds']:.1f} training "
-          f"images/s; seconds per epoch {[round(v, 3) for v in secs]}, epochs 2-{epochs} at "
-          f"{len(later) * n_train / sum(later):.1f} images/s; loss per image "
+    print(f"[train] model_7 fc2-1024 through cli.train_bnn.run, {epochs} epochs of {n_train} images, batch "
+          f"128: {train_s:.3f} s for the call (surrogate, training, save), {sum(secs):.3f} s in the epochs = "
+          f"{epochs * n_train / sum(secs):.1f} training images/s; seconds per epoch {[round(v, 3) for v in secs]}, "
+          f"epochs 2-{epochs} at {len(later) * n_train / sum(later):.1f} images/s; loss per image "
           f"{[round(v / n_train, 4) for v in loss]}; train accuracy {acc}")
     if not all(math.isfinite(v) for v in loss):
         fail(f"[train] non-finite epoch loss: {loss}")
@@ -791,6 +807,9 @@ def phase_training(torch) -> None:
     leaves = tree_leaves(post.loc) + tree_leaves(post.rho)
     if any(v.requires_grad for v in leaves):
         fail("[train] the trained posterior keeps requires_grad leaves")
+    loaded = r["bnn"].posterior
+    if not all(torch.equal(a, b) for a, b in zip(leaves, tree_leaves(loaded.loc) + tree_leaves(loaded.rho))):
+        fail("[train] the attack CLI loaded another posterior than cli.train_bnn.run saved")
     init = svi_init(bnn.arch, torch.Generator(device="cuda").manual_seed(0))
     if all(torch.equal(a, b) for a, b in zip(leaves, tree_leaves(init.loc) + tree_leaves(init.rho))):
         fail("[train] the posterior equals its init")
@@ -826,6 +845,169 @@ def phase_train_profile(torch) -> None:
     print(f"[train-profile] SVI step at fc2-1024, batch {B}, 10-draw train accuracy: "
           f"{step_ms:.3f} ms wall, {dev_ms:.3f} ms of device kernels "
           f"(device idle {100 * (1 - dev_ms / step_ms):.1f}% of the step)")
+
+
+MESH_HMC_IMAGES, MESH_LOSS_GRAD_IMAGES = 5000, 256
+
+
+def nccl_device_events(torch, fn) -> list:
+    """The device events of a ``torch.profiler`` trace of ``fn`` that NCCL
+    put there: its collectives' spans on NCCL's stream (``nccl:<op>``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_s(torch, fn)
+    return sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA and "nccl" in e.name.lower()})
+
+
+def same_bits(torch, phase: str, what: str, got, want) -> None:
+    """Fail unless every tensor of ``got`` equals ``want``'s bit for bit."""
+    if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail(f"[{phase}] {what}: the mesh path at one rank differs from the unmeshed call")
+
+
+def phase_mesh(torch, main_counts: dict, main_runs: dict) -> None:
+    """The mesh path at one NCCL rank through the port's entry points, each
+    stage held bit for bit to the same call without a mesh: the attack CLI
+    with ``--mesh=auto`` against ``[main]`` (x_adv, launches, NCCL's
+    collective in the device trace), one epoch of ``svi_train`` on model_7,
+    HMC transitions and NUTS draws of model_3 at batch 5,000 through
+    ``BNN.train``, a 10-member fc2 ensemble epoch, model_0's expected loss
+    gradients at S = 10; and what the mesh costs at one rank, an SVI step and
+    a PGD iteration, wall against device time. The default mesh and the group
+    are taken down at the end."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from robustbnns_tpu_torch.analysis.gradients import expected_loss_gradients
+    from robustbnns_tpu_torch.attacks.gradient_attacks import attack
+    from robustbnns_tpu_torch.cli import attacks as cli
+    from robustbnns_tpu_torch.config import saved_BNNs, saved_NNs
+    from robustbnns_tpu_torch.data.datasets import load_dataset
+    from robustbnns_tpu_torch.inference.svi import svi_train
+    from robustbnns_tpu_torch.models import build_architecture, train_ensemble
+    from robustbnns_tpu_torch.models.bnn import BNN
+    from robustbnns_tpu_torch.ops.sampled_dense import launch_counts, reset_launch_counts
+    from robustbnns_tpu_torch.parallel import get_default_mesh, set_default_mesh, use_mesh
+    from robustbnns_tpu_torch.utils.pytree import tree_leaves
+
+    stages = {}
+
+    def both(name, fn, leaves, warm=None):
+        """``warm()`` (default ``fn()``) untimed, then ``fn()`` without the
+        mesh, under it, under it and without it again, so neither order nor
+        warm-up favours one; each pair's mean seconds into ``stages``. Fails
+        unless all four give the same ``leaves(out)`` bit for bit. Returns a
+        meshed result."""
+        with use_mesh(None):
+            (warm or fn)()
+        out = {"meshed": [], "unmeshed": []}
+        for what, m in (("unmeshed", None), ("meshed", mesh), ("meshed", mesh), ("unmeshed", None)):
+            with use_mesh(m):
+                seconds = wall_s(torch, lambda: out[what].append(fn()))
+            stages[f"{name} {what}"] = stages.get(f"{name} {what}", 0.0) + seconds / 2
+        want = leaves(out["unmeshed"][0])
+        for what in ("meshed", "unmeshed"):
+            for got in out[what]:
+                same_bits(torch, "mesh", f"{name} ({what})", leaves(got), want)
+        return out["meshed"][0]
+
+    def cost(what, fn, units: int, unit: str) -> None:
+        """What the mesh costs ``fn`` at one rank: its wall time meshed and
+        unmeshed in turns (six each, medians) and its device-busy time under
+        ``torch.profiler``, per ``unit``."""
+        walls = {"meshed": [], "unmeshed": []}
+        for _ in range(3):
+            for label, m in (("unmeshed", None), ("meshed", mesh), ("meshed", mesh), ("unmeshed", None)):
+                with use_mesh(m):
+                    walls[label].append(1e3 * wall_s(torch, fn) / units)
+        busy = {}
+        for label, m in (("meshed", mesh), ("unmeshed", None)):
+            with use_mesh(m):
+                busy[label] = profiled_device_ms(torch, fn, "mesh")[0] / units
+        wall = {label: statistics.median(v) for label, v in walls.items()}
+        print(f"[mesh] {what}, a {unit}: {wall['meshed']:.3f} ms wall meshed, {wall['unmeshed']:.3f} ms unmeshed "
+              f"(medians of 6 in turns; {wall['meshed'] / wall['unmeshed'] - 1:+.1%}); device kernels "
+              f"{busy['meshed']:.4f} ms meshed, {busy['unmeshed']:.4f} ms unmeshed "
+              f"({busy['meshed'] - busy['unmeshed']:+.4f} ms)")
+
+    try:
+        flags = ["--model_type=bnn", "--model_idx=7", "--fused=True", "--train=False", "--test=True",
+                 f"--n_inputs={len(main_runs['pgd']['x_test'])}", "--device=cuda", "--mesh=auto"]
+        reset_launch_counts()
+        runs = {}
+        stages["attack CLI"] = wall_s(torch, lambda: runs.update(
+            {m: cli.main(flags + [f"--attack_method={m}"]) for m in ("fgsm", "pgd")}))
+        counts = launch_counts()
+        mesh = get_default_mesh()
+        if mesh is None or mesh.shape != {"data": 1, "sample": 1} or dist.get_backend() != "nccl":
+            fail(f"[mesh] --mesh=auto installed {mesh} over {dist.get_backend() if dist.is_initialized() else None}")
+        if counts != main_counts:
+            fail(f"[mesh] launches over FGSM + PGD {counts}, [main] {main_counts}")
+        for m in ("fgsm", "pgd"):
+            same_bits(torch, "mesh", f"{m} x_adv", [runs[m]["x_attack"]], [main_runs[m]["x_attack"]])
+        print(f"[mesh] --mesh=auto: {mesh} over NCCL, {dist.get_world_size()} rank; FGSM and PGD x_adv bit-equal "
+              f"to [main]'s; launches {json.dumps(counts)} equal [main]'s")
+
+        bnn = runs["pgd"]["bnn"]
+        x = torch.as_tensor(runs["pgd"]["x_test"][:B], device="cuda")
+        y = torch.as_tensor(runs["pgd"]["y_test"][:B], device="cuda")
+        pgd = lambda: attack(bnn, x, y, method="pgd", n_samples=S, fused=True, save=False, verbose=False)  # noqa: E731
+        events = nccl_device_events(torch, pgd)
+        if not any(name.startswith("nccl:") for name in events):
+            fail(f"[mesh] the trace of one PGD batch holds no NCCL collective on the device: {events}")
+        print(f"[mesh] the trace of one PGD batch of {B} under the mesh: NCCL on the device {events}")
+        cost(f"PGD on model_7, {B} images, S={S}, fused", pgd, 40, "PGD iteration")
+
+        cfg = saved_BNNs["model_7"]
+        x_train, y_train, x_test, y_test, shape, classes = load_dataset("mnist", n_inputs=60000, fallback="synthetic")
+        arch = build_architecture(cfg.architecture, cfg.activation, shape, classes, cfg.hidden_size, cfg.dataset)
+        steps = 20
+        xs, ys = x_train[: steps * B], y_train[: steps * B]
+        svi_steps = lambda: svi_train(arch, xs, ys, epochs=1, lr=cfg.lr, batch_size=B,  # noqa: E731
+                                      verbose=False, device="cuda")
+        both("SVI epoch", lambda: svi_train(arch, x_train, y_train, epochs=1, lr=cfg.lr, batch_size=B,
+                                            verbose=False, device="cuda"),
+             lambda r: tree_leaves(r[0].loc) + tree_leaves(r[0].rho) + [torch.tensor(r[1]["loss"] + r[1]["accuracy"])],
+             warm=svi_steps)
+        print(f"[mesh] SVI epoch of 60000, posterior and history bit-equal: {stages['SVI epoch meshed']:.3f} s "
+              f"meshed, {stages['SVI epoch unmeshed']:.3f} s unmeshed")
+        cost(f"{steps} SVI steps of model_7 (fc2-1024, batch {B}, the 10-draw train accuracy) as one svi_train call",
+             svi_steps, steps, "step")
+
+        x3, y3, _, _, shape3, classes3 = load_dataset("fashion_mnist", n_inputs=MESH_HMC_IMAGES, fallback="synthetic")
+        for sampler, changes in (("hmc", dict(n_samples=2, warmup=4)), ("nuts", dict(n_samples=1, warmup=0))):
+            cfg3 = dataclasses.replace(saved_BNNs["model_3"], **changes)
+            h = both(sampler, lambda: BNN.from_config(cfg3, shape3, classes3, device="cuda").train(
+                x3, y3, batch_size=MESH_HMC_IMAGES, hmc_sampler=sampler, verbose=False),
+                lambda b: tree_leaves(b.samples) + [torch.tensor([v for k in sorted(b.history) if k != "seconds"
+                                                                  for v in b.history[k]])]).history
+            print(f"[mesh] model_3 {sampler} at batch {MESH_HMC_IMAGES}, warmup {cfg3.warmup}, {cfg3.n_samples + 1} "
+                  f"draws: draws and history bit-equal, {h['evaluations'][0]} evaluations, "
+                  f"{stages[f'{sampler} meshed']:.3f} s meshed, {stages[f'{sampler} unmeshed']:.3f} s unmeshed")
+
+        nn_cfg = saved_NNs["model_7"]
+        ens_arch = build_architecture(nn_cfg.architecture, nn_cfg.activation, shape, classes, nn_cfg.hidden_size,
+                                      nn_cfg.dataset)
+        both("ensemble", lambda: train_ensemble(ens_arch, x_train, y_train, ensemble_size=10, epochs=1, lr=nn_cfg.lr,
+                                                verbose=False, device="cuda"),
+             lambda e: tree_leaves(e.stacked_params))
+        print(f"[mesh] 10-member fc2-1024 ensemble epoch of 60000 bit-equal: {stages['ensemble meshed']:.3f} s "
+              f"meshed, {stages['ensemble unmeshed']:.3f} s unmeshed")
+
+        model0 = BNN.from_config(saved_BNNs["model_0"], (28, 28, 1), 10, device="cuda")
+        model0.posterior = seeded_posterior(torch, model0.arch)
+        xg, yg = x_test[:MESH_LOSS_GRAD_IMAGES], y_test[:MESH_LOSS_GRAD_IMAGES]
+        both("loss gradients", lambda: expected_loss_gradients(model0, xg, yg, n_samples=S), lambda g: [g])
+        print(f"[mesh] model_0 expected loss gradients at S={S} on {MESH_LOSS_GRAD_IMAGES} images bit-equal: "
+              f"{stages['loss gradients meshed']:.3f} s meshed, {stages['loss gradients unmeshed']:.3f} s unmeshed")
+        print(f"[mesh] stage seconds: {json.dumps({k: round(v, 3) for k, v in stages.items()})}")
+    finally:
+        set_default_mesh(None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 CONV_TOL_OF_MAX = 1e-4  # f32 against float64 through two convs, softmax and CE
@@ -2122,8 +2304,11 @@ def main() -> None:
         phase_dparams_edges(torch)
         phase_predictive(torch)
         grad_counts = phase_param_grad(torch)
-        counts = phase_main_path(torch, workdir)
+        counts, main_runs = phase_main_path(torch, workdir)
         phase_attack_profile(torch)
+        mesh_s = wall_s(torch, lambda: phase_mesh(torch, counts, main_runs))
+        print(f"[mesh] phase {mesh_s:.3f} s wall")
+        del main_runs
         phase_training(torch)
         phase_train_profile(torch)
         phase_conv(torch)

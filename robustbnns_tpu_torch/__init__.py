@@ -10,9 +10,10 @@ NNs and ensembles: :mod:`.models`, :mod:`.inference`), the posterior
 predictive (:mod:`.predict`, and the six sampled-dense kernels under
 :mod:`.ops`), the Bayesian FGSM/PGD attacks (:mod:`.attacks`), the expected
 loss gradients (:mod:`.analysis`), the paper's experiments
-(:mod:`.experiments`) and their CLIs (:mod:`.cli`). Entry points run on
-``cuda`` unless asked for ``cpu``. Parallelism (``mesh=``) waits for a later
-slice.
+(:mod:`.experiments`) and their CLIs (:mod:`.cli`), and the parallelism of
+:mod:`.parallel`: ``(data, sample)`` meshes over a ``torch.distributed``
+group, one process per card (``torchrun``), behind every ``mesh=`` argument
+and ``--mesh``. Entry points run on ``cuda`` unless asked for ``cpu``.
 """
 
 __version__ = "0.1.0"

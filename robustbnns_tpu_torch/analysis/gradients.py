@@ -24,8 +24,12 @@ posterior's stacked samples or an ensemble's members, the last two indexed by
 the seeds (JAX ``gradients.py:115-121``); everything after is shared. The
 deterministic branch (``n_samples=None``, JAX ``gradients.py:86-103``) takes
 the input gradient of the CE of the model's own output, an NN's raw logits;
-the reference's version is dead code (``lossGradients.py:42-48``). ``mesh=``
-waits for the parallelism slice.
+the reference's version is dead code (``lossGradients.py:42-48``).
+
+With ``mesh=`` (or a process default) the S draws split over ``sample`` and
+each batch's rows over ``data`` (JAX ``gradients.py:79-140``): a rank takes
+the gradient of its draws' summed loss over S on its rows, one all-reduce
+sums the draws, and the rows are gathered on every rank.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import torch
 
 from robustbnns_tpu_torch.attacks.gradient_attacks import ce_on_outputs
 from robustbnns_tpu_torch.config import DATA
+from robustbnns_tpu_torch.parallel.mesh import reduce_sum, resolve_mesh, run_on_rows, split_rows, write_on_rank_zero
 from robustbnns_tpu_torch.utils.pytree import index_tree, map_params
 
 
@@ -58,9 +63,10 @@ def _per_sample_input_grads(apply_fn, stacked_params, x, labels) -> torch.Tensor
     return torch.func.vmap(one_draw)(stacked_params)
 
 
-def _mean_input_grads(apply_fn, stacked_params, x, labels) -> torch.Tensor:
-    """The mean over draws of :func:`_per_sample_input_grads`, in one backward."""
-    n_draws = stacked_params[0]["w"].shape[0]
+def _mean_input_grads(apply_fn, stacked_params, x, labels, n_draws=None) -> torch.Tensor:
+    """The mean over draws of :func:`_per_sample_input_grads`, in one backward:
+    the sum over the stacked draws divided by ``n_draws`` (default: their count)."""
+    n_draws = stacked_params[0]["w"].shape[0] if n_draws is None else n_draws
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
         (grad,) = torch.autograd.grad(_summed_loss(apply_fn, stacked_params, x, labels) / n_draws, x)
@@ -96,17 +102,24 @@ def expected_loss_gradients(
     from robustbnns_tpu_torch.inference.svi import sample_meanfield_eps
     from robustbnns_tpu_torch.predict import hmc_sample_index, sample_eps
 
+    mesh = resolve_mesh(mesh)
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (parallelism slice, ROADMAP.md)")
+        mesh.check(model.device)
     x = torch.as_tensor(x, device=model.device)
     y = torch.as_tensor(y, device=model.device)
     labels = y.argmax(dim=-1) if y.dim() > 1 else y
+
+    def batches(grads_of):
+        """``grads_of(x, labels)`` over the batches, each batch's rows split over ``data``."""
+        out = []
+        for i in range(0, x.shape[0], batch_size):
+            bx, bl = x[i : i + batch_size], labels[i : i + batch_size]
+            out.append(grads_of(bx, bl) if mesh is None else run_on_rows(grads_of, mesh, bx, bl))
+        return torch.cat(out)
+
     if n_samples is None:
         forward = model.predictive_fn()
-        return torch.cat([
-            _input_gradients(forward, x[i : i + batch_size], labels[i : i + batch_size], None)
-            for i in range(0, x.shape[0], batch_size)
-        ])
+        return batches(lambda bx, bl: _input_gradients(forward, bx, bl, None))
     seeds = list(range(n_samples)) if seeds is None else list(seeds)
     if getattr(model, "posterior", None) is not None:  # SVI
         posterior = model.posterior
@@ -130,10 +143,19 @@ def expected_loss_gradients(
     else:
         raise ValueError("model has no posterior — train() or load() first")
 
-    return torch.cat([
-        _mean_input_grads(model.arch.apply, weights, x[i : i + batch_size], labels[i : i + batch_size])
-        for i in range(0, x.shape[0], batch_size)
-    ])
+    if mesh is None:
+        return batches(lambda bx, bl: _mean_input_grads(model.arch.apply, weights, bx, bl))
+    draws = split_rows(n_samples, mesh, "sample")  # this rank's draws; the sum over S crosses ranks
+    local = map_params(lambda v: v[draws], weights)
+
+    def grads_of(bx, bl):
+        if draws.stop > draws.start:
+            g = _mean_input_grads(model.arch.apply, local, bx, bl, n_samples)
+        else:
+            g = torch.zeros_like(bx)
+        return reduce_sum([g], mesh, "sample")[0]
+
+    return batches(grads_of)
 
 
 def loss_gradients(
@@ -159,7 +181,7 @@ def loss_gradients(
     if verbose:
         print(f"\nmin = {float(grads.min()):.4f} \t max = {float(grads.max()):.4f}")
     out = grads.detach().cpu().numpy().squeeze()
-    save_loss_gradients(out, n_samples, filename, savedir, rel_path)
+    save_loss_gradients(out, n_samples, filename, savedir, rel_path, mesh)
     return out
 
 
@@ -168,10 +190,15 @@ def _grads_path(n_samples, filename, savedir, rel_path) -> str:
     return os.path.join(rel_path, savedir, f"{filename}_samp={n_samples}_lossGrads.npz")
 
 
-def save_loss_gradients(grads, n_samples, filename, savedir, rel_path=DATA) -> str:
+def save_loss_gradients(grads, n_samples, filename, savedir, rel_path=DATA, mesh=None) -> str:
+    """Write the gradients; under a mesh (``mesh`` or the default) on rank 0 only."""
     path = _grads_path(n_samples, filename, savedir, rel_path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    np.savez_compressed(path, loss_gradients=np.asarray(grads))
+
+    def write():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez_compressed(path, loss_gradients=np.asarray(grads))
+
+    write_on_rank_zero(write, mesh)
     return path
 
 

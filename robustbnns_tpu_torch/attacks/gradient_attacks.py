@@ -19,6 +19,13 @@ in one backward pass. The draws of an iteration are shared across the images
 of a batch, as in the JAX package; every per-image marginal is unchanged.
 ``forward_fn`` is a closure ``f(x, generator)`` from ``model.predictive_fn``;
 one CPU ``torch.Generator`` threads through all batches and iterations.
+
+With ``mesh`` (or a process default, :mod:`.parallel.mesh`) each rank
+attacks its rows of a batch and the adversarial rows are gathered on every
+rank; a row count that does not divide the mesh runs whole on every rank.
+The generators step in lockstep, and the draws do not depend on the rows
+(the fused kernels' noise is a function of (seed, s, i, o)), so a rank's
+rows see the draws they see unsharded.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch.nn.functional as F
 
 from robustbnns_tpu_torch.attacks.measures import softmax_robustness
 from robustbnns_tpu_torch.config import TESTS
+from robustbnns_tpu_torch.parallel.mesh import resolve_mesh, run_on_rows, write_on_rank_zero
 
 
 def ce_on_outputs(outputs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -67,12 +75,22 @@ def fgsm_attack(
     *,
     epsilon: float = 0.3,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Batched FGSM (reference ``adversarialAttacks.py:69-83``). ``y`` may be
-    one-hot or integer labels; ``generator`` seeds the posterior draws."""
+    one-hot or integer labels; ``generator`` seeds the posterior draws;
+    ``mesh`` splits the rows over ``data``."""
     generator = generator if generator is not None else torch.Generator().manual_seed(0)
-    grads = _input_gradients(forward_fn, x, _labels(y), generator)
-    return torch.clamp(x + epsilon * _gradient_sign(grads), 0.0, 1.0)
+    mesh = resolve_mesh(mesh)
+
+    def rows(x, labels):
+        grads = _input_gradients(forward_fn, x, labels, generator)
+        return torch.clamp(x + epsilon * _gradient_sign(grads), 0.0, 1.0)
+
+    if mesh is None:
+        return rows(x, _labels(y))
+    mesh.check(x.device)
+    return run_on_rows(rows, mesh, x, _labels(y))
 
 
 def pgd_attack(
@@ -84,26 +102,35 @@ def pgd_attack(
     alpha: Optional[float] = None,
     iters: int = 40,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Batched 40-iteration PGD (reference ``adversarialAttacks.py:86-108``).
 
     With ``epsilon`` given and ``alpha=None`` the step is the reference's
     per-image ``alpha = 2 / image.max()``; ``epsilon=None`` selects
-    ``(0.5, 2/225)``.
+    ``(0.5, 2/225)``. ``mesh`` splits the rows (and their ``alpha``) over
+    ``data``.
     """
     generator = generator if generator is not None else torch.Generator().manual_seed(0)
-    labels = _labels(y)
+    mesh = resolve_mesh(mesh)
     if epsilon is None:
         epsilon, alpha = 0.5, 2.0 / 225.0
     if alpha is None:
         per_image_max = x.reshape(x.shape[0], -1).amax(dim=-1)
         alpha = (2.0 / per_image_max).reshape((x.shape[0],) + (1,) * (x.dim() - 1))
-    x0 = x
-    for _ in range(iters):
-        grads = _input_gradients(forward_fn, x, labels, generator)
-        eta = torch.clamp(x + alpha * _gradient_sign(grads) - x0, -epsilon, epsilon)
-        x = torch.clamp(x0 + eta, 0.0, 1.0)
-    return x
+
+    def rows(x, labels, alpha):
+        x0 = x
+        for _ in range(iters):
+            grads = _input_gradients(forward_fn, x, labels, generator)
+            eta = torch.clamp(x + alpha * _gradient_sign(grads) - x0, -epsilon, epsilon)
+            x = torch.clamp(x0 + eta, 0.0, 1.0)
+        return x
+
+    if mesh is None:
+        return rows(x, _labels(y), alpha)
+    mesh.check(x.device)
+    return run_on_rows(rows, mesh, x, _labels(y), alpha)
 
 
 def attack(
@@ -118,6 +145,7 @@ def attack(
     fused: bool = False,
     generator: Optional[torch.Generator] = None,
     batch_size: int = 128,
+    mesh=None,
     filename: Optional[str] = None,
     savedir: Optional[str] = None,
     rel_path: str = TESTS,
@@ -132,7 +160,9 @@ def attack(
     original and adversarial image grids that the JAX package draws beside it
     (``gradient_attacks.py:288-294``) are not drawn: the card's machine has no
     matplotlib. :func:`.utils.plotting.plot_save_grid_images` draws them from
-    the saved set where matplotlib is installed.
+    the saved set where matplotlib is installed. ``mesh`` (or a process
+    default) splits every batch's rows over ``data``; every rank returns the
+    whole set, and rank 0 writes the file.
     """
     if verbose:
         print(f"\nProducing {method} attacks:")
@@ -146,13 +176,13 @@ def attack(
     run = fgsm_attack if method == "fgsm" else pgd_attack
     x_adv = torch.cat([
         run(forward_fn, x[i : i + batch_size], y[i : i + batch_size],
-            epsilon=epsilon, generator=generator)
+            epsilon=epsilon, generator=generator, mesh=mesh)
         for i in range(0, x.shape[0], batch_size)
     ])
     if save and filename is not None:
         save_attack(
             x_adv, method=method, filename=filename, savedir=savedir,
-            n_samples=n_samples, rel_path=rel_path,
+            n_samples=n_samples, rel_path=rel_path, mesh=mesh,
         )
     return x_adv
 
@@ -165,10 +195,15 @@ def _attack_path(method, filename, savedir, n_samples, rel_path) -> str:
     return os.path.join(d, name + ".npz")
 
 
-def save_attack(x_adv, *, method, filename, savedir=None, n_samples=None, rel_path=TESTS):
+def save_attack(x_adv, *, method, filename, savedir=None, n_samples=None, rel_path=TESTS, mesh=None):
+    """Write the adversarial set; under a mesh (``mesh`` or the default) on rank 0 only."""
     path = _attack_path(method, filename, savedir, n_samples, rel_path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    np.savez_compressed(path, x_adv=torch.as_tensor(x_adv).detach().cpu().numpy())
+
+    def write():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez_compressed(path, x_adv=torch.as_tensor(x_adv).detach().cpu().numpy())
+
+    write_on_rank_zero(write, mesh)
     return path
 
 
@@ -187,6 +222,7 @@ def attack_evaluation(
     n_samples: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     batch_size: int = 128,
+    mesh=None,
     verbose: bool = True,
 ):
     """Clean vs adversarial accuracy + softmax robustness (reference ``:151-198``).
@@ -194,6 +230,8 @@ def attack_evaluation(
     The evaluation draws are seeded: ``generator`` defaults to seed 0, as the
     reference sets ``pyro.set_rng_seed(0)`` (``:160-161``), and the clean and
     adversarial passes each get a generator of their own, drawn from it.
+    With ``mesh`` (or a process default) each batch's rows split over
+    ``data`` (:func:`.predict.batched_eval`).
     """
     from robustbnns_tpu_torch.predict import batched_eval
     from robustbnns_tpu_torch.utils.prng import draw_seed, key_from_seed
@@ -204,8 +242,9 @@ def attack_evaluation(
     x = torch.as_tensor(x_test, device=model.device)
     xa = torch.as_tensor(x_attack, device=model.device)
     y = torch.as_tensor(y_test, device=model.device)
-    original_outputs, orig_correct = batched_eval(forward_fn, x, y, batch_size=batch_size, generator=g1)
-    adversarial_outputs, adv_correct = batched_eval(forward_fn, xa, y, batch_size=batch_size, generator=g2)
+    original_outputs, orig_correct = batched_eval(forward_fn, x, y, batch_size=batch_size, generator=g1, mesh=mesh)
+    adversarial_outputs, adv_correct = batched_eval(forward_fn, xa, y, batch_size=batch_size, generator=g2,
+                                                    mesh=mesh)
     original_accuracy = 100.0 * float(orig_correct) / x.shape[0]
     adversarial_accuracy = 100.0 * float(adv_correct) / x.shape[0]
     if verbose:

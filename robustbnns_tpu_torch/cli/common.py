@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -22,14 +23,31 @@ def boolean(value: str) -> bool:
 
 def setup_device(device: str, mesh: str | None = None) -> torch.device:
     """Map ``--device cuda|cpu`` to a ``torch.device`` with exact f32 products
-    (:func:`.utils.device.resolve_device`).
+    (:func:`.utils.device.resolve_device`). ``cuda`` on a machine without a
+    card raises.
 
-    ``cuda`` on a machine without a card raises. Meshes (``--mesh``) wait for the
-    parallelism slice.
+    ``mesh`` (or env ``ROBUSTBNNS_MESH``) joins ``torchrun``'s group
+    (:func:`.parallel.initialize_distributed`; in a single process a one-rank
+    group) and installs a process-default mesh, so every mesh-aware API runs
+    over it: ``"4x2"`` = (data=4, sample=2), ``"8"`` = (data=8, sample=1),
+    ``"auto"`` = every rank on ``data``. The device is then this process's
+    card, ``cuda:LOCAL_RANK``.
     """
-    if mesh is not None:
-        raise NotImplementedError("--mesh is not ported yet (parallelism slice, ROADMAP.md)")
-    return resolve_device(device)
+    spec = mesh if mesh is not None else os.environ.get("ROBUSTBNNS_MESH")
+    if not spec:
+        return resolve_device(device)
+    from robustbnns_tpu_torch.parallel import make_mesh, set_default_mesh
+
+    if spec == "auto":
+        m = make_mesh(device=device)
+    elif "x" in spec:
+        n_data, n_sample = (int(v) for v in spec.split("x"))
+        m = make_mesh(n_data=n_data, n_sample=n_sample, device=device)
+    else:
+        m = make_mesh(n_data=int(spec), n_sample=1, device=device)
+    set_default_mesh(m)
+    print(f"[mesh] default mesh installed: {m.shape}")
+    return resolve_device(m.device)
 
 
 def add_common_flags(parser: argparse.ArgumentParser, n_inputs_default=60000):

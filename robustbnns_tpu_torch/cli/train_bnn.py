@@ -8,7 +8,10 @@ Example::
 
 SVI models train by SVI and ignore the HMC flags; HMC models (``model_1``,
 ``3``, ``9``) train by HMC in batches of 5,000 (``--hmc_mode``, ``--hmc_init``,
-``--num_chains``), or by NUTS with ``--hmc_sampler=nuts``.
+``--num_chains``), or by NUTS with ``--hmc_sampler=nuts``. ``run`` trains,
+saves and evaluates; ``main`` adds an SVI training's curve (matplotlib).
+Across cards: ``torchrun --nproc_per_node=8 -m robustbnns_tpu_torch.cli.train_bnn
+--mesh=8 ...``.
 """
 from __future__ import annotations
 
@@ -31,8 +34,10 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(args):
-    """Train (or load) and evaluate; ``args`` is a parsed namespace or a list of flags."""
+def run(args):
+    """Train and save (or load), then evaluate; ``args`` is a parsed namespace
+    or a list of flags. Returns the BNN, its ``history`` holding the training
+    curve. Draws no figure, so it runs where matplotlib is absent."""
     if not isinstance(args, argparse.Namespace):
         args = build_parser().parse_args(args)
     device = setup_device(args.device, args.mesh)
@@ -50,10 +55,6 @@ def main(args):
             hmc_init=args.hmc_init, hmc_sampler=args.hmc_sampler, num_chains=args.num_chains,
         )
         bnn.save(rel_path=rel_path)
-        if cfg.inference == "svi":
-            from robustbnns_tpu_torch.utils.plotting import plot_loss_accuracy
-
-            plot_loss_accuracy(bnn.history, os.path.join(rel_path, bnn.name, bnn.name + "_training.png"))
     else:
         bnn.load(rel_path=rel_path)
 
@@ -65,6 +66,21 @@ def main(args):
         print(f"\n== Evaluate the first {test_samples} posterior samples ==\n")
         for seed in range(test_samples):
             bnn.evaluate(x_test, y_test, n_samples=1, seeds=[seed])
+    return bnn
+
+
+def main(args):
+    """:func:`run`, then an SVI training's loss and accuracy curve."""
+    if not isinstance(args, argparse.Namespace):
+        args = build_parser().parse_args(args)
+    bnn = run(args)
+    if args.train and not bnn.is_hmc:
+        from robustbnns_tpu_torch.parallel.mesh import write_on_rank_zero
+        from robustbnns_tpu_torch.utils.plotting import plot_loss_accuracy
+
+        rel_path = resolve_rel_path(args.savedir)
+        write_on_rank_zero(lambda: plot_loss_accuracy(
+            bnn.history, os.path.join(rel_path, bnn.name, bnn.name + "_training.png")))
     return bnn
 
 

@@ -13,17 +13,25 @@ from __future__ import annotations
 import csv
 import os
 
+from robustbnns_tpu_torch.parallel.mesh import write_on_rank_zero
+
 
 def write_rows(path: str, rows: list[dict], index: bool = False) -> str:
-    """Write ``rows`` to ``path`` (its directory made), columns in the first row's order."""
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    """Write ``rows`` to ``path`` (its directory made), columns in the first
+    row's order; under a default mesh on rank 0 only
+    (:func:`.parallel.mesh.write_on_rank_zero`)."""
     columns = list(rows[0]) if rows else []
-    with open(path, "w", newline="") as f:
-        writer = csv.writer(f, lineterminator="\n")
-        writer.writerow(([""] if index else []) + columns)
-        for i, row in enumerate(rows):
-            values = [_field(row[c]) for c in columns]
-            writer.writerow(([i] if index else []) + values)
+
+    def write():
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w", newline="") as f:
+            writer = csv.writer(f, lineterminator="\n")
+            writer.writerow(([""] if index else []) + columns)
+            for i, row in enumerate(rows):
+                values = [_field(row[c]) for c in columns]
+                writer.writerow(([i] if index else []) + values)
+
+    write_on_rank_zero(write)
     return path
 
 

@@ -56,6 +56,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from robustbnns_tpu_torch.parallel.mesh import reduce_sum
 from robustbnns_tpu_torch.utils.device import exact_f32
 
 _LOG_HALF = math.log(0.5)
@@ -157,14 +158,39 @@ def _seeded_draws(seed, device) -> GeneratorDraws:
     return GeneratorDraws(torch.Generator(device=device).manual_seed(int(seed)))
 
 
+class ChainDraws:
+    """The draws of a batched chain whose chain c draws from its own draws
+    object ``per_chain[c]``: each draw is the chains' draws stacked on the
+    chain axis, so a chain's numbers do not depend on the chains beside it
+    (the JAX package's per-chain keys). Serves :func:`hmc_sample`."""
+
+    def __init__(self, per_chain):
+        self.per_chain = list(per_chain)
+
+    def _stack(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        return torch.stack([getattr(d, name)(like[c]) for c, d in enumerate(self.per_chain)])
+
+    def search_normal(self, like):
+        return self._stack("search_normal", like)
+
+    def momentum(self, like):
+        return self._stack("momentum", like)
+
+    def uniform(self, like):
+        return self._stack("uniform", like)
+
+
 class _Potential:
     """``U(q)`` and ``∇U(q)`` from one forward and one backward, counted.
 
     The graph of an evaluation is freed when it returns (no ``retain_graph``).
+    With ``mesh``, ``data`` is this rank's rows and both are summed over the
+    mesh's ``data`` axis in one all-reduce, so every rank holds the same
+    values (:mod:`.parallel.mesh`).
     """
 
-    def __init__(self, potential_fn: Callable, data: tuple = ()):
-        self.fn, self.data, self.evaluations = potential_fn, tuple(data), 0
+    def __init__(self, potential_fn: Callable, data: tuple = (), mesh=None):
+        self.fn, self.data, self.mesh, self.evaluations = potential_fn, tuple(data), mesh, 0
 
     def __call__(self, q: torch.Tensor):
         self.evaluations += 1
@@ -177,7 +203,10 @@ class _Potential:
                     f"{tuple(q.shape)}: it must reduce over the last axis only"
                 )
             (g,) = torch.autograd.grad(u.sum(), q)
-        return u.detach(), g
+        if self.mesh is None:
+            return u.detach(), g
+        u, g = reduce_sum([u.detach(), g], self.mesh)
+        return u, g
 
 
 def _kinetic(p, inv_mass):
@@ -478,14 +507,17 @@ def hmc_sample(
     *,
     draws=None,
     trace: Optional[list] = None,
+    mesh=None,
 ):
     """Run HMC from a flat position on its device.
 
     ``potential_fn`` is ``U(q)`` (``data=None``) or ``U(q, *data)``; it takes
     ``q`` of shape ``(..., D)`` and returns ``(...)``. Returns ``(samples,
-    info)``: ``samples`` is ``(num_samples, D)`` for one chain or
-    ``(num_chains, num_samples, D)`` for several, run as one batched chain
-    (a 1-D ``init_position`` starts every chain there).
+    info)``: ``samples`` is ``(num_samples, D)`` for one chain given as a
+    1-D position, else ``(num_chains, num_samples, D)``, the chains run as
+    one batched chain (a 1-D ``init_position`` starts every chain there).
+    With ``mesh``, ``data`` is this rank's share of rows whose potential
+    terms sum over the mesh's ``data`` axis (:class:`_Potential`).
 
     The draws come from ``draws`` (see :class:`GeneratorDraws`) or a
     generator on the position's device seeded with ``seed``. ``chunk_size``
@@ -505,11 +537,11 @@ def hmc_sample(
     chains = config.num_chains
     if chains > 1 and q0.dim() == 1:
         q0 = q0.expand(chains, -1).clone()
-    if q0.dim() != (1 if chains == 1 else 2) or (chains > 1 and q0.shape[0] != chains):
+    if q0.dim() not in (1, 2) or (q0.dim() == 2 and q0.shape[0] != chains):
         raise ValueError(f"init_position of shape {tuple(init_position.shape)} for {chains} chain(s)")
     if draws is None:
         draws = _seeded_draws(seed, q0.device)
-    vg = _Potential(potential_fn, () if data is None else data)
+    vg = _Potential(potential_fn, () if data is None else data, mesh)
     return _run_hmc_chain_chunked(vg, q0, draws, config, chunk_size, trace)
 
 
@@ -530,6 +562,7 @@ def hmc_train_batched(
     draws=None,
     history: Optional[dict] = None,
     trace: Optional[list] = None,
+    mesh=None,
 ):
     """The reference's training loop semantics (``model_bnn.py:260-301``).
 
@@ -545,7 +578,9 @@ def hmc_train_batched(
     mean accept probability (NUTS: the accept statistic), the mean step size,
     the seconds and the evaluations, and for NUTS the mean leaves per draw and
     the divergences; reading them (and ``verbose``'s line) is the batch's one
-    synchronisation with the card.
+    synchronisation with the card. With ``mesh``, ``batches`` hold this
+    rank's rows and ``potential_fn`` its share of the potential, summed over
+    ``data`` at every evaluation.
     """
     from robustbnns_tpu_torch.inference.nuts import NUTSConfig, nuts_sample
 
@@ -566,7 +601,7 @@ def hmc_train_batched(
     def run(q, cfg, data):
         t0 = time.perf_counter()
         sample = nuts_sample if nuts else hmc_sample
-        samples, info = sample(potential_fn, q, None, cfg, data=data, draws=draws, trace=trace)
+        samples, info = sample(potential_fn, q, None, cfg, data=data, draws=draws, trace=trace, mesh=mesh)
         if history is None and not verbose:
             return samples, info, {}
         stats = [info.accept_stat if nuts else info.accept_prob, info.step_size]

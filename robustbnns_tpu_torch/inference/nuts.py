@@ -301,6 +301,7 @@ def nuts_sample(
     *,
     draws=None,
     trace: Optional[list] = None,
+    mesh=None,
 ):
     """Run NUTS from a flat position on its device: the drop-in upgrade of
     :func:`.hmc.hmc_sample`, with the same calling convention.
@@ -317,6 +318,12 @@ def nuts_sample(
     ``ROBUSTBNNS_NUTS_CHUNK``) bounds the transitions between two heartbeats
     and changes no result. ``trace``, a list, receives every decision of the
     run (see :func:`_nuts_transition`) for tests that check margins.
+
+    With ``mesh``, ``data`` is this rank's share of rows, and every
+    evaluation's U and ∇U are summed over the mesh's ``data`` axis before the
+    tree uses them: each U-turn and divergence is decided from values that
+    are bit-identical on every rank, so all ranks build the same tree and
+    meet at the same collectives.
     """
     check_precision(config.precision)
     if chunk_size is None and os.environ.get("ROBUSTBNNS_NUTS_CHUNK"):
@@ -330,7 +337,7 @@ def nuts_sample(
         q0 = q0.expand(chains, -1)
     if q0.dim() != (1 if chains == 1 else 2) or (chains > 1 and q0.shape[0] != chains):
         raise ValueError(f"init_position of shape {tuple(init_position.shape)} for {chains} chain(s)")
-    vg = _Potential(potential_fn, () if data is None else data)
+    vg = _Potential(potential_fn, () if data is None else data, mesh)
     if chains == 1:
         samples, parts = _run_chain_chunked(vg, q0, _chain_draws(draws, seed, 1, q0.device)[0], config,
                                             chunk_size, trace)

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from robustbnns_tpu_torch.data.loaders import batch_arrays
+from robustbnns_tpu_torch.parallel.mesh import reduce_sum, replicate, resolve_mesh, split_rows, sum_gradients
 from robustbnns_tpu_torch.utils.device import resolve_device
 from robustbnns_tpu_torch.utils.pytree import Params, map_params, normal_like_tree, tree_leaves
 from robustbnns_tpu_torch.utils.timing import execution_time
@@ -99,11 +100,42 @@ def categorical_loglik_sum(logits, labels, mask=None) -> torch.Tensor:
     return ll.sum()
 
 
-def elbo_loss(apply_fn, posterior: MeanFieldPosterior, eps: Params, x, labels, mask=None):
+def elbo_loss(apply_fn, posterior: MeanFieldPosterior, eps: Params, x, labels, mask=None, kl: bool = True):
     """Negative ELBO for one batch: ``KL − Σ log p(y|x,w)`` with the one draw
-    ``w = loc + softplus(rho)·eps`` (the JAX function draws ``eps`` from a key)."""
-    w = sample_meanfield_eps(posterior, eps)
-    return gaussian_kl_to_std_normal(posterior) - categorical_loglik_sum(apply_fn(w, x), labels, mask)
+    ``w = loc + softplus(rho)·eps`` (the JAX function draws ``eps`` from a key).
+    ``kl=False`` leaves the KL out: the part of the sum that one rank of a
+    data-parallel step adds besides the rank that adds the KL."""
+    loglik = categorical_loglik_sum(apply_fn(sample_meanfield_eps(posterior, eps), x), labels, mask)
+    return gaussian_kl_to_std_normal(posterior) - loglik if kl else -loglik
+
+
+def elbo_step(apply_fn, optimizer: torch.optim.Optimizer, posterior: MeanFieldPosterior, eps: Params, x,
+              labels, mask=None, mesh=None) -> torch.Tensor:
+    """One ELBO step of ``optimizer``, whose parameters are the leaves of
+    ``posterior`` (updated in place); returns the loss, detached.
+
+    With ``mesh`` (:mod:`.parallel.mesh`) the batch's rows split over
+    ``data`` (:func:`.parallel.mesh.split_rows`), the KL is added on ``data``
+    index 0 only, and the loss and every gradient are summed over ``data`` in
+    one flat all-reduce before the step, so every rank steps alike.
+    """
+    optimizer.zero_grad(set_to_none=True)
+    if mesh is None:
+        loss = elbo_loss(apply_fn, posterior, eps, x, labels, mask)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    leaves = tree_leaves(posterior.loc) + tree_leaves(posterior.rho)
+    rows, kl = split_rows(x.shape[0], mesh), mesh.index("data") == 0
+    if rows.stop > rows.start:
+        loss = elbo_loss(apply_fn, posterior, eps, x[rows], labels[rows], None if mask is None else mask[rows], kl)
+    else:  # this rank holds no row of the batch
+        loss = gaussian_kl_to_std_normal(posterior) if kl else x.new_zeros((), requires_grad=True)
+    loss.backward()
+    loss = sum_gradients(loss, leaves, mesh)
+    optimizer.step()
+    return loss
 
 
 class EpochDraws(NamedTuple):
@@ -159,27 +191,31 @@ def svi_epoch(
     y: torch.Tensor,
     draws: EpochDraws,
     train_acc_bf16: bool = False,
+    mesh=None,
 ):
     """One SVI epoch (reference hot loop ``model_bnn.py:316-341``, JAX ``_svi_epoch``).
 
-    Per batch: one ELBO step on ``optimizer``, whose parameters are the leaves
-    of ``posterior`` (updated in place); then, when ``train_acc_samples > 0``,
-    the ``train_acc_samples``-draw predictive for the epoch accuracy, with bf16
-    products under ``train_acc_bf16``. Returns the summed loss and the correct
-    count as device scalars, without synchronising.
+    Per batch: one ELBO step on ``optimizer`` (:func:`elbo_step`, with
+    ``mesh`` data-parallel); then, when ``train_acc_samples > 0``, the
+    ``train_acc_samples``-draw predictive for the epoch accuracy on this
+    rank's rows, with bf16 products under ``train_acc_bf16``. Returns the
+    summed loss and the correct count (summed over ``data`` once, at the end)
+    as device scalars, without synchronising.
     """
     xb, yb, mb = batch_arrays(x, y, batch_size, perm=draws.perm)
     loss_sum, correct = x.new_zeros(()), x.new_zeros(())
+    rows = slice(None)
+    if mesh is not None:
+        rows = split_rows(batch_size, mesh)
     for bx, by, mask, eps, acc_eps in zip(xb, yb, mb, draws.elbo_eps, draws.acc_eps, strict=True):
         labels = by.argmax(-1)
-        loss = elbo_loss(apply_fn, posterior, eps, bx, labels, mask)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        loss_sum += loss.detach()
-        if train_acc_samples > 0:
+        loss_sum += elbo_step(apply_fn, optimizer, posterior, eps, bx, labels, mask, mesh)
+        if train_acc_samples > 0 and bx[rows].shape[0]:
             with torch.no_grad():
-                correct += _train_correct(apply_fn, posterior, acc_eps, bx, labels, mask, train_acc_bf16)
+                correct += _train_correct(apply_fn, posterior, acc_eps, bx[rows], labels[rows], mask[rows],
+                                          train_acc_bf16)
+    if mesh is not None:
+        (correct,) = reduce_sum([correct], mesh)
     return loss_sum, correct
 
 
@@ -213,19 +249,25 @@ def svi_train(
     which also makes every epoch's draws unless ``draws(epoch)`` gives them.
     ``train_acc_bf16`` (default: the ``ROBUSTBNNS_BF16_TRAINACC=1`` opt-in)
     runs the accuracy predictive in bf16; the optimisation is untouched.
+
+    With ``mesh`` (or a process default, :func:`.parallel.mesh.set_default_mesh`)
+    the start is broadcast from rank 0, each batch's rows split over ``data``
+    (:func:`elbo_step`), Adam runs replicated, and every rank returns the same
+    posterior and history: bit-equal to the unmeshed run at one rank, within
+    f32 rounding of it at several.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (parallelism slice, ROADMAP.md)")
     if train_acc_bf16 is None:
         train_acc_bf16 = os.environ.get("ROBUSTBNNS_BF16_TRAINACC") == "1"
     device = resolve_device(device)
+    mesh = resolve_mesh(mesh)
     generator = torch.Generator(device=device).manual_seed(int(seed))
     if init is None:
         init = svi_init(arch, generator)
-    posterior = MeanFieldPosterior(*(
-        map_params(lambda v: v.detach().to(device, torch.float32).clone().requires_grad_(True), tree)
-        for tree in init
-    ))
+    init = MeanFieldPosterior(*(map_params(lambda v: v.detach().to(device, torch.float32), tree) for tree in init))
+    if mesh is not None:
+        mesh.check(device)
+        init = replicate(init, mesh)
+    posterior = MeanFieldPosterior(*(map_params(lambda v: v.clone().requires_grad_(True), tree) for tree in init))
     optimizer = torch.optim.Adam(
         tree_leaves(posterior.loc) + tree_leaves(posterior.rho), lr=lr, betas=(0.9, 0.999), eps=1e-8
     )
@@ -244,7 +286,7 @@ def svi_train(
         )
         loss_sum, correct = svi_epoch(
             arch.apply, optimizer, batch_size, train_acc_samples, posterior, x, y,
-            epoch_draws, train_acc_bf16=bool(train_acc_bf16),
+            epoch_draws, train_acc_bf16=bool(train_acc_bf16), mesh=mesh,
         )
         loss_sum, correct = float(loss_sum), float(correct)  # the epoch's one synchronisation
         history["loss"].append(loss_sum)

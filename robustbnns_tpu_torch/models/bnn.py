@@ -28,21 +28,28 @@ from robustbnns_tpu_torch.inference.hmc import HMCInfo, check_sampler, hmc_train
 from robustbnns_tpu_torch.inference.nuts import NUTSInfo
 from robustbnns_tpu_torch.inference.svi import MeanFieldPosterior, svi_train
 from robustbnns_tpu_torch.models.architectures import Architecture, build_architecture
+from robustbnns_tpu_torch.parallel.mesh import replicate, resolve_mesh, split_rows
 from robustbnns_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 from robustbnns_tpu_torch.utils.device import resolve_device
 from robustbnns_tpu_torch.utils.pytree import Params, flatten_tree_to_vector, index_tree, map_params
 
 
-def bnn_potential(arch: Architecture, unravel):
+def bnn_potential(arch: Architecture, unravel, prior: bool = True):
     """The HMC potential ``U(q, x, labels)`` of the reference's model
     (JAX ``bnn.py:129-137``) on flat vectors ``q`` of shape ``(..., D)``:
-    one value per leading index (chain), through the stacked ``apply``."""
+    one value per leading index (chain), through the stacked ``apply``.
+
+    ``prior=False`` leaves the Gaussian prior out: the part of the potential
+    that a data-parallel rank other than ``data`` index 0 adds. A batch of no
+    rows adds no likelihood term."""
 
     def potential_fn(q, x, labels):
+        log_prior = -0.5 * (q * q).sum(-1)
+        if x.shape[0] == 0:
+            return -log_prior if prior else 0.0 * log_prior
         logp = torch.log_softmax(arch.apply(unravel(q), x), dim=-1)
         loglik = logp.gather(-1, labels.expand(logp.shape[:-1]).unsqueeze(-1)).squeeze(-1).sum(-1)
-        log_prior = -0.5 * (q * q).sum(-1)
-        return -(log_prior + loglik)
+        return -(log_prior + loglik) if prior else -loglik
 
     return potential_fn
 
@@ -125,9 +132,17 @@ class BNN:
         replaces the sampler's generator. ``hmc_sampler='nuts'`` samples by
         NUTS instead (``num_steps`` unused); the draws are saved under the
         same leaf names.
+
+        ``mesh`` (or a process default) runs the engine data-parallel: SVI
+        through ``svi_train(mesh=)``; HMC and NUTS with each batch's rows
+        split over ``data``, U and ∇U summed over ``data`` at every evaluation
+        (the prior added on index 0 only), so every rank takes the same
+        decisions and returns the same draws, bit-equal to the unmeshed run at
+        one rank.
         """
+        mesh = resolve_mesh(mesh)
         if mesh is not None:
-            raise NotImplementedError("mesh= is not ported yet (parallelism slice, ROADMAP.md)")
+            mesh.check(self.device)
         self._fn_cache.clear()  # cached closures hold the previous state
         batch_size = batch_size or bnn_batch_size(self.config)
         if not self.is_hmc:
@@ -140,6 +155,7 @@ class BNN:
                 batch_size=batch_size,
                 seed=seed,
                 train_acc_samples=train_acc_samples,
+                mesh=mesh,
                 verbose=verbose,
                 device=self.device,
                 init=init,
@@ -153,18 +169,24 @@ class BNN:
         if init is not None:
             flat0 = init if torch.is_tensor(init) else flatten_tree_to_vector(init)[0]
             flat0 = flat0.to(self.device, torch.float32)
+        if mesh is not None:
+            flat0 = replicate(flat0, mesh)
         x = torch.as_tensor(x_train, device=self.device)
         labels = torch.as_tensor(y_train, device=self.device).argmax(-1)
-        potential_fn = bnn_potential(self.arch, unravel)
         if hmc_init == "map":
-            # Opt-in: the reference starts from the module's random init.
-            flat0, _ = map_warm_start(potential_fn, flat0, data=(x, labels))
+            # Opt-in: the reference starts from the module's random init. Every
+            # rank descends the same full-data potential.
+            flat0, _ = map_warm_start(bnn_potential(self.arch, unravel), flat0, data=(x, labels))
         elif hmc_init != "random":
             raise ValueError(f"unknown hmc_init {hmc_init!r}")
 
         # Reference batching: sequential batches of `batch_size`, the ragged
         # tail included (model_bnn.py:274-277).
         batches = [(x[i : i + batch_size], labels[i : i + batch_size]) for i in range(0, x.shape[0], batch_size)]
+        potential_fn = bnn_potential(self.arch, unravel)
+        if mesh is not None:  # this rank's rows of each batch; the prior on data index 0
+            batches = [(bx[split_rows(len(bx), mesh)], bl[split_rows(len(bx), mesh)]) for bx, bl in batches]
+            potential_fn = bnn_potential(self.arch, unravel, prior=mesh.index("data") == 0)
         self.history = {}
         flat_samples, self.hmc_info = hmc_train_batched(
             potential_fn,
@@ -181,6 +203,7 @@ class BNN:
             verbose=verbose,
             draws=draws,
             history=self.history,
+            mesh=mesh,
         )
         self.samples = map_params(torch.Tensor.contiguous, unravel(flat_samples.reshape(-1, flat0.shape[-1])))
         return self

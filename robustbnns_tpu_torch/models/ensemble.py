@@ -25,6 +25,7 @@ import torch
 
 from robustbnns_tpu_torch.models.architectures import Architecture
 from robustbnns_tpu_torch.models.nn import cross_entropy, trainable
+from robustbnns_tpu_torch.parallel.mesh import gather_axis, resolve_mesh, shard_axis
 from robustbnns_tpu_torch.predict import ensemble_predict
 from robustbnns_tpu_torch.utils.device import resolve_device
 from robustbnns_tpu_torch.utils.pytree import Params, map_params, slice_tree, stack_trees, tree_leaves
@@ -121,9 +122,11 @@ class EnsembleNN:
         return accuracy
 
 
-def _train_members(arch, x, y, lo: int, hi: int, *, epochs, lr, batch_size, label, verbose, device, init, perms):
+def _train_members(arch, x, y, lo: int, hi: int, *, epochs, lr, batch_size, label, verbose, device, init, perms,
+                   all_losses=lambda loss_sum: loss_sum):
     """Members ``lo..hi-1`` trained together; returns their stacked
-    parameters and each epoch's mean member loss per image."""
+    parameters and each epoch's mean member loss per image, the mean taken
+    over ``all_losses(loss_sum)`` (under a mesh: every rank's members)."""
     gens = [torch.Generator(device=device).manual_seed(i) for i in range(lo, hi)]
     start = stack_trees([arch.init(g) for g in gens]) if init is None else map_params(lambda v: v[lo:hi], init)
     params = trainable(start, device)
@@ -149,10 +152,21 @@ def _train_members(arch, x, y, lo: int, hi: int, *, epochs, lr, batch_size, labe
             loss.sum().backward()
             optimizer.step()
             loss_sum += loss.detach()
-        losses.append(float(loss_sum.mean()) / n)  # the epoch's one synchronisation
+        losses.append(float(all_losses(loss_sum).mean()) / n)  # the epoch's one synchronisation
         if verbose:
             print(f"\n{label(epoch)} mean member loss: {losses[-1]:.6f}", end="\t", flush=True)
     return map_params(torch.Tensor.detach, params), losses
+
+
+def _train_members_sharded(arch, x, y, lo: int, hi: int, mesh, **kwargs):
+    """:func:`_train_members` for this rank's contiguous part of members
+    ``lo..hi-1`` (:func:`.parallel.mesh.shard_axis` over ``sample``), the
+    stacked leaves and each epoch's member losses gathered over ``sample``."""
+    members = shard_axis(torch.arange(lo, hi), mesh, 0, "sample")
+    own_lo, own_hi = int(members[0]), int(members[-1]) + 1
+    params, losses = _train_members(arch, x, y, own_lo, own_hi,
+                                    all_losses=lambda v: gather_axis(v, mesh, hi - lo, 0, "sample"), **kwargs)
+    return map_params(lambda v: gather_axis(v, mesh, hi - lo, 0, "sample"), params), losses
 
 
 def train_ensemble(
@@ -184,10 +198,17 @@ def train_ensemble(
     chunk's; members share nothing, so chunking changes no member's numbers.
     The model's ``history`` holds, per chunk, each epoch's mean member loss
     per image (printed as the JAX package prints it).
+
+    With ``mesh`` (or a process default) each chunk's members split over
+    ``sample`` as contiguous ranges (all of them on every rank where the
+    count does not divide), the dataset whole on every rank; member i keeps
+    its own seed and shuffles, so the layout changes no member's numbers; the
+    stacked leaves are gathered on every rank at the end of each chunk.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (parallelism slice, ROADMAP.md)")
+    mesh = resolve_mesh(mesh)
     device = resolve_device(device)
+    if mesh is not None:
+        mesh.check(device)
     x = torch.as_tensor(x_train, device=device)
     y = torch.as_tensor(y_train, device=device)
     start = time.time()
@@ -201,8 +222,12 @@ def train_ensemble(
                 return f"[Ensemble epoch {epoch + 1}]"
             return f"[Ensemble members {lo}-{hi - 1} epoch {epoch + 1}]"
 
-        params, losses = _train_members(arch, x, y, lo, hi, epochs=epochs, lr=lr, batch_size=batch_size,
-                                        label=label, verbose=verbose, device=device, init=init, perms=perms)
+        kwargs = dict(epochs=epochs, lr=lr, batch_size=batch_size, label=label, verbose=verbose, device=device,
+                      init=init, perms=perms)
+        if mesh is None:
+            params, losses = _train_members(arch, x, y, lo, hi, **kwargs)
+        else:
+            params, losses = _train_members_sharded(arch, x, y, lo, hi, mesh, **kwargs)
         # A finished chunk leaves the card, so chunking bounds device memory.
         chunks.append(map_params(torch.Tensor.cpu, params) if member_chunk is not None else params)
         history["loss"].append(losses)

@@ -28,18 +28,21 @@ import torch
 
 from robustbnns_tpu_torch.data.loaders import batch_arrays
 from robustbnns_tpu_torch.models.architectures import Architecture
+from robustbnns_tpu_torch.parallel.mesh import reduce_sum, replicate, resolve_mesh, split_rows, sum_gradients
 from robustbnns_tpu_torch.utils.device import resolve_device
 from robustbnns_tpu_torch.utils.pytree import Params, map_params, tree_leaves
 from robustbnns_tpu_torch.utils.timing import execution_time
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None, count=None) -> torch.Tensor:
     """Mean cross-entropy over the valid rows; ``labels`` are integer classes.
-    Leading axes before the batch (an ensemble's members) give one mean each."""
+    Leading axes before the batch (an ensemble's members) give one mean each.
+    ``count`` (default ``mask``'s) is the number of valid rows to divide by:
+    a data-parallel rank divides its rows' sum by the whole batch's count."""
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, labels.unsqueeze(-1)).squeeze(-1)
     if mask is None:
         return nll.mean(-1)
-    return (nll * mask).sum(-1) / torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum(-1) / torch.clamp(mask.sum() if count is None else count, min=1.0)
 
 
 def trainable(params: Params, device) -> Params:
@@ -133,16 +136,27 @@ def train_nn(
     them. The returned model's ``history`` holds each epoch's loss per image
     (the sum of the batches' mean losses over N, as the reference prints it),
     its accuracy in percent and the seconds of the whole run.
+
+    With ``mesh`` (or a process default) the start is broadcast from rank 0,
+    each batch's rows split over ``data`` (each rank's share of the batch mean
+    summed, with the loss, in one flat all-reduce a step), Adam runs
+    replicated and the correct count is summed once an epoch: every rank
+    returns the unmeshed model, bit-equal at one rank.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (parallelism slice, ROADMAP.md)")
     device = resolve_device(device)
+    mesh = resolve_mesh(mesh)
     generator = torch.Generator(device=device).manual_seed(int(seed))
-    params = trainable(init if init is not None else arch.init(generator), device)
-    optimizer = torch.optim.Adam(tree_leaves(params), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    start_params = init if init is not None else arch.init(generator)
+    if mesh is not None:
+        mesh.check(device)
+        start_params = replicate(map_params(lambda v: v.to(device, torch.float32), start_params), mesh)
+    params = trainable(start_params, device)
+    leaves = tree_leaves(params)
+    optimizer = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     x = torch.as_tensor(x_train, device=device)
     y = torch.as_tensor(y_train, device=device)
     n = x.shape[0]
+    rows = slice(None) if mesh is None else split_rows(batch_size, mesh)
 
     start = time.time()
     stats = []
@@ -151,14 +165,21 @@ def train_nn(
         xb, yb, mb = batch_arrays(x, y, batch_size, perm=torch.as_tensor(perm, device=device))
         loss_sum, correct = x.new_zeros(()), x.new_zeros(())
         for bx, by, mask in zip(xb, yb, mb):
-            labels = by.argmax(-1)
-            logits = arch.apply(params, bx)
-            loss = cross_entropy(logits, labels, mask)
+            labels = by.argmax(-1)[rows]
             optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            if labels.shape[0]:
+                logits = arch.apply(params, bx[rows])
+                loss = cross_entropy(logits, labels, mask[rows], count=mask.sum())
+                loss.backward()
+                correct += ((logits.detach().argmax(-1) == labels) * mask[rows]).sum()
+            else:  # this rank holds no row of the batch
+                loss = x.new_zeros(())
+            if mesh is not None:
+                loss = sum_gradients(loss, leaves, mesh)
             optimizer.step()
             loss_sum += loss.detach()
-            correct += ((logits.detach().argmax(-1) == labels) * mask).sum()
+        if mesh is not None:
+            (correct,) = reduce_sum([correct], mesh)
         stats += [loss_sum, correct]
     # One synchronisation, after the last epoch: the device stays pipelined.
     values = torch.stack(stats).tolist() if stats else []

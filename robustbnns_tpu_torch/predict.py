@@ -30,6 +30,7 @@ from typing import Optional, Sequence
 import torch
 
 from robustbnns_tpu_torch.inference.svi import MeanFieldPosterior, sample_meanfield_eps
+from robustbnns_tpu_torch.parallel.mesh import gather_axis, reduce_sum, resolve_mesh, shard_axis
 from robustbnns_tpu_torch.utils.prng import draw_seed, key_from_seed, keys_from_seeds
 from robustbnns_tpu_torch.utils.pytree import Params, index_tree, map_params, normal_like_tree, slice_tree
 
@@ -111,18 +112,27 @@ def hmc_predict(arch, stacked_params: Params, x: torch.Tensor, sample_idx: torch
 
 
 @torch.no_grad()
-def batched_eval(forward_fn, x, y, *, batch_size: int = 128, generator=None):
+def batched_eval(forward_fn, x, y, *, batch_size: int = 128, generator=None, mesh=None):
     """Evaluate a predictive closure over a whole set, batch by batch.
 
     Returns ``(outputs, correct_count)`` with ``outputs`` cut to the real rows;
     the last batch is padded and masked (``data.loaders.batch_arrays``).
+    With ``mesh`` (or a process default) each batch's rows split over
+    ``data`` (JAX ``predict.py:206-215``): every rank draws in lockstep, runs
+    its rows, and gets the gathered outputs and the summed count.
     """
     from robustbnns_tpu_torch.data.loaders import batch_arrays
-
+    mesh = resolve_mesh(mesh)
     xb, yb, mb = batch_arrays(x, y, batch_size)
+    if mesh is not None:
+        mesh.check(x.device)
+        xb, yb, mb = (shard_axis(a, mesh, 1, "data") for a in (xb, yb, mb))
     outs, correct = [], x.new_zeros(())
     for bx, by, mask in zip(xb, yb, mb):
         out = forward_fn(bx, generator)
         correct = correct + ((out.argmax(-1) == by.argmax(-1)) * mask).sum()
         outs.append(out)
+    if mesh is not None and batch_size % mesh.shape["data"] == 0:  # sharded: every rank's rows
+        outs = list(gather_axis(torch.stack(outs), mesh, batch_size, 1))
+        (correct,) = reduce_sum([correct], mesh)
     return torch.cat(outs)[: x.shape[0]], correct

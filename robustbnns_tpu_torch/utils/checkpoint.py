@@ -20,6 +20,8 @@ from typing import Any, Iterator, Optional
 import numpy as np
 import torch
 
+from robustbnns_tpu_torch.parallel.mesh import write_on_rank_zero
+
 _META_KEY = "__robustbnns_meta__"
 
 
@@ -85,17 +87,22 @@ def save_pytree(tree: Any, path: str, meta: Optional[dict] = None) -> str:
     """Save a tree of tensors or arrays to ``path`` (``.npz`` appended if missing).
 
     Saves from a process that served synthetic surrogate data are tagged with the
-    surrogate generator version.
+    surrogate generator version. Under a default mesh (``--mesh``) rank 0
+    writes and every rank waits for it (:func:`.parallel.mesh.write_on_rank_zero`).
     """
     meta = {**_surrogate_meta(), **(meta or {})}
     path = _npz_path(path)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    arrays = {
-        name: (leaf.detach().cpu().numpy() if torch.is_tensor(leaf) else np.asarray(leaf))
-        for name, leaf in _flatten_with_names(tree)
-    }
-    arrays[_META_KEY] = np.frombuffer(json.dumps(meta).encode("utf-8"), dtype=np.uint8)
-    np.savez_compressed(path, **arrays)
+
+    def write():
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        arrays = {
+            name: (leaf.detach().cpu().numpy() if torch.is_tensor(leaf) else np.asarray(leaf))
+            for name, leaf in _flatten_with_names(tree)
+        }
+        arrays[_META_KEY] = np.frombuffer(json.dumps(meta).encode("utf-8"), dtype=np.uint8)
+        np.savez_compressed(path, **arrays)
+
+    write_on_rank_zero(write)
     return path
 
 

@@ -173,18 +173,23 @@ def test_vanishing_norms_shape_guard():
 
 
 def test_branches_of_later_slices_raise(trained_svi_bnn):
-    """Meshes wait for their slice. The HMC, deterministic and ensemble
-    branches (ported) compute JAX's gradients on the same parameters: the
-    stacked draws or members indexed by the seeds, and for an NN
-    (``n_samples=None``) the gradient of the CE of its raw logits."""
+    """Every branch of a later slice is ported (the name is from when they
+    raised). A one-rank mesh gives the unmeshed gradients bit for bit
+    (``tests/test_torch_mesh_api.py`` holds two ranks). The HMC,
+    deterministic and ensemble branches compute JAX's gradients on the same
+    parameters: the stacked draws or members indexed by the seeds, and for an
+    NN (``n_samples=None``) the gradient of the CE of its raw logits."""
     from robustbnns_tpu.models import DeterministicNN as JaxNN
     from robustbnns_tpu.models import EnsembleNN as JaxEnsemble
     from robustbnns_tpu_torch.models import DeterministicNN, EnsembleNN
     from robustbnns_tpu_torch.utils.checkpoint import params_from_numpy
 
+    from torch_mesh_worker import one_rank_mesh
+
     bnn, x, y = trained_svi_bnn
-    with pytest.raises(NotImplementedError, match="mesh"):
-        expected_loss_gradients(bnn, x, y, n_samples=2, mesh="auto")
+    with one_rank_mesh() as mesh:
+        meshed = expected_loss_gradients(bnn, x, y, n_samples=2, mesh=mesh)
+    assert torch.equal(meshed, expected_loss_gradients(bnn, x, y, n_samples=2))
 
     from robustbnns_tpu_torch.utils.checkpoint import hmc_samples_from_numpy
 

@@ -24,8 +24,10 @@
 * ``member_chunk`` changes no member's numbers: bit-equal for fc2; for conv
   within 1e-3·lr, since the CPU's grouped convolutions sum in an order that
   depends on the number of groups (5e-4·lr seen); checkpoints cross packages
-  both ways; ``mesh=`` raises.
+  both ways; a one-rank ``mesh=`` changes no bit.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -305,9 +307,21 @@ def test_nn_and_ensemble_checkpoints_cross_packages(tmp_path, saved_by):
 
 
 def test_mesh_raises_naming_the_parallelism_slice():
+    """Named when ``mesh=`` raised; now the parallelism slice is ported: on a
+    one-rank mesh (collectives run, nothing split) ``train_nn`` and
+    ``train_ensemble`` train the unmeshed parameters and history bit for bit
+    (``tests/test_torch_mesh_api.py`` holds two ranks)."""
+    from torch_mesh_worker import one_rank_mesh
+
     _, tarch = archs("fc2")
-    x, y = data(8, SHAPES["fc2"])
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        train_nn(tarch, x, y, epochs=1, lr=1e-2, mesh="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        train_ensemble(tarch, x, y, ensemble_size=2, epochs=1, lr=1e-2, mesh="auto", device="cpu")
+    x, y = data(40, SHAPES["fc2"])
+    kw = dict(epochs=2, lr=1e-2, batch_size=16, verbose=False, device="cpu")
+    runs = {}
+    for name, mesh in (("plain", None), ("mesh", "one rank")):
+        with one_rank_mesh() if mesh else contextlib.nullcontext() as m:
+            runs[name] = (train_nn(tarch, x, y, mesh=m, **kw),
+                          train_ensemble(tarch, x, y, ensemble_size=2, mesh=m, **kw))
+    for plain, meshed, leaves in zip(runs["plain"], runs["mesh"], ("params", "stacked_params")):
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(getattr(plain, leaves)),
+                                                     tree_leaves(getattr(meshed, leaves)), strict=True))
+        assert plain.history["loss"] == meshed.history["loss"]

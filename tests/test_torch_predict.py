@@ -338,8 +338,13 @@ def test_bnn_save_load_predict(tmp_path):
         other.predictive_fn(5, seeds=range(5), fused=True)
     probs = other.forward(torch.from_numpy(x), 4, seeds=[0, 1, 2, 3])
     np.testing.assert_allclose(probs.sum(-1).numpy(), 1.0, atol=1e-5)
-    with pytest.raises(NotImplementedError):  # SVI trains; meshes wait for their slice
-        other.train(x, y, mesh="auto")
+    from torch_mesh_worker import one_rank_mesh
+
+    trained = BNN.from_config(cfg, (6, 6, 1), 10, device="cpu").train(x, y, batch_size=8, verbose=False)
+    with one_rank_mesh() as mesh:  # SVI trains under a mesh: one rank changes no bit
+        meshed = BNN.from_config(cfg, (6, 6, 1), 10, device="cpu").train(x, y, batch_size=8, mesh=mesh,
+                                                                       verbose=False)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(trained.posterior), _leaves(meshed.posterior)))
 
 
 def test_cuda_requests_without_a_card_raise():

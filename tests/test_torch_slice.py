@@ -224,12 +224,42 @@ def test_attack_cli_trains_then_attacks_on_the_cpu(cli_workdir, monkeypatch):
     [
         (["--model_type=gp", "--device=cpu"], NotImplementedError),
         (["--model_type=bnn", "--bf16=True"], NotImplementedError),
-        (["--model_type=bnn", "--mesh=auto", "--device=cpu"], NotImplementedError),
     ],
 )
 def test_cli_refuses_what_is_not_ported(flags, error):
     with pytest.raises(error):
         cli.main(flags)
+
+
+def test_cli_mesh_auto_attacks_on_one_rank(cli_workdir, capsys):
+    """``--mesh=auto --device=cpu`` in one process: a one-rank gloo group and a
+    1x1 default mesh, through which the attack and its evaluation run their
+    collectives; the attack equals the unmeshed CLI's bit for bit, and rank 0
+    writes its file."""
+    import torch.distributed as dist
+
+    from robustbnns_tpu_torch.parallel import get_default_mesh, set_default_mesh
+
+    bnn = BNN.from_config(config.saved_BNNs["model_7"], (28, 28, 1), 10, device="cpu")
+    loc = bnn.arch.init(torch.Generator().manual_seed(7))
+    bnn.posterior = MeanFieldPosterior(loc, tuple({k: torch.full_like(v, -6.0) for k, v in p.items()} for p in loc))
+    bnn.save(rel_path=config.DATA)
+    flags = ["--model_type=bnn", "--model_idx=7", "--train=False", "--test=False", "--n_inputs=8", "--device=cpu",
+             "--attack_method=fgsm"]
+    plain = cli.main(flags)
+    try:
+        meshed = cli.main(flags + ["--mesh=auto"])
+        assert get_default_mesh().shape == {"data": 1, "sample": 1}
+        assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+    finally:
+        set_default_mesh(None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert "[mesh] default mesh installed: {'data': 1, 'sample': 1}" in capsys.readouterr().out
+    assert torch.equal(meshed["x_attack"], plain["x_attack"])
+    assert (meshed["clean_accuracy"], meshed["adversarial_accuracy"]) == (plain["clean_accuracy"],
+                                                                          plain["adversarial_accuracy"])
+    assert os.path.exists(cli_workdir / "data" / bnn.name / f"{bnn.name}_fgsm_attackSamp=10_attack.npz")
 
 
 def test_resolve_device_alone_turns_tf32_off():

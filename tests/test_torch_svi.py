@@ -43,6 +43,7 @@ from robustbnns_tpu_torch.ops.sampled_dense import sampled_noise
 from robustbnns_tpu_torch.predict import svi_predict
 from robustbnns_tpu_torch.utils.checkpoint import meanfield_from_numpy
 from robustbnns_tpu_torch.utils.pytree import tree_leaves
+from torch_mesh_worker import one_rank_mesh
 
 SHAPE, CLASSES, HIDDEN = (6, 6, 1), 10, 16
 N_ROWS, BATCH = 300, 64  # five batches, the last padded from 44 rows
@@ -235,8 +236,9 @@ def test_fused_s1_gradient_is_the_elbo_likelihood_gradient(nets):
 
 
 def test_svi_train_is_deterministic_given_a_seed(nets):
-    """The same seed gives the same posterior and history, another seed another;
-    the leaves come back detached, so a later attack asks for no parameter gradient."""
+    """The same seed gives the same posterior and history, another seed another,
+    and so does a one-rank mesh; the leaves come back detached, so a later
+    attack asks for no parameter gradient."""
     _, tarch, _ = nets
     x, y = data()
     run = lambda seed: svi_train(tarch, x, y, epochs=2, lr=1e-2, batch_size=BATCH, seed=seed,  # noqa: E731
@@ -247,8 +249,11 @@ def test_svi_train_is_deterministic_given_a_seed(nets):
     assert len(h1["seconds"]) == 2 and min(h1["seconds"]) > 0
     assert not all(torch.equal(a, b) for a, b in zip(post_leaves(p1), post_leaves(p3)))
     assert not any(v.requires_grad for v in post_leaves(p1))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        svi_train(tarch, x, y, epochs=1, lr=1e-2, mesh="auto", device="cpu")
+    with one_rank_mesh() as mesh:  # a one-rank mesh runs its collectives and changes no bit
+        pm, hm = svi_train(tarch, x, y, epochs=2, lr=1e-2, batch_size=BATCH, seed=0, train_acc_samples=2,
+                           verbose=False, device="cpu", mesh=mesh)
+    assert all(torch.equal(a, b) for a, b in zip(post_leaves(p1), post_leaves(pm)))
+    assert (h1["loss"], h1["accuracy"]) == (hm["loss"], hm["accuracy"])
 
 
 def test_train_acc_bf16_is_metric_only(nets):
