@@ -39,6 +39,22 @@ Phases, each fatal on failure:
    kernels must not;
    then the wall clock of 40-step PGD (median of three) against the device
    time of its kernels (``torch.profiler``);
+   then ``[precision]``, the bf16 opt-ins: the four bf16 tensor-core kernels
+   (``ROBUSTBNNS_KERNEL_PRECISION=default``) against their bf16 twins (the
+   f32 gate + 2^-7 of the largest term |x_i||W_si|), against the f32 kernels
+   (the bf16 rounding bound), and nearer the twin than a tenth of their
+   distance from the f32 kernel, at model_7's shapes and the edge shapes,
+   bit-identical across calls, timed beside the f32 kernels, and the
+   finite-difference adjoint of both precisions; model_7's fused FGSM and
+   PGD through the CLI under the variable (the bf16 kernels launched as
+   often as [main]'s f32 ones, no f32 attack kernel) and PGD in turns with
+   f32; ``--bf16=True`` on model_0 (logits against f32 on the same draws,
+   nonzero, and nearer the CPU's bf16 arithmetic; x_adv in its ball, PGD in
+   turns, no sampled-dense launch); model_3's potential at batch 5,000 under
+   HMC ``precision="default"`` against "high" (apart, and within bounds),
+   its logits under the sampler's scope nearer the CPU's bf16 arithmetic,
+   HMC evaluations/s of both in turns, a 2-draw NUTS run; TF32 still off
+   after;
    then ``[mesh]``, the mesh path at one NCCL rank, each stage bit-equal to
    the same call without a mesh: the attack CLI with ``--mesh=auto`` (x_adv
    and the launch counts of phase 7, NCCL's collective in the device trace
@@ -142,8 +158,8 @@ Phases, each fatal on failure:
    669,706): 1,150 rows, the card's PCA of the prior within 1e-3 of max of
    numpy's float64 PCA with no sign flipped;
 25. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
-   ``launches`` counts the dparams kernels over phase 6 and the others over
-   phase 7.
+   ``launches`` counts the dparams kernels over phase 6, the bf16 kernels
+   over ``[precision]``'s model_7 FGSM + PGD and the others over phase 7.
 
 Device-busy time (every idle share printed) is the union of the intervals
 of the device events ``torch.profiler`` records.
@@ -169,6 +185,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 B, S = 128, 10  # attack batch and posterior draws per forward (cli/attacks.py)
 LAYERS = ((784, 1024), (1024, 1024), (1024, 10))  # model_7: mnist fc2-1024
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # Kernel vs plain twin: the same noise and the same products, summed in another
 # order (K <= S*O = 10240 terms). Reordering a K-term f32 sum moves it by about
@@ -180,6 +197,8 @@ RTOL, ATOL_OF_MAX = 1e-4, 1e-4
 # to 1e-3 of their largest entry.
 E2E_TOL_OF_MAX = 1e-3
 DPARAMS = ("sampled_dense_dparams", "sampled_dense_xs_dparams")
+ATTACK_KERNELS = ("sampled_dense_fwd", "sampled_dense_dx", "sampled_dense_xs_fwd", "sampled_dense_xs_dx")
+BF16_ATTACK_KERNELS = tuple(f"{name}_bf16" for name in ATTACK_KERNELS)
 
 
 def fail(message: str) -> None:
@@ -283,8 +302,8 @@ def wall_s(torch, fn) -> float:
     return time.perf_counter() - t0
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -691,12 +710,15 @@ def phase_param_grad(torch) -> dict:
     return counts
 
 
-def check_attack_launches(phase: str, counts: dict) -> None:
-    """An attack runs the four forward and dx kernels and no dparams kernel."""
-    if not all(n > 0 for name, n in counts.items() if name not in DPARAMS):
+def check_attack_launches(phase: str, counts: dict, kernels=ATTACK_KERNELS) -> None:
+    """An attack runs the four forward and dx ``kernels`` (f32, or their bf16
+    variants), no dparams kernel and no kernel of the other precision."""
+    if not all(counts[name] > 0 for name in kernels):
         fail(f"[{phase}] a kernel of the attack never launched: {counts}")
     if any(counts[name] for name in DPARAMS):
         fail(f"[{phase}] the attack launched a parameter-gradient kernel: {counts}")
+    if any(n for name, n in counts.items() if name not in kernels and name not in DPARAMS):
+        fail(f"[{phase}] the attack launched a kernel of the other precision: {counts}")
 
 
 def phase_main_path(torch, workdir: str) -> dict:
@@ -770,6 +792,373 @@ def print_pgd_profile(torch, phase: str, what: str, run, n: int, iters: int) -> 
           f"{[round(n / w, 1) for w in walls]}); an iteration {it_ms:.3f} ms wall, {dev_ms:.3f} ms of "
           f"device kernels (device idle {100 * (1 - dev_ms / it_ms):.1f}% of the iteration; under the "
           f"profiler {prof_ms:.3f} ms wall, idle {100 * (1 - dev_ms / prof_ms):.1f}%)")
+
+
+# The bf16 opt-ins (ROBUSTBNNS_KERNEL_PRECISION=default, ROBUSTBNNS_BF16=1 and
+# --bf16, MCMC precision="default"). The bf16 kernels multiply the same bf16
+# operands as their twins, exactly in f32, summed in another order: each
+# output within the f32 gate of its twin, plus 2^-7 of its largest single
+# term |x_i||W_si|, for a W_s that the kernel and torch round an ulp apart in
+# f32 and that lands on the other bf16 neighbour. Against the exact f32
+# kernel, rounding both operands (unit roundoff 2^-8) moves an output by at
+# most 2·2^-8·Σ|x||W_s|, on top of the f32 gate. Either gate alone would pass
+# a kernel that skipped the rounding, so each kernel must also sit nearer its
+# bf16 twin than a tenth of its distance from the f32 kernel.
+BF16_FLIP_OF_TERM, BF16_F32_OF_SCALE, BF16_NEARER = 2.0**-7, 2 * 2.0**-8, 0.1
+BF16_ADJOINT_GATE = 2.0**-5  # the bf16 dx is not the exact adjoint of the rounded forward
+# ROBUSTBNNS_BF16 against f32 on the same draws: a chain of bf16 products
+# (conv outputs rounded to bf16 too) moves model_0's logits by about 5e-3 of
+# their largest entry (a CPU run of the port at conv-512), model_3's potential
+# by about 2e-6 relative and its gradient by about 7e-3 of its largest entry.
+# The card's bf16 logits must also sit nearer the port's CPU arithmetic
+# (bf16-rounded operands multiplied in f32, held to JAX by the CPU tests) than
+# BF16_MODEL_NEARER of their distance from f32 (root sums of squares over the
+# logits): any other arithmetic (f32, TF32) sits at about 1. Not 0.1: a
+# hidden value that two summation orders put an f32 ulp apart and round to
+# the other bf16 neighbour is rounded again in the next layer, and with
+# nothing but the batch split changed the port's own CPU runs at fc2-1024
+# part by up to 0.072 of that distance.
+BF16_LOGITS_OF_MAX, BF16_U_REL, BF16_GRAD_OF_MAX = 2.0**-5, 1e-4, 2.0**-5
+BF16_MODEL_NEARER = 0.25
+BF16_EMULATED_IMAGES = 16  # images of the CPU comparison
+PRECISION_HMC_IMAGES = 5000
+
+
+@contextlib.contextmanager
+def env_var(name: str, value):
+    """``os.environ[name] = value`` (unset for None) inside the block, restored after."""
+    before = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = before
+
+
+def phase_precision_kernels(torch) -> dict:
+    """Each bf16 kernel against its bf16 twin and the exact f32 kernel, at
+    model_7's shapes and the edge shapes, bit-identical across calls; times of
+    kernel, twin, one library call and the f32 kernel in this process; the
+    finite-difference adjoint of both precisions."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+
+    gen = torch.Generator(device="cuda").manual_seed(1235)
+    seed = 20261017
+    src, pallas = "robustbnns_tpu_torch/csrc/sampled_dense_bf16.cu", "robustbnns_tpu/ops/sampled_dense.py"
+    kinds = {  # kind: (bf16 wrapper, bf16 twin, f32 wrapper, Pallas line, shared input)
+        "fwd": (sd.sampled_dense_fwd_bf16, sd.sampled_dense_fwd_bf16_plain, sd.sampled_dense_fwd, 99, True),
+        "dx": (sd.sampled_dense_dx_bf16, sd.sampled_dense_dx_bf16_plain, sd.sampled_dense_dx, 114, True),
+        "xs_fwd": (sd.sampled_dense_xs_fwd_bf16, sd.sampled_dense_xs_fwd_bf16_plain, sd.sampled_dense_xs_fwd, 347,
+                   False),
+        "xs_dx": (sd.sampled_dense_xs_dx_bf16, sd.sampled_dense_xs_dx_bf16_plain, sd.sampled_dense_xs_dx, 362, False),
+    }
+    results = {}
+
+    def inputs(kind, b_dim, i_dim, o_dim, n_samples):
+        loc, rho, bloc, brho = _layer_inputs(torch, gen, i_dim, o_dim)
+        if kind == "fwd":
+            a = torch.rand((b_dim, i_dim), generator=gen, device="cuda")
+        elif kind == "xs_fwd":
+            a = torch.nn.functional.leaky_relu(torch.randn((n_samples, b_dim, i_dim), generator=gen, device="cuda"),
+                                               0.01)
+        else:
+            a = torch.randn((n_samples, b_dim, o_dim), generator=gen, device="cuda")
+        rest = (loc, rho, bloc, brho) if kind.endswith("fwd") else (loc, rho)
+        return a, rest
+
+    def check(kind, shape_text, a, rest, n_samples):
+        kernel, twin, f32_kernel, _, _ = kinds[kind]
+        got, again = kernel(a, *rest, n_samples, seed), kernel(a, *rest, n_samples, seed)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"[precision] {kind}_bf16 {shape_text}: two calls differ")
+        if not bool(torch.isfinite(got).all()):
+            fail(f"[precision] {kind}_bf16 {shape_text}: non-finite values")
+        ref, f32 = twin(a, *rest, n_samples, seed), f32_kernel(a, *rest, n_samples, seed)
+        scale = sd.bf16_error_scale(kind, a, rest[0], rest[1], n_samples, seed)
+        term = sd.bf16_error_scale(kind, a, rest[0], rest[1], n_samples, seed, largest=True)
+        err, err32 = (got - ref).abs(), (got - f32).abs()
+        twin_gate = BF16_FLIP_OF_TERM * term + RTOL * ref.abs() + ATOL_OF_MAX * float(ref.abs().max())
+        if not bool((err <= twin_gate).all()):
+            fail(f"[precision] {kind}_bf16 {shape_text}: kernel disagrees with its bf16 twin (max |err| "
+                 f"{float(err.max()):.3e}, worst share of its gate {float((err / twin_gate).max()):.3f})")
+        f32_gate = BF16_F32_OF_SCALE * scale + RTOL * f32.abs() + ATOL_OF_MAX * float(f32.abs().max())
+        if not bool((err32 <= f32_gate).all()):
+            fail(f"[precision] {kind}_bf16 {shape_text}: {float(err32.max()):.3e} from the f32 kernel, beyond the "
+                 f"bf16 rounding bound")
+        nearer = float(err.max()) / float(err32.max())
+        if not nearer < BF16_NEARER:
+            fail(f"[precision] {kind}_bf16 {shape_text}: {float(err.max()):.3e} from its bf16 twin against "
+                 f"{float(err32.max()):.3e} from the f32 kernel (ratio {nearer:.3e}, gate {BF16_NEARER}): "
+                 f"not the bf16 arithmetic")
+        return float(err.max()), float((err32 / scale).max()) / 2.0**-8, nearer
+
+    for li, (i_dim, o_dim) in enumerate(LAYERS):  # the main path's shapes, timed
+        for kind in (("fwd", "dx") if li == 0 else ("xs_fwd", "xs_dx")):
+            kernel, twin, f32_kernel, line, _ = kinds[kind]
+            a, rest = inputs(kind, B, i_dim, o_dim, S)
+            shape = f"B={B} S={S} I={i_dim} O={o_dim}"
+            err, share, nearer = check(kind, shape, a, rest, S)
+            w = sd._sampled_w(rest[0], rest[1], S, seed).to(torch.bfloat16)
+            a16 = a.to(torch.bfloat16)
+            if kind == "fwd":
+                lib = lambda: torch.bmm(a16.expand(S, B, i_dim), w, out_dtype=torch.float32)  # noqa: E731
+            elif kind == "xs_fwd":
+                lib = lambda: torch.bmm(a16, w, out_dtype=torch.float32)  # noqa: E731
+            elif kind == "dx":  # Σ_s g_s W_sᵀ as one product over (s, o)
+                g_cat = a16.permute(1, 0, 2).reshape(B, S * o_dim)
+                w_cat = w.permute(0, 2, 1).reshape(S * o_dim, i_dim)
+                lib = lambda: torch.mm(g_cat, w_cat, out_dtype=torch.float32)  # noqa: E731
+            else:
+                lib = lambda: torch.bmm(a16, w.transpose(1, 2), out_dtype=torch.float32)  # noqa: E731
+            run = lambda: kernel(a, *rest, S, seed)  # noqa: E731
+            c_ms = call_ms(torch, run)
+            ms, plain_ms, lib_ms = device_ms(torch, run), device_ms(torch, lambda: twin(a, *rest, S, seed)), \
+                device_ms(torch, lib)
+            f32_ms = device_ms(torch, lambda: f32_kernel(a, *rest, S, seed))
+            flops = 2.0 * S * B * i_dim * o_dim
+            out_numel = (B * i_dim if kind == "dx" else S * B * (o_dim if kind.endswith("fwd") else i_dim))
+            nbytes = 4.0 * (a.numel() + 2 * i_dim * o_dim + (2 * o_dim if kind.endswith("fwd") else 0) + out_numel)
+            b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+            name = f"sampled_dense_{kind}_bf16"
+            print(f"[precision] {name} {shape}: max|err| {err:.3e} from its bf16 twin ({nearer:.2e} of its max "
+                  f"distance from the f32 kernel, gate {BF16_NEARER}); from the f32 kernel at most {share:.3f} of "
+                  f"2^-8 sum|x||W| (gate 2); kernel {ms:.4f} ms (call {c_ms:.4f} ms), f32 kernel "
+                  f"{f32_ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}, {100 * b_ms / ms:.1f}% of the kernel)")
+            r = results.setdefault(name, {
+                "name": name, "route": "cuda", "source": src, "replaces": f"{pallas}:{line}",
+                "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "flops": 0.0, "bytes": 0.0, "library_ms": 0.0, "f32_ms": 0.0, "peak_flops": PEAK_BF16_FLOPS,
+                "per_shape": [],
+            })
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            for key, v in (("ms", ms), ("call_ms", c_ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                           ("bound_ms", b_ms), ("flops", flops), ("bytes", nbytes), ("f32_ms", f32_ms)):
+                r[key] += v
+            r["per_shape"].append({"shape": shape, "ms": ms, "call_ms": c_ms, "plain_ms": plain_ms,
+                                   "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "f32_ms": f32_ms,
+                                   "max_abs_err": err})
+    for kinds_here, shapes in ((("fwd", "xs_fwd"), FWD_EDGE_SHAPES), (("dx", "xs_dx"), DX_EDGE_SHAPES)):
+        for b_dim, i_dim, o_dim, n_samples in shapes:
+            errs = []
+            for kind in kinds_here:
+                a, rest = inputs(kind, b_dim, i_dim, o_dim, n_samples)
+                errs.append(check(kind, f"B={b_dim} I={i_dim} O={o_dim} S={n_samples}", a, rest, n_samples))
+            print(f"[precision] edge B={b_dim} I={i_dim} O={o_dim} S={n_samples}: max|err| from the bf16 twins "
+                  f"{kinds_here[0]} {errs[0][0]:.3e}, {kinds_here[1]} {errs[1][0]:.3e} ({errs[0][2]:.2e} and "
+                  f"{errs[1][2]:.2e} of the distance from the f32 kernel); bit-identical repeats")
+
+    # ⟨dx, v⟩ against ⟨g, (f(x + hv) − f(x − hv)) / 2h⟩ at model_7's first layer
+    i_dim, o_dim = LAYERS[0]
+    x, (loc, rho, bloc, brho) = inputs("fwd", B, i_dim, o_dim, S)
+    v = torch.randn(x.shape, generator=gen, device="cuda")
+    g = torch.randn((S, B, o_dim), generator=gen, device="cuda")
+    h, adjoint = 0.25, {}
+    for label, fwd, dx in (("f32", sd.sampled_dense_fwd, sd.sampled_dense_dx),
+                           ("bf16", sd.sampled_dense_fwd_bf16, sd.sampled_dense_dx_bf16)):
+        f = lambda a: fwd(a, loc, rho, bloc, brho, S, seed).double()  # noqa: E731
+        fd = float((g.double() * (f(x + h * v) - f(x - h * v))).sum()) / (2 * h)
+        ad = float((dx(g, loc, rho, S, seed).double() * v.double()).sum())
+        adjoint[label] = abs(ad - fd) / abs(fd)
+    if not (math.isfinite(adjoint["bf16"]) and adjoint["bf16"] < BF16_ADJOINT_GATE):
+        fail(f"[precision] the bf16 dx is {adjoint['bf16']:.3e} from the finite-difference adjoint "
+             f"(gate {BF16_ADJOINT_GATE:.3e})")
+    print(f"[precision] finite-difference adjoint at {B}x{i_dim}->{o_dim}, S={S}, h={h}: |<dx, v> - <g, fd>| / "
+          f"|<g, fd>| f32 {adjoint['f32']:.3e}, bf16 {adjoint['bf16']:.3e} (gate {BF16_ADJOINT_GATE:.3e})")
+    torch.cuda.synchronize()
+    return results
+
+
+def _cli_pgd_in_turns(torch, cli, flags, bf16_flags=(), bf16_env=None):
+    """PGD through the attack CLI in f32 and in bf16 (``bf16_flags`` added, or
+    ``bf16_env`` = (name, value) set), in turns f32, bf16, bf16, f32:
+    images/s of each, and the last run of each."""
+    rates, runs = {"f32": [], "bf16": []}, {}
+    for label in ("f32", "bf16", "bf16", "f32"):
+        bf16 = label == "bf16"
+        with env_var(*bf16_env) if bf16 and bf16_env else contextlib.nullcontext():
+            r = cli.main(flags + ["--attack_method=pgd"] + (list(bf16_flags) if bf16 else []))
+        torch.cuda.synchronize()
+        rates[label].append(len(r["x_test"]) / r["attack_seconds"])
+        runs[label] = r
+    return rates, runs
+
+
+def check_in_ball(torch, phase: str, r, eps: float = 0.3) -> None:
+    xa = r["x_attack"]
+    x = torch.as_tensor(r["x_test"], device=xa.device)
+    if xa.shape != x.shape or not bool(torch.isfinite(xa).all()):
+        fail(f"[{phase}] adversarial set has shape {tuple(xa.shape)} or non-finite values")
+    if float((xa - x).abs().max()) > eps + 1e-6 or float(xa.min()) < 0 or float(xa.max()) > 1:
+        fail(f"[{phase}] adversarial set leaves the eps-ball or [0, 1]")
+
+
+def emulated_nearer(torch, what: str, arch, params, x, low, exact) -> float:
+    """The card's bf16 logits ``low`` (and f32 ``exact``) of ``arch`` on
+    ``params`` and ``x``, against the same model in the port's CPU bf16
+    arithmetic on the first :data:`BF16_EMULATED_IMAGES` images: the distance
+    from the CPU's, as a share of the distance from f32 (root sums of squares),
+    must stay below :data:`BF16_MODEL_NEARER`. Returns that share."""
+    from robustbnns_tpu_torch.utils.device import bf16_scope
+    from robustbnns_tpu_torch.utils.pytree import map_params
+
+    n = BF16_EMULATED_IMAGES
+    with torch.no_grad(), bf16_scope():
+        cpu = arch.apply(map_params(lambda t: t.cpu(), params), x[:n].cpu())
+    low, exact = low[..., :n, :].cpu(), exact[..., :n, :].cpu()
+    share = float((low - cpu).norm()) / float((low - exact).norm())
+    if not share < BF16_MODEL_NEARER:
+        fail(f"[precision] {what}: the card's bf16 logits are {share:.3e} of their distance from f32 away from the "
+             f"CPU's bf16 arithmetic (gate {BF16_MODEL_NEARER}): not the bf16 products")
+    return share
+
+
+def phase_precision_paths(torch, workdir: str, main_counts: dict) -> dict:
+    """The opt-ins end to end: model_7's fused FGSM and PGD under
+    ROBUSTBNNS_KERNEL_PRECISION=default (bf16 kernels only, counted), PGD
+    images/s against f32 in turns and the f32 kernels back once it is unset;
+    model_0 through ``--bf16=True`` (logits against f32 on the same draws,
+    x_adv in its ball, PGD images/s in turns, no sampled-dense launch);
+    model_3's potential under HMC ``precision="default"`` against "high" at
+    batch 5,000 and evaluations/s in turns; a 2-draw NUTS run. Returns the
+    bf16 kernels' launches over model_7's FGSM + PGD."""
+    from robustbnns_tpu_torch.cli import attacks as cli
+    from robustbnns_tpu_torch.config import DATA, saved_BNNs
+    from robustbnns_tpu_torch.data.datasets import load_dataset
+    from robustbnns_tpu_torch.inference import hmc, nuts
+    from robustbnns_tpu_torch.inference.svi import sample_meanfield_eps
+    from robustbnns_tpu_torch.models.bnn import BNN, bnn_potential
+    from robustbnns_tpu_torch.ops.sampled_dense import launch_counts, reset_launch_counts
+    from robustbnns_tpu_torch.predict import sample_eps
+    from robustbnns_tpu_torch.utils.device import bf16_products, bf16_scope
+    from robustbnns_tpu_torch.utils.pytree import flatten_tree_to_vector
+
+    if not os.path.abspath(DATA).startswith(workdir):
+        fail(f"ROBUSTBNNS_DATA was not redirected to the temporary directory ({DATA})")
+    # model_7, fused, ROBUSTBNNS_KERNEL_PRECISION=default ([main] saved its posterior)
+    flags = ["--model_type=bnn", "--model_idx=7", "--fused=True", "--train=False", "--test=False",
+             "--n_inputs=256", "--device=cuda"]
+    with env_var("ROBUSTBNNS_KERNEL_PRECISION", "default"):
+        reset_launch_counts()
+        runs = {m: cli.main(flags + [f"--attack_method={m}"]) for m in ("fgsm", "pgd")}
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    print(f"[precision] model_7 fused FGSM + PGD under ROBUSTBNNS_KERNEL_PRECISION=default: launches "
+          f"{json.dumps(counts)}")
+    check_attack_launches("precision", counts, BF16_ATTACK_KERNELS)
+    if any(counts[b] != main_counts[f] for f, b in zip(ATTACK_KERNELS, BF16_ATTACK_KERNELS)):
+        fail(f"[precision] the bf16 kernels launched {counts}, not as often as [main]'s f32 ones {main_counts}")
+    for r in runs.values():
+        check_in_ball(torch, "precision", r)
+    reset_launch_counts()
+    rates, _ = _cli_pgd_in_turns(torch, cli, flags, bf16_env=("ROBUSTBNNS_KERNEL_PRECISION", "default"))
+    turns = launch_counts()  # two PGD runs of each precision: the same launches of each
+    if any(turns[f] != turns[b] or not turns[f] for f, b in zip(ATTACK_KERNELS, BF16_ATTACK_KERNELS)):
+        fail(f"[precision] PGD in turns, with the variable set and unset, launched {turns}")
+    reset_launch_counts()
+    cli.main(flags + ["--attack_method=fgsm", "--bf16=True"])
+    torch.cuda.synchronize()
+    check_attack_launches("precision", launch_counts())  # the fused path ignores ROBUSTBNNS_BF16
+    print(f"[precision] model_7 fused PGD on 256 images, in turns: f32 {[round(v, 1) for v in rates['f32']]} "
+          f"images/s, bf16 kernels {[round(v, 1) for v in rates['bf16']]} images/s; unset again, the f32 kernels "
+          f"launched {json.dumps({n: turns[n] for n in ATTACK_KERNELS})} as the bf16 ones did with it set; "
+          f"--bf16=True --fused=True keeps the fused path on the f32 kernels")
+
+    # model_0 through --bf16=True, unfused
+    bnn = BNN.from_config(saved_BNNs["model_0"], (28, 28, 1), 10, device="cuda")
+    bnn.posterior = seeded_posterior(torch, bnn.arch)
+    bnn.save(rel_path=DATA)
+    flags0 = ["--model_type=bnn", "--model_idx=0", "--train=False", "--test=False", "--n_inputs=256",
+              "--device=cuda"]
+    with no_sampled_dense_launch(torch, "precision"):
+        fgsm = cli.main(flags0 + ["--attack_method=fgsm", "--bf16=True"])
+        rates0, runs0 = _cli_pgd_in_turns(torch, cli, flags0, bf16_flags=["--bf16=True"])
+    if bf16_products():
+        fail("[precision] --bf16=True left the bf16 switch thrown after the run")
+    for r in (fgsm, runs0["bf16"]):
+        check_in_ball(torch, "precision", r)
+    post, x = fgsm["bnn"].posterior, torch.as_tensor(fgsm["x_test"][:B], device="cuda")
+    w = sample_meanfield_eps(post, sample_eps(post.loc, S, seeds=list(range(S)), device="cuda"))
+    with torch.no_grad():
+        exact = bnn.arch.apply(w, x)
+        with bf16_scope():
+            low = bnn.arch.apply(w, x)
+    logit_err = float((low - exact).abs().max() / exact.abs().max())
+    if not 0 < logit_err <= BF16_LOGITS_OF_MAX:
+        fail(f"[precision] model_0 bf16 logits {logit_err:.3e} of max from f32 (gate (0, {BF16_LOGITS_OF_MAX:.3e}])")
+    emu0 = emulated_nearer(torch, "model_0 conv-512", bnn.arch, w, x, low, exact)
+    print(f"[precision] model_0 conv-512 --bf16=True: FGSM and PGD x_adv in the eps-ball and [0, 1]; logits on "
+          f"{S} seeded draws {logit_err:.3e} of max from f32 (gate (0, {BF16_LOGITS_OF_MAX:.3e}]), {emu0:.3e} of "
+          f"that distance from the CPU's bf16 arithmetic on {BF16_EMULATED_IMAGES} images (gate "
+          f"{BF16_MODEL_NEARER}); PGD on 256 images in turns: f32 {[round(v, 1) for v in rates0['f32']]} images/s, bf16 "
+          f"{[round(v, 1) for v in rates0['bf16']]}")
+
+    # model_3 under HMC precision="default", batch 5,000, cut to a few transitions
+    bnn3 = BNN.from_config(saved_BNNs["model_3"], (28, 28, 1), 10, device="cuda")
+    x3, y3, _, _, _, _ = load_dataset("fashion_mnist", n_inputs=PRECISION_HMC_IMAGES, fallback="synthetic")
+    data = (torch.as_tensor(x3, device="cuda"), torch.as_tensor(y3, device="cuda").argmax(-1))
+    q, unravel = flatten_tree_to_vector(bnn3.arch.init(torch.Generator(device="cuda").manual_seed(3)))
+    pot = bnn_potential(bnn3.arch, unravel)
+    with no_sampled_dense_launch(torch, "precision"):
+        u_hi, g_hi = hmc._Potential(pot, data)(q)
+        u_lo, g_lo = hmc._Potential(pot, data, bf16=True)(q)
+        u_err = abs(float(u_lo - u_hi)) / abs(float(u_hi))
+        g_err = float((g_lo - g_hi).abs().max() / g_hi.abs().max())
+        if not (0 < u_err <= BF16_U_REL and 0 < g_err <= BF16_GRAD_OF_MAX):
+            fail(f"[precision] model_3 U {u_err:.3e} (relative, gate (0, {BF16_U_REL:.0e}]) and grad {g_err:.3e} of "
+                 f"max (gate (0, {BF16_GRAD_OF_MAX:.3e}]) from precision='high'")
+        x3b, params3 = data[0][:B], unravel(q)
+        with torch.no_grad():
+            exact3 = bnn3.arch.apply(params3, x3b)
+            with bf16_scope():
+                low3 = bnn3.arch.apply(params3, x3b)
+        emu3 = emulated_nearer(torch, "model_3 fc2-1024", bnn3.arch, params3, x3b, low3, exact3)
+        cfg = hmc.HMCConfig(num_samples=3, warmup=0, step_size=1e-4, num_steps=10)
+        rate = {"high": [], "default": []}
+        for precision in ("high", "default", "default", "high"):
+            out = []
+            secs = wall_s(torch, lambda: out.append(hmc.hmc_sample(pot, q, 5, cfg._replace(precision=precision),
+                                                                   data=data)))
+            samples, info = out[0]
+            if not bool(torch.isfinite(samples).all()):
+                fail(f"[precision] model_3 HMC precision={precision!r}: non-finite draws")
+            rate[precision].append(info.evaluations / secs)
+        ncfg = nuts.NUTSConfig(num_samples=2, warmup=0, step_size=1e-4, max_depth=6, precision="default")
+        out = []
+        nuts_s = wall_s(torch, lambda: out.append(nuts.nuts_sample(pot, q, 6, ncfg, data=data)))
+        draws, ninfo = out[0]
+        if draws.shape != (2, q.numel()) or not bool(torch.isfinite(draws).all()):
+            fail(f"[precision] NUTS precision='default': draws of shape {tuple(draws.shape)} or non-finite")
+    flags_tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    if any(flags_tf32):
+        fail(f"[precision] TF32 is on after the bf16 phase (matmul, cudnn) = {flags_tf32}")
+    print(f"[precision] model_3 fashion_mnist fc2-1024 (D={q.numel()}) at batch {PRECISION_HMC_IMAGES}: "
+          f"precision='default' U {u_err:.3e} relative from 'high' (gate (0, {BF16_U_REL:.0e}]), grad {g_err:.3e} of "
+          f"max (gate (0, {BF16_GRAD_OF_MAX:.3e}]); logits under the sampler's bf16 scope {emu3:.3e} of their "
+          f"distance from f32 away from the CPU's bf16 arithmetic (gate {BF16_MODEL_NEARER}); HMC, 3 transitions "
+          f"of 10 steps, in turns: 'high' "
+          f"{[round(v, 1) for v in rate['high']]} evaluations/s, 'default' {[round(v, 1) for v in rate['default']]}; "
+          f"NUTS 'default', 2 draws with no warmup: {nuts_s:.3f} s, leaves {ninfo.num_leapfrog.tolist()}, finite; "
+          f"TF32 off after (matmul, cudnn) = {flags_tf32}")
+    return counts
+
+
+def phase_precision(torch, workdir: str, main_counts: dict):
+    """``[precision]``: :func:`phase_precision_kernels`, then
+    :func:`phase_precision_paths`; the bf16 kernels' results and their
+    launches over model_7's FGSM + PGD."""
+    t0 = time.perf_counter()
+    results = phase_precision_kernels(torch)
+    counts = phase_precision_paths(torch, workdir, main_counts)
+    print(f"[precision] phase {time.perf_counter() - t0:.3f} s wall")
+    return results, counts
 
 
 def phase_training(torch) -> None:
@@ -1983,6 +2372,13 @@ def phase_env(torch) -> None:
             present[name] = False
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {numpy.__version__}, scipy "
           f"{scipy.__version__}; imports: {json.dumps(present)}")
+    a = torch.ones((16, 16), device="cuda", dtype=torch.bfloat16)
+    try:  # ROBUSTBNNS_BF16's dense layers need cuBLAS's bf16 GEMM with an f32 output
+        mm = torch.mm(a, a, out_dtype=torch.float32).dtype
+        bmm = torch.bmm(a[None], a[None], out_dtype=torch.float32).dtype
+        print(f"[env] torch.mm/bmm(bf16, bf16, out_dtype=torch.float32) on the card: {mm}, {bmm}")
+    except (TypeError, RuntimeError) as e:
+        fail(f"[env] torch {torch.__version__} has no f32-output bf16 GEMM on the card: {e}")
 
 
 def run_phase(torch, phase: str, fn, *args):
@@ -2306,6 +2702,7 @@ def main() -> None:
         grad_counts = phase_param_grad(torch)
         counts, main_runs = phase_main_path(torch, workdir)
         phase_attack_profile(torch)
+        bf16_kernels, bf16_counts = phase_precision(torch, workdir, counts)
         mesh_s = wall_s(torch, lambda: phase_mesh(torch, counts, main_runs))
         print(f"[mesh] phase {mesh_s:.3f} s wall")
         del main_runs
@@ -2356,13 +2753,14 @@ def main() -> None:
         run_phase(torch, "multimodal", phase_multimodal)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     line = []
-    for name, r in kernels.items():
+    for name, r in {**kernels, **bf16_kernels}.items():
         line.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
-            "launches": (grad_counts if name in DPARAMS else counts)[name],
+            "launches": (grad_counts if name in DPARAMS else bf16_counts if name in bf16_kernels else counts)[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": bound_ms(r["flops"], r["bytes"])[1], "library_ms": r["library_ms"],
+            "bound_by": bound_ms(r["flops"], r["bytes"], r.get("peak_flops", PEAK_FP32_FLOPS))[1],
+            "library_ms": r["library_ms"], **({"f32_ms": r["f32_ms"]} if "f32_ms" in r else {}),
             "per_shape": r["per_shape"],
         })
     print(json.dumps({"kernels": line}))

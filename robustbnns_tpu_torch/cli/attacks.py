@@ -21,6 +21,13 @@ first 10 stacked draws, trained by HMC in batches of 5,000 with
 ``--model_type=ensemble``: the 10-member ensemble of ``saved_NNs["model_<idx>"]``
 that ``cli.train_ensemble --ensemble_size=10`` saved, loaded and attacked
 through its mean raw logits.
+
+``--bf16=True`` runs the branch inside :func:`.utils.device.bf16_scope`, the
+switch that ``ROBUSTBNNS_BF16=1`` also throws (the JAX CLI sets that
+variable): every dense and conv product of the run (training with
+``--train=True``, evaluation and attack) takes bf16 operands with f32 sums. The fused kernels
+(``--fused=True``) do not read it: their bf16 variants follow
+``ROBUSTBNNS_KERNEL_PRECISION=default``, as JAX's Pallas kernels do.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import argparse
 
 from robustbnns_tpu_torch.cli.common import add_common_flags, boolean, load_data, setup_device, timed
 from robustbnns_tpu_torch.config import EnsembleConfig, resolve_rel_path, saved_BNNs, saved_NNs
+from robustbnns_tpu_torch.utils.device import bf16_scope
 
 EPSILON = 0.3  # reference adversarialAttacks.py:207
 ENSEMBLE_SIZE = 10  # reference :327
@@ -46,7 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--bf16", default=False, type=boolean,
-        help="bf16 matmuls for all forwards (not ported: the port is exact f32)",
+        help="bf16 operands for every dense and conv product of the run, f32 sums and results "
+             "(as ROBUSTBNNS_BF16=1 does, for this run only; the fused kernels follow "
+             "ROBUSTBNNS_KERNEL_PRECISION only)",
     )
     return parser
 
@@ -142,13 +152,14 @@ def main(args) -> dict:
     """
     if not isinstance(args, argparse.Namespace):
         args = build_parser().parse_args(args)
-    if args.bf16:
-        raise NotImplementedError("--bf16 is not ported: the port keeps exact f32")
     branches = {"nn": _nn_branch, "bnn": _bnn_branch, "ensemble": _ensemble_branch}
     if args.model_type not in branches:
         raise NotImplementedError(args.model_type)
     device = setup_device(args.device, args.mesh)
-    return branches[args.model_type](args, device, resolve_rel_path(args.savedir))
+    # JAX cli/attacks.py:61-68 sets ROBUSTBNNS_BF16 for the rest of the
+    # process; here the switch holds for this run only.
+    with bf16_scope(args.bf16):
+        return branches[args.model_type](args, device, resolve_rel_path(args.savedir))
 
 
 if __name__ == "__main__":

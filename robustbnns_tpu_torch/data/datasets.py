@@ -14,11 +14,17 @@ Numpy only, and byte-for-byte the JAX package's output:
 * ``n_inputs`` truncation of train and test, then an optional seeded shuffle
   (``utils.py:221-233``).
 
+Layout: NHWC (``channels='last'``, the default). ``channels='first'`` gives
+the JAX package's NCHW arrays: greyscale images reshaped to ``(N, 1, H, W)``,
+multi-channel ones (CIFAR-10, its surrogate) transposed from NHWC
+(``_finish_image_dataset``, JAX ``datasets.py:386-410``); Half Moons keeps its
+``(N, 1, 2, 1)`` shape either way. ``channels`` sits where the JAX signatures
+put it, so positional calls bind alike.
+
 Offline fallback: with no local copy the deterministic synthetic surrogate of
 the JAX package stands in for MNIST, Fashion-MNIST and CIFAR-10, generated by
 the same code (``SURROGATE_VERSION`` 2) and kept in the same cross-process
-cache. The port reads and serves NHWC only (the JAX package's
-``channels='first'`` is left out).
+cache.
 """
 from __future__ import annotations
 
@@ -86,10 +92,11 @@ def make_moons(n_samples: int, noise: float = 0.1, random_state: int = 0):
     return x, y
 
 
-def load_half_moons(n_samples: int = 30000) -> Arrays:
+def load_half_moons(channels: str = "last", n_samples: int = 30000) -> Arrays:
     """Half Moons with the reference's generation and normalization
     (``utils.py:67-92``): global min-max to [0, 1], an 80/20 split, the
-    ``(N, 1, 2, 1)`` image-like shape and one-hot(2) labels."""
+    ``(N, 1, 2, 1)`` image-like shape (for either ``channels``, as in the
+    reference) and one-hot(2) labels."""
     x, y = make_moons(n_samples, noise=0.1, random_state=0)
     x, y = x.astype("float32"), y.astype("float32")
     x = (x - np.min(x)) / (np.max(x) - np.min(x))
@@ -284,19 +291,33 @@ def _synthetic_image_dataset(name, rows, cols, chans, n_train, n_test):
     return train, test
 
 
-def _finish_image_dataset(train, test, rows, cols, n_chan) -> Arrays:
+def _finish_image_dataset(train, test, channels, rows, cols, n_chan) -> Arrays:
     (x_train, y_train), (x_test, y_test) = train, test
     x_train = x_train.astype("float32") / 255.0
     x_test = x_test.astype("float32") / 255.0
-    if x_train.ndim == 3:  # greyscale (N, H, W) -> NHWC
-        x_train = x_train.reshape(len(x_train), rows, cols, n_chan)
-        x_test = x_test.reshape(len(x_test), rows, cols, n_chan)
+    if x_train.ndim == 3:  # greyscale (N, H, W): reshaped to NCHW or NHWC
+        shape = (n_chan, rows, cols) if channels == "first" else (rows, cols, n_chan)
+        x_train = x_train.reshape((len(x_train),) + shape)
+        x_test = x_test.reshape((len(x_test),) + shape)
+    elif channels == "first":  # NHWC (CIFAR-10, multi-channel surrogates) -> NCHW
+        x_train = np.transpose(x_train, (0, 3, 1, 2))
+        x_test = np.transpose(x_test, (0, 3, 1, 2))
     y_train = labels_to_onehot(y_train.astype(np.int64).reshape(-1), 10)
     y_test = labels_to_onehot(y_test.astype(np.int64).reshape(-1), 10)
     return x_train, y_train, x_test, y_test, x_train.shape[1:], 10
 
 
-def load_cifar(fallback: str = "error") -> Arrays:
+def load_mnist(channels: str = "last", fallback: str = "error") -> Arrays:
+    """MNIST with the reference's preprocessing (``utils.py:121-145``)."""
+    return _finish_image_dataset(*_load_mnist_like("mnist", fallback), channels, 28, 28, 1)
+
+
+def load_fashion_mnist(channels: str = "last", fallback: str = "error") -> Arrays:
+    """Fashion-MNIST with the reference's preprocessing (``utils.py:95-118``)."""
+    return _finish_image_dataset(*_load_mnist_like("fashion_mnist", fallback), channels, 28, 28, 1)
+
+
+def load_cifar(channels: str = "last", fallback: str = "error") -> Arrays:
     """CIFAR-10 from local pickle batches (reference ``utils.py:160-206``).
 
     Search order: ``$ROBUSTBNNS_CIFAR_DIR``, ``data/cifar-10/``,
@@ -319,7 +340,7 @@ def load_cifar(fallback: str = "error") -> Arrays:
         fallback = os.environ.get(_FALLBACK_ENV, fallback)
         if fallback == "synthetic":
             train, test = _synthetic_image_dataset("cifar", 32, 32, 3, 50000, 10000)
-            return _finish_image_dataset(train, test, 32, 32, 3)
+            return _finish_image_dataset(train, test, channels, 32, 32, 3)
         raise FileNotFoundError(
             "No local CIFAR-10 pickle batches found (set $ROBUSTBNNS_CIFAR_DIR). "
             f"Pass fallback='synthetic' or set {_FALLBACK_ENV}=synthetic."
@@ -338,24 +359,29 @@ def load_cifar(fallback: str = "error") -> Arrays:
     d = unpickle(os.path.join(data_dir, "test_batch"))
     x_test = np.asarray(d["data"]).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
     return _finish_image_dataset(
-        (x_train, np.array(ys, dtype=np.int64)), (x_test, np.array(d["labels"], dtype=np.int64)), 32, 32, 3
+        (x_train, np.array(ys, dtype=np.int64)), (x_test, np.array(d["labels"], dtype=np.int64)),
+        channels, 32, 32, 3,
     )
 
 
 def load_dataset(
     dataset_name: str,
     n_inputs: Optional[int] = None,
+    channels: str = "last",
     shuffle: bool = False,
     fallback: str = "error",
     seed: int = 0,
 ) -> Arrays:
-    """Load any of the four datasets, NHWC (reference ``utils.py:208-235``)."""
-    if dataset_name in ("mnist", "fashion_mnist"):
-        out = _finish_image_dataset(*_load_mnist_like(dataset_name, fallback), 28, 28, 1)
+    """Load any of the four datasets, NHWC unless ``channels='first'``
+    (reference ``utils.py:208-235``)."""
+    if dataset_name == "mnist":
+        out = load_mnist(channels, fallback)
+    elif dataset_name == "fashion_mnist":
+        out = load_fashion_mnist(channels, fallback)
     elif dataset_name == "cifar":
-        out = load_cifar(fallback)
+        out = load_cifar(channels, fallback)
     elif dataset_name == "half_moons":
-        out = load_half_moons()
+        out = load_half_moons(channels)
     else:
         raise ValueError(f"Dataset {dataset_name!r} not available.")
     x_train, y_train, x_test, y_test, input_shape, num_classes = out

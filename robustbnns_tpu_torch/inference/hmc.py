@@ -41,9 +41,15 @@ replacement** from only the last batch's ``n_samples // num_batches + 1``
 draws. ``mode='full'`` runs one chain on all the data.
 
 Precision: ``"high"`` and ``"highest"`` both run exact f32 with TF32 off (at
-least as exact as the JAX package's bf16_3x ``"high"``). Single-pass bf16
-(``"default"``) is not ported and raises: a sampler never defaults to low
-precision, which froze adaptation in the JAX record (PERFORMANCE.md round 3).
+least as exact as the JAX package's bf16_3x ``"high"``). ``"default"`` is the
+opt-in to single-pass bf16: every potential and gradient evaluation runs
+inside :func:`.utils.device.bf16_scope`, so each dense and conv product of
+the architectures (``models/bnn.py`` ``bnn_potential``) takes bf16 operands
+with f32 sums, as ``jax.default_matmul_precision("default")`` makes them on
+the TPU. Unlike JAX's global context, the scope reaches only those products:
+a custom potential's own ``torch.matmul`` stays exact f32. No sampler
+defaults to it (``ROBUSTBNNS_MCMC_PRECISION`` may ask for it): it froze
+adaptation in the JAX record (PERFORMANCE.md round 3).
 """
 from __future__ import annotations
 
@@ -57,7 +63,7 @@ import numpy as np
 import torch
 
 from robustbnns_tpu_torch.parallel.mesh import reduce_sum
-from robustbnns_tpu_torch.utils.device import exact_f32
+from robustbnns_tpu_torch.utils.device import bf16_scope, exact_f32
 
 _LOG_HALF = math.log(0.5)
 _F32 = np.float32
@@ -107,12 +113,9 @@ def check_sampler(sampler: str) -> None:
 
 
 def check_precision(precision: str) -> None:
-    if precision == "default":
-        raise NotImplementedError(
-            "precision='default' (single-pass bf16) is not ported: the port's "
-            "samplers run exact f32 ('high' and 'highest')"
-        )
-    if precision not in ("high", "highest"):
+    """Refuse a precision other than ``default`` (bf16 products), ``high``
+    and ``highest`` (both exact f32)."""
+    if precision not in ("default", "high", "highest"):
         raise ValueError(f"unknown precision {precision!r}")
 
 
@@ -186,16 +189,18 @@ class _Potential:
     The graph of an evaluation is freed when it returns (no ``retain_graph``).
     With ``mesh``, ``data`` is this rank's rows and both are summed over the
     mesh's ``data`` axis in one all-reduce, so every rank holds the same
-    values (:mod:`.parallel.mesh`).
+    values (:mod:`.parallel.mesh`). With ``bf16``, the forward and the
+    backward run inside :func:`.utils.device.bf16_scope`.
     """
 
-    def __init__(self, potential_fn: Callable, data: tuple = (), mesh=None):
+    def __init__(self, potential_fn: Callable, data: tuple = (), mesh=None, bf16: bool = False):
         self.fn, self.data, self.mesh, self.evaluations = potential_fn, tuple(data), mesh, 0
+        self.bf16 = bf16
 
     def __call__(self, q: torch.Tensor):
         self.evaluations += 1
         q = q.detach().requires_grad_(True)
-        with torch.enable_grad():
+        with torch.enable_grad(), bf16_scope(self.bf16):
             u = self.fn(q, *self.data)
             if u.shape != q.shape[:-1]:
                 raise ValueError(
@@ -541,7 +546,7 @@ def hmc_sample(
         raise ValueError(f"init_position of shape {tuple(init_position.shape)} for {chains} chain(s)")
     if draws is None:
         draws = _seeded_draws(seed, q0.device)
-    vg = _Potential(potential_fn, () if data is None else data, mesh)
+    vg = _Potential(potential_fn, () if data is None else data, mesh, bf16=config.precision == "default")
     return _run_hmc_chain_chunked(vg, q0, draws, config, chunk_size, trace)
 
 

@@ -71,7 +71,9 @@ _MAX_DELTA_ENERGY = 1000.0  # Stan's divergence cutoff
 
 
 class NUTSConfig(NamedTuple):
-    """Sampler knobs (Stan/NumPyro defaults, as in the JAX package)."""
+    """Sampler knobs (Stan/NumPyro defaults, as in the JAX package).
+    ``precision`` as :class:`.hmc.HMCConfig`'s: ``"default"`` runs every
+    evaluation's dense and conv products on bf16 operands."""
 
     num_samples: int
     warmup: int
@@ -337,7 +339,7 @@ def nuts_sample(
         q0 = q0.expand(chains, -1)
     if q0.dim() != (1 if chains == 1 else 2) or (chains > 1 and q0.shape[0] != chains):
         raise ValueError(f"init_position of shape {tuple(init_position.shape)} for {chains} chain(s)")
-    vg = _Potential(potential_fn, () if data is None else data, mesh)
+    vg = _Potential(potential_fn, () if data is None else data, mesh, bf16=config.precision == "default")
     if chains == 1:
         samples, parts = _run_chain_chunked(vg, q0, _chain_draws(draws, seed, 1, q0.device)[0], config,
                                             chunk_size, trace)

@@ -21,6 +21,13 @@ S·32 output channels, then one grouped convolution (``groups=S``), with no loop
 over draws. With stacked parameters the input may carry the leading axis too,
 ``(S, batch, h, w, c)``, one batch per draw (an ensemble's members, each on its
 own shuffle): the first convolution then groups by draw as well.
+
+Under ``ROBUSTBNNS_BF16=1`` (or a sampler's ``bf16_scope``,
+:func:`.utils.device.bf16_products`) the products take bf16 operands as in the
+JAX package (``architectures.py:96-173``): a dense layer multiplies the
+bf16-rounded input and weights with f32 sums into an f32 result and adds the
+bias in f32 (:func:`bf16_matmul`); a conv runs wholly in bf16, its output
+included, then is upcast and gets its bias in f32.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import Callable, NamedTuple, Sequence
 import torch
 import torch.nn.functional as F
 
+from robustbnns_tpu_torch.utils.device import bf16_products
 from robustbnns_tpu_torch.utils.pytree import Params, map_params
 
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
@@ -61,9 +69,79 @@ def _uniform_fan_in(generator, shape, fan_in, device):
     return u * (2 * bound) - bound
 
 
+class _Bf16Matmul(torch.autograd.Function):
+    """``a @ b`` on the card through cuBLAS's bf16 GEMM with an f32 output
+    (``aten::mm.dtype`` / ``bmm.dtype``): bf16 operands, f32 sums. The
+    backward does the same with the cotangent rounded to bf16, and rounds
+    each gradient to bf16 as the cast back from a bf16 operand does in JAX."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ctx.save_for_backward(a16, b16)
+        ctx.shapes = a.shape, b.shape
+        return _mm_f32(a16, b16)
+
+    @staticmethod
+    def backward(ctx, g):
+        a16, b16 = ctx.saved_tensors
+        a_shape, b_shape = ctx.shapes
+        g16 = g.to(torch.bfloat16)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:  # summed over broadcast axes in f32, then rounded once
+            ga = _mm_f32(g16, b16.transpose(-1, -2)).sum_to_size(a_shape).to(torch.bfloat16).float()
+        if ctx.needs_input_grad[1]:
+            gb = _mm_f32(a16.transpose(-1, -2), g16).sum_to_size(b_shape).to(torch.bfloat16).float()
+        return ga, gb
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 CUDA tensors (broadcast like ``torch.matmul``, at
+    least 2-D each) into f32. Raises where this torch has no f32-output bf16
+    GEMM on the card: there is no second route."""
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    try:
+        if not lead:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        a3 = a.expand(lead + a.shape[-2:]).reshape(-1, *a.shape[-2:])
+        b3 = b.expand(lead + b.shape[-2:]).reshape(-1, *b.shape[-2:])
+        return torch.bmm(a3, b3, out_dtype=torch.float32).reshape(lead + (a.shape[-2], b.shape[-1]))
+    except (TypeError, NotImplementedError) as e:  # no out_dtype argument, or no kernel for it
+        raise RuntimeError(
+            f"ROBUSTBNNS_BF16 needs torch.mm/bmm(..., out_dtype=torch.float32) on bf16 CUDA tensors, "
+            f"which torch {torch.__version__} refused: {e}"
+        ) from e
+
+
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (``torch.matmul``'s broadcasting, both at least 2-D) with
+    both operands rounded to bf16, the products and sums in f32 and an f32
+    result: JAX's ``jnp.dot(a.astype(bf16), b.astype(bf16),
+    preferred_element_type=f32)``. On the CPU the rounded operands are
+    multiplied in f32 (a product of two bf16 values is exact in f32), and
+    autograd rounds each gradient to bf16 at the cast, as JAX does; on the
+    card :class:`_Bf16Matmul`."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float())
+    return _Bf16Matmul.apply(a, b)
+
+
 def _dense(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """``x @ w + b``; with stacked ``w`` (S, I, O) and ``b`` (S, O) it gives (S, B, O)."""
+    """``x @ w + b``; with stacked ``w`` (S, I, O) and ``b`` (S, O) it gives (S, B, O).
+    Under :func:`.utils.device.bf16_products`, :func:`bf16_matmul`."""
+    if bf16_products():
+        return bf16_matmul(x, p["w"]) + p["b"].unsqueeze(-2)
     return torch.matmul(x, p["w"]) + p["b"].unsqueeze(-2)
+
+
+def _conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int) -> torch.Tensor:
+    """``F.conv2d`` (VALID, OIHW); under :func:`.utils.device.bf16_products`
+    wholly in bf16, output included, then upcast, the bias added in f32
+    (JAX ``architectures.py:103-111``)."""
+    if bf16_products():
+        y = F.conv2d(h.to(torch.bfloat16), w.to(torch.bfloat16), groups=groups).float()
+        return y + b[:, None, None]
+    return F.conv2d(h, w, b, groups=groups)
 
 
 def _oihw(w: torch.Tensor) -> torch.Tensor:
@@ -86,9 +164,9 @@ def _conv_trunk_apply(act, params: Params, x: torch.Tensor) -> torch.Tensor:
         h, groups = x.permute(1, 0, 4, 2, 3).reshape(x.shape[1], -1, x.shape[2], x.shape[3]), n_draws
     else:
         h, groups = x.permute(0, 3, 1, 2), 1  # NHWC -> NCHW
-    h = F.conv2d(h, _oihw(params[0]["w"]), params[0]["b"].reshape(-1), groups=groups)
+    h = _conv2d(h, _oihw(params[0]["w"]), params[0]["b"].reshape(-1), groups)
     h = F.max_pool2d(act(h), 2, 2)
-    h = F.conv2d(h, _oihw(params[1]["w"]), params[1]["b"].reshape(-1), groups=n_draws)
+    h = _conv2d(h, _oihw(params[1]["w"]), params[1]["b"].reshape(-1), n_draws)
     h = F.max_pool2d(act(h), 2, 1)  # (B, S·hidden, h4, w4)
     batch, _, h4, w4 = h.shape
     h = h.reshape(batch, n_draws, -1, h4, w4).permute(1, 0, 3, 4, 2).reshape(n_draws, batch, -1)

@@ -30,6 +30,14 @@ at row ``i = I``. The stream is not the TPU's (that one depends on its tiling);
 it is the same in every kernel here and in the plain twins, which compute it
 with int64 tensor arithmetic.
 
+``ROBUSTBNNS_KERNEL_PRECISION=default``, read at every call as the JAX package
+reads it (``_dot_precision``, ``sampled_dense.py:44-65``), routes the forward
+and input-gradient wrappers to bf16 variants (``csrc/sampled_dense_bf16.cu``,
+counted as ``<wrapper>_bf16``): x (or g) and W_s rounded to bf16, products on
+the tensor cores summed in f32, f32 outputs; the noise, W_s in f32 and the bias
+as above. Their twins round the same operands and multiply them in f32. The
+parameter-gradient wrappers have no bf16 variant yet and raise under it.
+
 Each wrapper launches its kernel for CUDA tensors (or raises), and runs its
 plain PyTorch twin for CPU tensors only. Each counts its kernel launches in
 ``<wrapper>.launches``. The autograd backward launches the dx kernel only when
@@ -40,6 +48,7 @@ can drop one by one (``sampled_dense.py:252-254``).
 from __future__ import annotations
 
 import ctypes
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -158,6 +167,56 @@ def sampled_dense_dparams_plain(g, x, rho, brho, n_samples: int, seed: int):
 sampled_dense_xs_dparams_plain = sampled_dense_dparams_plain
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest, ties to even) and back to f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def sampled_dense_fwd_bf16_plain(x, loc, rho, bloc, brho, n_samples: int, seed: int):
+    """The bf16 kernels' function: the f32 twin's W_s and b_s, then
+    bf16(x) @ bf16(W_s) in f32 (each product of two bf16 values is exact in
+    f32) + b_s."""
+    w, b = sampled_weights(loc, rho, bloc, brho, n_samples, seed)
+    return torch.matmul(_bf16(x), _bf16(w)) + b[:, None, :]
+
+
+def sampled_dense_dx_bf16_plain(g, loc, rho, n_samples: int, seed: int):
+    return torch.matmul(_bf16(g), _bf16(_sampled_w(loc, rho, n_samples, seed)).transpose(1, 2)).sum(0)
+
+
+sampled_dense_xs_fwd_bf16_plain = sampled_dense_fwd_bf16_plain
+
+
+def sampled_dense_xs_dx_bf16_plain(g, loc, rho, n_samples: int, seed: int):
+    return torch.matmul(_bf16(g), _bf16(_sampled_w(loc, rho, n_samples, seed)).transpose(1, 2))
+
+
+def bf16_error_scale(kind: str, a, loc, rho, n_samples: int, seed: int, largest: bool = False) -> torch.Tensor:
+    """Per output of ``kind`` (``fwd``, ``xs_fwd``, ``dx``, ``xs_dx``), the sum
+    over its contraction of |a|·|W_s| (``a`` is x, xs or g), or with
+    ``largest`` the largest single term. Rounding both operands of every
+    product to bf16 (unit roundoff 2⁻⁸) moves the output by at most about
+    2·2⁻⁸ of the sum; a W_s that rounds to the other bf16 neighbour moves one
+    term by at most 2⁻⁷ of its own |a|·|W_s|, so at most 2⁻⁷ of the largest."""
+    w, a = _sampled_w(loc, rho, n_samples, seed).abs(), a.abs()
+    fwd = kind in ("fwd", "xs_fwd")
+    if not largest:
+        out = torch.matmul(a, w if fwd else w.transpose(1, 2))
+        return out.sum(0) if kind == "dx" else out
+    rows = []  # one sample, 256 rows at a time: (rows, I, O) products
+    for s in range(n_samples):
+        a_s = a if a.dim() == 2 else a[s]
+        rows.append(torch.cat([(c[:, :, None] * w[s]).amax(1) if fwd else (c[:, None, :] * w[s]).amax(2)
+                               for c in a_s.split(256)]))
+    out = torch.stack(rows)
+    return out.amax(0) if kind == "dx" else out
+
+
+def kernel_precision_default() -> bool:
+    """``ROBUSTBNNS_KERNEL_PRECISION=default``: the bf16 variants (read per call)."""
+    return os.environ.get("ROBUSTBNNS_KERNEL_PRECISION") == "default"
+
+
 # --------------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
@@ -170,6 +229,10 @@ _SIGNATURES = {
     "sampled_dense_xs_dx": ("sampled_dense_dx.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_dparams": ("sampled_dense_dparams.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_xs_dparams": ("sampled_dense_dparams.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_fwd_bf16": ("sampled_dense_bf16.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_xs_fwd_bf16": ("sampled_dense_bf16.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_dx_bf16": ("sampled_dense_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_xs_dx_bf16": ("sampled_dense_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
 }
 
 
@@ -211,6 +274,22 @@ def _check_params(loc, rho, bloc=None, brho=None) -> None:
     for v in (bloc, brho):
         if v is not None and v.shape != loc.shape[1:]:
             raise ValueError(f"bloc/brho must be (O,) = {loc.shape[1:]}, got {v.shape}")
+
+
+def _check_input(x, loc, rho, bloc, brho, n_samples) -> None:
+    """A forward's input: x (B, I), or xs (S, B, I) where ``n_samples`` is given."""
+    _check_params(loc, rho, bloc, brho)
+    if n_samples is None and (x.dim() != 2 or x.shape[1] != loc.shape[0]):
+        raise ValueError(f"x must be (B, I={loc.shape[0]}), got {tuple(x.shape)}")
+    if n_samples is not None and (x.dim() != 3 or x.shape[0] != n_samples or x.shape[2] != loc.shape[0]):
+        raise ValueError(f"xs must be (S={n_samples}, B, I={loc.shape[0]}), got {tuple(x.shape)}")
+
+
+def _check_cotangent(g, loc, rho, n_samples: int) -> None:
+    """An input gradient's cotangent g (S, B, O)."""
+    _check_params(loc, rho)
+    if g.dim() != 3 or g.shape[0] != n_samples or g.shape[2] != loc.shape[1]:
+        raise ValueError(f"g must be (S={n_samples}, B, O={loc.shape[1]}), got {tuple(g.shape)}")
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -396,28 +475,43 @@ def dparams_sample_runs(plan: DparamsPlan, n_samples: int) -> list[range]:
     return [range(n_samples * r // n, n_samples * (r + 1) // n) for r in range(n)]
 
 
-def _fwd_launch(name: str, x, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
+def _fwd_launch(wrapper, plain, x, loc, rho, bloc, brho, n_samples: int, seed: int,
+                narrow_softplus: bool = False) -> torch.Tensor:
+    """``plain`` on CPU tensors; else the kernel named as ``wrapper``, counted
+    on it. ``narrow_softplus``: the kernel's narrow path (O <= 16) also reads
+    softplus(rho) from the (I, O) scratch (the wide path always does)."""
+    if _on_cpu(x, loc, rho, bloc, brho):
+        return plain(x, loc, rho, bloc, brho, n_samples, seed)
+    _check_cuda(x, loc, rho, bloc, brho)
     b_dim, i_dim = x.shape[-2:]
     o_dim = loc.shape[1]
     plan = fwd_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(x.device))
     out = torch.empty((n_samples, b_dim, o_dim), device=x.device)
-    sp = None if plan.narrow else torch.empty_like(rho)
+    sp = torch.empty_like(rho) if narrow_softplus or not plan.narrow else None
     partials = torch.empty(plan.scratch, device=x.device) if plan.scratch else None
-    _launch(name, x.device, x.data_ptr(), loc.data_ptr(), rho.data_ptr(), bloc.data_ptr(), brho.data_ptr(),
-            *(t.data_ptr() if t is not None else None for t in (sp, partials)), out.data_ptr(),
+    _launch(wrapper.__name__, x.device, x.data_ptr(), loc.data_ptr(), rho.data_ptr(), bloc.data_ptr(),
+            brho.data_ptr(), *(t.data_ptr() if t is not None else None for t in (sp, partials)), out.data_ptr(),
             n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
+    wrapper.launches += 1
     return out
 
 
-def _dx_launch(name: str, g, loc, rho, n_samples: int, seed: int, sum_samples: bool) -> torch.Tensor:
+def _dx_launch(wrapper, plain, g, loc, rho, n_samples: int, seed: int, sum_samples: bool,
+               narrow_softplus: bool = False) -> torch.Tensor:
+    """As :func:`_fwd_launch` for the input-gradient kernels; ``sum_samples``
+    gives dx (B, I), else dxs (S, B, I)."""
+    if _on_cpu(g, loc, rho):
+        return plain(g, loc, rho, n_samples, seed)
+    _check_cuda(g, loc, rho)
     (_, b_dim, o_dim), i_dim = g.shape, loc.shape[0]
     plan = dx_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(g.device), sum_samples)
     out = torch.empty((b_dim, i_dim) if sum_samples else (n_samples, b_dim, i_dim), device=g.device)
-    sp = None if plan.narrow else torch.empty_like(rho)
+    sp = torch.empty_like(rho) if narrow_softplus or not plan.narrow else None
     partials = torch.empty(plan.scratch, device=g.device) if plan.scratch else None
-    _launch(name, g.device, g.data_ptr(), loc.data_ptr(), rho.data_ptr(),
+    _launch(wrapper.__name__, g.device, g.data_ptr(), loc.data_ptr(), rho.data_ptr(),
             *(t.data_ptr() if t is not None else None for t in (sp, partials)), out.data_ptr(),
             n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
+    wrapper.launches += 1
     return out
 
 
@@ -435,15 +529,10 @@ def sampled_dense_fwd(x, loc, rho, bloc, brho, n_samples: int, seed: int) -> tor
     scratch; O <= 16 takes a narrow path that splits I over blocks. A call
     launches up to three CUDA kernels and counts one launch.
     """
-    _check_params(loc, rho, bloc, brho)
-    if x.dim() != 2 or x.shape[1] != loc.shape[0]:
-        raise ValueError(f"x must be (B, I={loc.shape[0]}), got {tuple(x.shape)}")
-    if _on_cpu(x, loc, rho, bloc, brho):
-        return sampled_dense_fwd_plain(x, loc, rho, bloc, brho, n_samples, seed)
-    _check_cuda(x, loc, rho, bloc, brho)
-    out = _fwd_launch("sampled_dense_fwd", x, loc, rho, bloc, brho, n_samples, seed)
-    sampled_dense_fwd.launches += 1
-    return out
+    _check_input(x, loc, rho, bloc, brho, None)
+    if kernel_precision_default():
+        return sampled_dense_fwd_bf16(x, loc, rho, bloc, brho, n_samples, seed)
+    return _fwd_launch(sampled_dense_fwd, sampled_dense_fwd_plain, x, loc, rho, bloc, brho, n_samples, seed)
 
 
 def sampled_dense_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
@@ -462,15 +551,10 @@ def sampled_dense_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
     scratch; O <= 16 takes a narrow path that sums over S in registers.
     A call launches up to three CUDA kernels and counts one launch.
     """
-    _check_params(loc, rho)
-    if g.dim() != 3 or g.shape[0] != n_samples or g.shape[2] != loc.shape[1]:
-        raise ValueError(f"g must be (S={n_samples}, B, O={loc.shape[1]}), got {tuple(g.shape)}")
-    if _on_cpu(g, loc, rho):
-        return sampled_dense_dx_plain(g, loc, rho, n_samples, seed)
-    _check_cuda(g, loc, rho)
-    dx = _dx_launch("sampled_dense_dx", g, loc, rho, n_samples, seed, sum_samples=True)
-    sampled_dense_dx.launches += 1
-    return dx
+    _check_cotangent(g, loc, rho, n_samples)
+    if kernel_precision_default():
+        return sampled_dense_dx_bf16(g, loc, rho, n_samples, seed)
+    return _dx_launch(sampled_dense_dx, sampled_dense_dx_plain, g, loc, rho, n_samples, seed, sum_samples=True)
 
 
 def sampled_dense_xs_fwd(xs, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
@@ -482,15 +566,10 @@ def sampled_dense_xs_fwd(xs, loc, rho, bloc, brho, n_samples: int, seed: int) ->
     at the 10-class head. Same design as :func:`sampled_dense_fwd`, xs[s] read
     by the blocks of sample s.
     """
-    _check_params(loc, rho, bloc, brho)
-    if xs.dim() != 3 or xs.shape[0] != n_samples or xs.shape[2] != loc.shape[0]:
-        raise ValueError(f"xs must be (S={n_samples}, B, I={loc.shape[0]}), got {tuple(xs.shape)}")
-    if _on_cpu(xs, loc, rho, bloc, brho):
-        return sampled_dense_xs_fwd_plain(xs, loc, rho, bloc, brho, n_samples, seed)
-    _check_cuda(xs, loc, rho, bloc, brho)
-    out = _fwd_launch("sampled_dense_xs_fwd", xs, loc, rho, bloc, brho, n_samples, seed)
-    sampled_dense_xs_fwd.launches += 1
-    return out
+    _check_input(xs, loc, rho, bloc, brho, n_samples)
+    if kernel_precision_default():
+        return sampled_dense_xs_fwd_bf16(xs, loc, rho, bloc, brho, n_samples, seed)
+    return _fwd_launch(sampled_dense_xs_fwd, sampled_dense_xs_fwd_plain, xs, loc, rho, bloc, brho, n_samples, seed)
 
 
 def sampled_dense_xs_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
@@ -507,15 +586,65 @@ def sampled_dense_xs_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
     x 32 inputs a block, one Philox quad a thread, 128-byte lines of dxs. A
     call launches up to three CUDA kernels and counts one launch.
     """
-    _check_params(loc, rho)
-    if g.dim() != 3 or g.shape[0] != n_samples or g.shape[2] != loc.shape[1]:
-        raise ValueError(f"g must be (S={n_samples}, B, O={loc.shape[1]}), got {tuple(g.shape)}")
-    if _on_cpu(g, loc, rho):
-        return sampled_dense_xs_dx_plain(g, loc, rho, n_samples, seed)
-    _check_cuda(g, loc, rho)
-    dxs = _dx_launch("sampled_dense_xs_dx", g, loc, rho, n_samples, seed, sum_samples=False)
-    sampled_dense_xs_dx.launches += 1
-    return dxs
+    _check_cotangent(g, loc, rho, n_samples)
+    if kernel_precision_default():
+        return sampled_dense_xs_dx_bf16(g, loc, rho, n_samples, seed)
+    return _dx_launch(sampled_dense_xs_dx, sampled_dense_xs_dx_plain, g, loc, rho, n_samples, seed, sum_samples=False)
+
+
+def sampled_dense_fwd_bf16(x, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
+    """Pallas ``_fwd_kernel`` under ``Precision.DEFAULT`` -> the tensor-core
+    kernel of ``csrc/sampled_dense_bf16.cu``. (B, I) -> (S, B, O) =
+    bf16(x) bf16(W_s) + b_s with f32 sums; reached through
+    :func:`sampled_dense_fwd` under ``ROBUSTBNNS_KERNEL_PRECISION=default``.
+
+    Bound on the H100: 2·S·B·I·O FLOP at the 989 TFLOP/s bf16 peak is below
+    moving the operands once; the S·I·O normals drawn on the FP32 pipe set
+    the floor. Design: :func:`fwd_plan`'s tiles and runs, each chunk's x and
+    W_s rounded to bf16 in shared memory, ``mma.sync.m16n8k16`` with f32
+    accumulators; one launch counted.
+    """
+    _check_input(x, loc, rho, bloc, brho, None)
+    return _fwd_launch(sampled_dense_fwd_bf16, sampled_dense_fwd_bf16_plain, x, loc, rho, bloc, brho, n_samples,
+                       seed, narrow_softplus=True)
+
+
+def sampled_dense_dx_bf16(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
+    """Pallas ``_bwd_dx_kernel`` under ``Precision.DEFAULT`` -> the tensor-core
+    kernel of ``csrc/sampled_dense_bf16.cu``. g (S, B, O) -> dx (B, I) =
+    Σ_s bf16(g_s) bf16(W_s)ᵀ with f32 sums. Bound and design as
+    :func:`sampled_dense_fwd_bf16`, on :func:`dx_plan`'s tiles and runs (the
+    fixed-order sum of partials kept: bit-identical from call to call).
+    """
+    _check_cotangent(g, loc, rho, n_samples)
+    return _dx_launch(sampled_dense_dx_bf16, sampled_dense_dx_bf16_plain, g, loc, rho, n_samples, seed,
+                      sum_samples=True, narrow_softplus=True)
+
+
+def sampled_dense_xs_fwd_bf16(xs, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
+    """Pallas ``_fwd_kernel_xs`` under ``Precision.DEFAULT``: as
+    :func:`sampled_dense_fwd_bf16` with the per-sample input xs (S, B, I)."""
+    _check_input(xs, loc, rho, bloc, brho, n_samples)
+    return _fwd_launch(sampled_dense_xs_fwd_bf16, sampled_dense_xs_fwd_bf16_plain, xs, loc, rho, bloc, brho,
+                       n_samples, seed, narrow_softplus=True)
+
+
+def sampled_dense_xs_dx_bf16(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
+    """Pallas ``_bwd_xs_dx_kernel`` under ``Precision.DEFAULT``: dxs[s] =
+    bf16(g_s) bf16(W_s)ᵀ with f32 sums, as :func:`sampled_dense_dx_bf16`
+    with one sample per block row."""
+    _check_cotangent(g, loc, rho, n_samples)
+    return _dx_launch(sampled_dense_xs_dx_bf16, sampled_dense_xs_dx_bf16_plain, g, loc, rho, n_samples, seed,
+                      sum_samples=False, narrow_softplus=True)
+
+
+def _refuse_bf16_dparams(name: str) -> None:
+    if kernel_precision_default():
+        raise NotImplementedError(
+            f"{name} under ROBUSTBNNS_KERNEL_PRECISION=default: the bf16 parameter-gradient kernels "
+            "are not ported yet (the bf16 slice of the port covers the forward and input-gradient kernels; "
+            "ROADMAP.md Queue 2). Unset the variable for the exact f32 kernel."
+        )
 
 
 def _check_dparams(g, x, rho, brho, n_samples: int, x_lead: tuple) -> None:
@@ -561,6 +690,7 @@ def sampled_dense_dparams(g, x, rho, brho, n_samples: int, seed: int):
     launch.
     """
     _check_dparams(g, x, rho, brho, n_samples, ())
+    _refuse_bf16_dparams("sampled_dense_dparams")
     if _on_cpu(g, x, rho, brho):
         return sampled_dense_dparams_plain(g, x, rho, brho, n_samples, seed)
     out = _launch_dparams("sampled_dense_dparams", g, x, rho, brho, n_samples, seed)
@@ -580,6 +710,7 @@ def sampled_dense_xs_dparams(g, xs, rho, brho, n_samples: int, seed: int):
     :func:`sampled_dense_dparams`, xs[s] read for sample s.
     """
     _check_dparams(g, xs, rho, brho, n_samples, (n_samples,))
+    _refuse_bf16_dparams("sampled_dense_xs_dparams")
     if _on_cpu(g, xs, rho, brho):
         return sampled_dense_xs_dparams_plain(g, xs, rho, brho, n_samples, seed)
     out = _launch_dparams("sampled_dense_xs_dparams", g, xs, rho, brho, n_samples, seed)
@@ -590,6 +721,7 @@ def sampled_dense_xs_dparams(g, xs, rho, brho, n_samples: int, seed: int):
 KERNEL_WRAPPERS = (
     sampled_dense_fwd, sampled_dense_dx, sampled_dense_dparams,
     sampled_dense_xs_fwd, sampled_dense_xs_dx, sampled_dense_xs_dparams,
+    sampled_dense_fwd_bf16, sampled_dense_dx_bf16, sampled_dense_xs_fwd_bf16, sampled_dense_xs_dx_bf16,
 )
 for _wrapper in KERNEL_WRAPPERS:
     _wrapper.launches = 0

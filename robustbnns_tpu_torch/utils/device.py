@@ -4,10 +4,21 @@ Entry points run on ``cuda`` unless the caller asks for the CPU. A request for
 ``cuda`` on a machine without a card raises: nothing falls back to the CPU.
 Every entry point resolves its device here, so every one runs exact f32 and
 reproducibly.
+
+The one opt-in to reduced precision of the dense and conv products is decided
+here too (:func:`bf16_products`): ``ROBUSTBNNS_BF16=1``, read at each call as
+the JAX package reads it per trace (``models/architectures.py:151-163``), or
+an open :func:`bf16_scope`, which the samplers open around each potential
+evaluation under ``precision="default"``. Neither touches the TF32 flags.
 """
 from __future__ import annotations
 
+import contextlib
+import os
+
 import torch
+
+_bf16_scopes = 0  # open bf16_scope contexts in this process
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -35,3 +46,27 @@ def exact_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
+
+
+def bf16_products() -> bool:
+    """Whether dense and conv products take bf16 operands: ``ROBUSTBNNS_BF16=1``
+    or an open :func:`bf16_scope`. Read at every product, never cached."""
+    return _bf16_scopes > 0 or os.environ.get("ROBUSTBNNS_BF16") == "1"
+
+
+@contextlib.contextmanager
+def bf16_scope(enabled: bool = True):
+    """Run the block's dense and conv products on bf16 operands (with
+    ``enabled``), as ``jax.default_matmul_precision("default")`` does on the
+    TPU for a sampler's potential. Only the products of
+    :mod:`.models.architectures` read it: a custom potential's own
+    ``torch.matmul`` stays exact f32."""
+    global _bf16_scopes
+    if not enabled:
+        yield
+        return
+    _bf16_scopes += 1
+    try:
+        yield
+    finally:
+        _bf16_scopes -= 1

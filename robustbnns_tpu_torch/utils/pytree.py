@@ -85,3 +85,25 @@ def flatten_tree_to_vector(tree: Params):
         return tuple({k: next(parts) for k in layer_keys} for layer_keys in keys)
 
     return flat, unravel
+
+
+def tree_map_with_path_names(fn: Callable[[str, Any], Any], tree: Any) -> Any:
+    """Map ``fn(name, leaf)`` over a tree with '/'-joined string paths, the
+    JAX package's (``_path_str``, ``pytree.py:62-77``): a dict key as itself
+    (keys in sorted order), a list or tuple index as its number, a NamedTuple
+    field as ``.name``; ``None`` stays ``None``, and a bare leaf has the path ''.
+    Tuples of ``{"w", "b"}`` layers give ``0/b``, ``0/w``, ...; a
+    ``MeanFieldPosterior`` gives ``.loc/0/b``, ..."""
+
+    def go(node, path):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: go(node[k], path + (str(k),)) for k in sorted(node)}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(go(v, path + ("." + f,)) for f, v in zip(node._fields, node)))
+        if isinstance(node, (list, tuple)):
+            return type(node)(go(v, path + (str(i),)) for i, v in enumerate(node))
+        return fn("/".join(path), node)
+
+    return go(tree, ())

@@ -1,6 +1,7 @@
-"""The port's datasets, per-class subsets, host partitioning and image grids
-(``data/datasets.py``, ``data/loaders.py``, ``parallel/distributed.py``,
-``utils/plotting.py``) against the JAX package's and sklearn's, on the CPU.
+"""The port's datasets, per-class subsets, the epoch iterator, host
+partitioning and image grids (``data/datasets.py``, ``data/loaders.py``,
+``parallel/distributed.py``, ``utils/plotting.py``) against the JAX package's
+and sklearn's, on the CPU.
 
 Every comparison is exact: the arrays are numpy's on both sides, so they
 must be equal byte for byte (``make_moons`` against sklearn's included), and
@@ -14,11 +15,18 @@ import pytest
 from sklearn.datasets import make_moons as sk_make_moons
 
 from robustbnns_tpu.data import datasets as jax_datasets
+import jax
+import jax.numpy as jnp
+import torch
+
+import robustbnns_tpu.data as jax_data
+import robustbnns_tpu_torch.data as data
+from robustbnns_tpu.data.loaders import Batches as JaxBatches
 from robustbnns_tpu.data.loaders import classwise_arrays as jax_classwise_arrays
 from robustbnns_tpu.parallel import distributed as jax_distributed
 from robustbnns_tpu.utils import plotting as jax_plotting
 from robustbnns_tpu_torch.data import datasets
-from robustbnns_tpu_torch.data.loaders import classwise_arrays
+from robustbnns_tpu_torch.data.loaders import Batches, classwise_arrays
 from robustbnns_tpu_torch.parallel import distributed
 from robustbnns_tpu_torch.utils import plotting
 
@@ -134,3 +142,87 @@ def test_image_grid_is_jaxs(tmp_path):
         ref = jax_plotting.plot_save_grid_images(imgs, name, str(tmp_path / "jax"))
         assert os.path.basename(ours) == os.path.basename(ref)
         np.testing.assert_array_equal(matplotlib.image.imread(ours), matplotlib.image.imread(ref))
+
+
+@pytest.fixture
+def tiny_image_files(monkeypatch, tmp_path):
+    """Small MNIST and Fashion-MNIST npz files and CIFAR-10 pickle batches that
+    both packages find first ($ROBUSTBNNS_DATASET_DIR, $ROBUSTBNNS_CIFAR_DIR),
+    from an empty working directory."""
+    rng = np.random.default_rng(1)
+    for name in ("mnist", "fashion_mnist"):
+        np.savez(tmp_path / f"{name}.npz", x_train=rng.integers(0, 256, (12, 28, 28), dtype=np.uint8),
+                 y_train=rng.integers(0, 10, 12, dtype=np.uint8),
+                 x_test=rng.integers(0, 256, (5, 28, 28), dtype=np.uint8),
+                 y_test=rng.integers(0, 10, 5, dtype=np.uint8))
+    cifar = tmp_path / "cifar"
+    cifar.mkdir()
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(cifar / name, "wb") as f:
+            pickle.dump({"data": rng.integers(0, 256, size=(3, 3 * 32 * 32), dtype=np.uint8),
+                         "labels": [int(v) for v in rng.integers(0, 10, size=3)]}, f)
+    monkeypatch.setenv("ROBUSTBNNS_DATASET_DIR", str(tmp_path))
+    monkeypatch.setenv("ROBUSTBNNS_CIFAR_DIR", str(cifar))
+    monkeypatch.chdir(tmp_path)
+
+
+@pytest.mark.parametrize("channels", ["last", "first"])
+@pytest.mark.parametrize("loader, args", [
+    ("load_mnist", ("error",)),
+    ("load_fashion_mnist", ("error",)),
+    ("load_cifar", ("error",)),
+    ("load_half_moons", (300,)),
+])
+def test_loaders_bind_channels_positionally_as_jax(tiny_image_files, loader, args, channels):
+    """``channels`` comes first (``load_half_moons(channels, n_samples)``,
+    ``load_cifar(channels, fallback)``, ``load_mnist``/``load_fashion_mnist``
+    alike) and gives JAX's arrays in both layouts: a greyscale reshape to
+    NCHW, CIFAR-10's transpose, Half Moons' (N, 1, 2, 1) either way."""
+    ours = getattr(datasets, loader)(channels, *args)
+    assert_bytes_equal(ours, getattr(jax_datasets, loader)(channels, *args))
+    if channels == "first" and loader != "load_half_moons":
+        assert ours[0].shape[1] in (1, 3)
+
+
+@pytest.mark.parametrize("name", ["mnist", "fashion_mnist", "cifar", "half_moons"])
+def test_load_dataset_binds_channels_third_as_jax(tiny_image_files, name):
+    """``load_dataset(name, n_inputs, channels, shuffle, fallback, seed)``
+    positionally, as JAX's signature has it."""
+    args = (name, 7, "first", True, "error", 2)
+    assert_bytes_equal(datasets.load_dataset(*args), jax_datasets.load_dataset(*args))
+
+
+def test_package_exports_match_jax():
+    assert set(data.__all__) == set(jax_data.__all__)
+    for name in data.__all__:
+        assert callable(getattr(data, name))
+
+
+def test_batches_reshuffle_each_epoch_and_batch_as_jax():
+    """With JAX's permutation of an epoch injected, the port's batches equal
+    JAX's exactly; the port's own permutations differ from epoch to epoch,
+    repeat for a seed and epoch, and permute every row; ``__iter__`` yields
+    epoch 0's (x, y, mask) and no shuffle keeps the order."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(11, 2, 3)).astype(np.float32)
+    y = rng.normal(size=(11, 4)).astype(np.float32)
+    jb = JaxBatches(x, y, 4, key=jax.random.key(5))
+    ours = Batches(torch.from_numpy(x), torch.from_numpy(y), 4, seed=5)
+    assert (ours.n, ours.num_batches) == (jb.n, jb.num_batches) == (11, 3)
+    for epoch in (0, 3):
+        perm = np.asarray(jax.random.permutation(jax.random.fold_in(jb.key, epoch), jb.n))
+        for a, b in zip(ours.epoch(epoch, perm=torch.from_numpy(perm.copy())), jb.epoch(epoch)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    p0, p1 = ours.permutation(0), ours.permutation(1)
+    assert torch.equal(p0, Batches(torch.from_numpy(x), torch.from_numpy(y), 4, seed=5).permutation(0))
+    assert not torch.equal(p0, p1) and sorted(p0.tolist()) == list(range(11))
+    assert not torch.equal(p0, Batches(torch.from_numpy(x), torch.from_numpy(y), 4, seed=6).permutation(0))
+    e0 = ours.epoch(0)
+    torch.testing.assert_close(e0.x[:2].reshape(8, 2, 3), torch.from_numpy(x)[p0[:8]], rtol=0, atol=0)
+    for i, (bx, by, bm) in enumerate(ours):
+        assert torch.equal(bx, e0.x[i]) and torch.equal(by, e0.y[i]) and torch.equal(bm, e0.mask[i])
+    assert float(e0.mask.sum()) == 11
+    plain = Batches(torch.from_numpy(x), torch.from_numpy(y), 4, shuffle=False)
+    for a, b in zip(plain.epoch(2), JaxBatches(x, y, 4, shuffle=False).epoch(2)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert jnp.asarray(x).shape == tuple(ours.x.shape)

@@ -432,8 +432,9 @@ def test_hmc_train_batched_full_mode_uses_all_data():
 
 
 def test_what_is_not_ported_raises(monkeypatch):
-    """Single-pass bf16, a chunk size below 1, unknown samplers and modes
-    raise; ``sampler="nuts"``, ported, samples by NUTS."""
+    """An unknown precision, a chunk size below 1, unknown samplers and modes
+    raise; ``sampler="nuts"`` samples by NUTS and ``precision="default"``
+    (single-pass bf16) samples too."""
     from robustbnns_tpu_torch.inference.nuts import NUTSInfo
 
     kw = dict(n_samples=4, warmup=2, verbose=False)
@@ -444,8 +445,10 @@ def test_what_is_not_ported_raises(monkeypatch):
     with pytest.raises(ValueError, match="mode"):
         hmc.hmc_train_batched(centre_potential, CENTRE_BATCHES, torch.zeros(3), 0, mode="half", **kw)
     cfg = hmc.HMCConfig(num_samples=2, warmup=2)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        hmc.hmc_sample(std_normal, torch.zeros(3), 0, cfg._replace(precision="default"))
+    samples, _ = hmc.hmc_sample(std_normal, torch.zeros(3), 0, cfg._replace(precision="default"))
+    assert samples.shape == (2, 3) and bool(torch.isfinite(samples).all())  # the bf16 opt-in samples
+    with pytest.raises(ValueError, match="precision"):
+        hmc.hmc_sample(std_normal, torch.zeros(3), 0, cfg._replace(precision="bf16"))
     with pytest.raises(ValueError, match="chunk_size"):
         hmc.hmc_sample(std_normal, torch.zeros(3), 0, cfg, chunk_size=0)
     with pytest.raises(ValueError, match="last axis"):

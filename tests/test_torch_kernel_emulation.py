@@ -12,6 +12,10 @@ the kernels' indexing, masking, work split and fixed-order sum of partials at
 ragged shapes on a machine without a card; the card itself is checked by
 ``tests/test_torch_kernels.py`` and ``chip_smoke.py``. Same tolerance as
 there: 1e-4 relative plus 1e-4 of the largest entry.
+
+``csrc/sampled_dense_bf16.cu`` (the bf16 variants) is not built here: its
+warp-wide ``mma.sync`` has no one-thread-per-CUDA-thread stand-in, so those
+kernels are held to their twins on the card only.
 """
 import ctypes
 import importlib

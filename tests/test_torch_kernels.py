@@ -12,6 +12,14 @@ weights, but sum the products in another order (up to S·O terms of f32) and may
 round ``log``/``sin``/``cos`` an ulp apart, so results agree to 1e-4 relative
 plus 1e-4 of the largest entry. The noise itself is compared entry by entry to
 1e-5 absolute: a few ulps of an O(1) normal.
+
+The bf16 variants (``ROBUSTBNNS_KERNEL_PRECISION=default``) multiply the same
+bf16 operands as their twins, exactly in f32, so they differ only in the
+order of the f32 sums and where a W_s that the kernel and torch round an ulp
+apart in f32 lands on the other bf16 neighbour: one term off by at most 2⁻⁷
+of its |x||W_s|. Each output is held to 2⁻⁸·Σ|x||W_s| + 1e-4 of the largest
+entry of its twin, and to 2·2⁻⁸·Σ|x||W_s| (both operands rounded) plus the
+f32 tolerance of the exact f32 twin.
 """
 import importlib
 import math
@@ -223,3 +231,66 @@ def test_dparams_kernels_at_edge_shapes(cuda, shape):
         for got_t, want_t in zip(outs, want):
             assert torch.isfinite(got_t).all()
             assert_close(got_t, want_t)
+
+
+BF16_SHAPES = SHAPES + [  # (B, I, O, S) beyond SHAPES: chip_smoke.py's edge shapes of the attack kernels
+    (1, 784, 1024, 10),  # one row of a 128-row tile
+    (37, 784, 13, 3),  # the narrow paths, O not a multiple of 4
+    (128, 1024, 10, 1),  # the 10-class head at S = 1
+    (128, 1024, 1024, 10),  # model_7's hidden layer
+    (100, 2, 32, 10),  # the Half Moons hidden layer: I = 2
+]
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=lambda s: "B{}_I{}_O{}_S{}".format(*s))
+def test_bf16_kernels_match_bf16_twins(cuda, shape, monkeypatch):
+    """Under ROBUSTBNNS_KERNEL_PRECISION=default each public wrapper launches
+    its bf16 kernel (and no f32 one): bit-identical across two calls; within
+    the f32 tolerance of the bf16 twin plus 2⁻⁷ of the largest single term
+    |x_i||W_si| (one W_s rounded to the other bf16 neighbour); within the bf16
+    rounding bound of the exact f32 twin; and nearer the bf16 twin than a
+    tenth of its distance from the f32 twin, which a kernel that skipped the
+    bf16 rounding would not be."""
+    b, i, o, s = shape
+    p = layer(b, i, o, s, cuda)
+    params, seed = (p["loc"], p["rho"], p["bloc"], p["brho"]), 2027
+    cases = [
+        ("fwd", sd.sampled_dense_fwd, sd.sampled_dense_fwd_bf16, sd.sampled_dense_fwd_bf16_plain,
+         sd.sampled_dense_fwd_plain, p["x"], params),
+        ("xs_fwd", sd.sampled_dense_xs_fwd, sd.sampled_dense_xs_fwd_bf16, sd.sampled_dense_xs_fwd_bf16_plain,
+         sd.sampled_dense_xs_fwd_plain, p["xs"], params),
+        ("dx", sd.sampled_dense_dx, sd.sampled_dense_dx_bf16, sd.sampled_dense_dx_bf16_plain,
+         sd.sampled_dense_dx_plain, p["g"], params[:2]),
+        ("xs_dx", sd.sampled_dense_xs_dx, sd.sampled_dense_xs_dx_bf16, sd.sampled_dense_xs_dx_bf16_plain,
+         sd.sampled_dense_xs_dx_plain, p["g"], params[:2]),
+    ]
+    for kind, public, kernel, twin, exact, a, rest in cases:
+        monkeypatch.setenv("ROBUSTBNNS_KERNEL_PRECISION", "default")
+        before, f32_before = kernel.launches, public.launches
+        got = public(a, *rest, s, seed)
+        again = public(a, *rest, s, seed)
+        torch.cuda.synchronize()
+        assert (kernel.launches, public.launches) == (before + 2, f32_before)
+        assert torch.equal(got, again) and torch.isfinite(got).all()
+        monkeypatch.delenv("ROBUSTBNNS_KERNEL_PRECISION")
+        scale = sd.bf16_error_scale(kind, a, p["loc"], p["rho"], s, seed)
+        term = sd.bf16_error_scale(kind, a, p["loc"], p["rho"], s, seed, largest=True)
+        ref, f32 = twin(a, *rest, s, seed), exact(a, *rest, s, seed)
+        err, err32 = (got - ref).abs(), (got - f32).abs()
+        assert (err <= 2.0**-7 * term + 1e-4 * ref.abs() + 1e-4 * float(ref.abs().max())).all(), kind
+        assert (err32 <= 2 * 2.0**-8 * scale + 1e-4 * f32.abs() + 1e-4 * float(f32.abs().max())).all(), kind
+        assert float(err.max()) < 0.1 * float(err32.max()), (kind, float(err.max()), float(err32.max()))
+
+
+def test_bf16_has_no_dparams_kernel(cuda, monkeypatch):
+    """Under ROBUSTBNNS_KERNEL_PRECISION=default the parameter-gradient
+    wrappers raise on the card: they never run the f32 kernel in its place."""
+    b, i, o, s = 8, 24, 20, 3
+    p = layer(b, i, o, s, cuda)
+    monkeypatch.setenv("ROBUSTBNNS_KERNEL_PRECISION", "default")
+    before = sd.sampled_dense_dparams.launches, sd.sampled_dense_xs_dparams.launches
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        sd.sampled_dense_dparams(p["g"], p["x"], p["rho"], p["brho"], s, 1)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        sd.sampled_dense_xs_dparams(p["g"], p["xs"], p["rho"], p["brho"], s, 1)
+    assert (sd.sampled_dense_dparams.launches, sd.sampled_dense_xs_dparams.launches) == before

@@ -370,8 +370,10 @@ def test_trajectory_length_adapts_to_scale():
 
 def test_what_nuts_refuses():
     cfg = nuts.NUTSConfig(num_samples=2, warmup=0)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        nuts.nuts_sample(std_normal, torch.zeros(3), 0, cfg._replace(precision="default"))
+    samples, _ = nuts.nuts_sample(std_normal, torch.zeros(3), 0, cfg._replace(precision="default"))
+    assert samples.shape == (2, 3) and bool(torch.isfinite(samples).all())  # the bf16 opt-in samples
+    with pytest.raises(ValueError, match="precision"):
+        nuts.nuts_sample(std_normal, torch.zeros(3), 0, cfg._replace(precision="bf16"))
     with pytest.raises(ValueError, match="chain"):
         nuts.nuts_sample(std_normal, torch.zeros((2, 3)), 0, cfg)
     with pytest.raises(ValueError, match="draws objects"):

@@ -223,12 +223,31 @@ def test_attack_cli_trains_then_attacks_on_the_cpu(cli_workdir, monkeypatch):
     "flags,error",
     [
         (["--model_type=gp", "--device=cpu"], NotImplementedError),
-        (["--model_type=bnn", "--bf16=True"], NotImplementedError),
     ],
 )
 def test_cli_refuses_what_is_not_ported(flags, error):
     with pytest.raises(error):
         cli.main(flags)
+
+
+def test_cli_bf16_switches_products_for_the_run(monkeypatch):
+    """``--bf16=True`` runs the branch with the bf16 switch thrown, so every
+    dense and conv product takes bf16 operands (JAX ``cli/attacks.py:61-68``
+    sets ROBUSTBNNS_BF16=1 for that), and only for that run; the environment
+    is left as it was."""
+    from robustbnns_tpu_torch.utils.device import bf16_products
+
+    seen = []
+    monkeypatch.delenv("ROBUSTBNNS_BF16", raising=False)
+    monkeypatch.setattr(cli, "_bnn_branch", lambda args, device, rel: seen.append(
+        (bf16_products(), args.fused)) or {})
+    cli.main(["--model_type=bnn", "--bf16=True", "--device=cpu"])
+    cli.main(["--model_type=bnn", "--device=cpu"])
+    assert seen == [(True, False), (False, False)]
+    assert not bf16_products() and "ROBUSTBNNS_BF16" not in os.environ
+    monkeypatch.setenv("ROBUSTBNNS_BF16", "0")
+    cli.main(["--model_type=bnn", "--bf16=True", "--device=cpu"])
+    assert seen[-1] == (True, False) and os.environ["ROBUSTBNNS_BF16"] == "0" and not bf16_products()
 
 
 def test_cli_mesh_auto_attacks_on_one_rank(cli_workdir, capsys):
