@@ -45,7 +45,16 @@ Phases, each fatal on failure:
    (the bf16 rounding bound), and nearer the twin than a tenth of their
    distance from the f32 kernel, at model_7's shapes and the edge shapes,
    bit-identical across calls, timed beside the f32 kernels, and the
-   finite-difference adjoint of both precisions; model_7's fused FGSM and
+   finite-difference adjoint of both precisions; the two bf16 parameter-
+   gradient kernels through the public wrappers under the variable (counted
+   under their bf16 names only) against their bf16 twins at the f32 gate,
+   within the bf16 rounding bound of the f32 kernels and nearer the twin than
+   a tenth of that distance, at model_7's three shapes (timed) and the
+   dparams edge shapes, bit-identical across calls; model_7's posterior
+   gradient (``[param-grad]``'s setup) under the variable: exactly 1 fwd, 2
+   xs_fwd, 2 xs_dx, 1 dparams and 2 xs_dparams bf16 launches and no f32
+   one, 12 finite leaves apart from f32 and nearer the CPU's bf16 twins
+   than 0.25 of that distance; model_7's fused FGSM and
    PGD through the CLI under the variable (the bf16 kernels launched as
    often as [main]'s f32 ones, no f32 attack kernel) and PGD in turns with
    f32; ``--bf16=True`` on model_0 (logits against f32 on the same draws,
@@ -158,8 +167,9 @@ Phases, each fatal on failure:
    669,706): 1,150 rows, the card's PCA of the prior within 1e-3 of max of
    numpy's float64 PCA with no sign flipped;
 25. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last line.
-   ``launches`` counts the dparams kernels over phase 6, the bf16 kernels
-   over ``[precision]``'s model_7 FGSM + PGD and the others over phase 7.
+   ``launches`` counts the dparams kernels over phase 6, the bf16 dparams
+   kernels over ``[precision]``'s model_7 posterior gradient, the other bf16
+   kernels over its model_7 FGSM + PGD and the rest over phase 7.
 
 Device-busy time (every idle share printed) is the union of the intervals
 of the device events ``torch.profiler`` records.
@@ -199,6 +209,13 @@ E2E_TOL_OF_MAX = 1e-3
 DPARAMS = ("sampled_dense_dparams", "sampled_dense_xs_dparams")
 ATTACK_KERNELS = ("sampled_dense_fwd", "sampled_dense_dx", "sampled_dense_xs_fwd", "sampled_dense_xs_dx")
 BF16_ATTACK_KERNELS = tuple(f"{name}_bf16" for name in ATTACK_KERNELS)
+BF16_DPARAMS = tuple(f"{name}_bf16" for name in DPARAMS)
+# model_7's posterior gradient under ROBUSTBNNS_KERNEL_PRECISION=default: one
+# launch a layer forward, the input gradients of the two upper layers (the
+# input asks for none) and one parameter gradient a layer; no f32 kernel
+BF16_PARAM_GRAD_LAUNCHES = {"sampled_dense_fwd_bf16": 1, "sampled_dense_xs_fwd_bf16": 2,
+                            "sampled_dense_xs_dx_bf16": 2, "sampled_dense_dparams_bf16": 1,
+                            "sampled_dense_xs_dparams_bf16": 2}
 
 
 def fail(message: str) -> None:
@@ -712,12 +729,13 @@ def phase_param_grad(torch) -> dict:
 
 def check_attack_launches(phase: str, counts: dict, kernels=ATTACK_KERNELS) -> None:
     """An attack runs the four forward and dx ``kernels`` (f32, or their bf16
-    variants), no dparams kernel and no kernel of the other precision."""
+    variants), no dparams kernel of either precision and no kernel of the
+    other precision."""
     if not all(counts[name] > 0 for name in kernels):
         fail(f"[{phase}] a kernel of the attack never launched: {counts}")
-    if any(counts[name] for name in DPARAMS):
+    if any(counts[name] for name in DPARAMS + BF16_DPARAMS):
         fail(f"[{phase}] the attack launched a parameter-gradient kernel: {counts}")
-    if any(n for name, n in counts.items() if name not in kernels and name not in DPARAMS):
+    if any(n for name, n in counts.items() if name not in kernels and name not in DPARAMS + BF16_DPARAMS):
         fail(f"[{phase}] the attack launched a kernel of the other precision: {counts}")
 
 
@@ -976,6 +994,183 @@ def phase_precision_kernels(torch) -> dict:
     return results
 
 
+def phase_precision_dparams(torch) -> dict:
+    """The two bf16 parameter-gradient kernels through their public wrappers
+    under ROBUSTBNNS_KERNEL_PRECISION=default, counted under their bf16 names
+    only: against their bf16 twins at the f32 gate (no W_s is rounded, so
+    kernel and twin form the same exact products and sum them in another
+    order), against the f32 kernels (the bf16 rounding bound), dloc and drho
+    nearer the twin than BF16_NEARER of their distance from the f32 kernel,
+    bit-identical across calls; at model_7's three shapes, timed beside the
+    twin, one cuBLAS bf16 product and the f32 kernel, and at the dparams edge
+    shapes."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+
+    gen = torch.Generator(device="cuda").manual_seed(1236)
+    seed = 20261018
+    src, pallas = "robustbnns_tpu_torch/csrc/sampled_dense_dparams_bf16.cu", "robustbnns_tpu/ops/sampled_dense.py"
+    kinds = {  # kind: (public wrapper, bf16 wrapper, Pallas line)
+        "dparams": (sd.sampled_dense_dparams, sd.sampled_dense_dparams_bf16, 137),
+        "xs_dparams": (sd.sampled_dense_xs_dparams, sd.sampled_dense_xs_dparams_bf16, 383),
+    }
+    results = {}
+
+    def inputs(kind, b_dim, i_dim, o_dim, n_samples):
+        _, rho, _, brho = _layer_inputs(torch, gen, i_dim, o_dim)
+        g = torch.randn((n_samples, b_dim, o_dim), generator=gen, device="cuda")
+        if kind == "dparams":
+            x = torch.rand((b_dim, i_dim), generator=gen, device="cuda")
+        else:
+            x = torch.nn.functional.leaky_relu(torch.randn((n_samples, b_dim, i_dim), generator=gen, device="cuda"),
+                                               0.01)
+        return g, x, rho, brho, n_samples, seed
+
+    def check(kind, shape_text, args):
+        public, kernel, _ = kinds[kind]
+        name = kernel.__name__
+        with env_var("ROBUSTBNNS_KERNEL_PRECISION", "default"):
+            before = (kernel.launches, public.launches)
+            got, again = public(*args), public(*args)
+            torch.cuda.synchronize()
+            counted = (kernel.launches - before[0], public.launches - before[1])
+        if counted != (2, 0):
+            fail(f"[precision] {name} {shape_text}: two calls under the variable counted {counted[0]} bf16 and "
+                 f"{counted[1]} f32 launches")
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            fail(f"[precision] {name} {shape_text}: two calls differ")
+        if not all(bool(torch.isfinite(a).all()) for a in got):
+            fail(f"[precision] {name} {shape_text}: non-finite values")
+        twin, f32 = sd.sampled_dense_dparams_bf16_plain(*args), public(*args)  # unset: the f32 kernel
+        scales = sd.bf16_error_scale(kind, *args[:3], *args[4:])
+        errs, shares, nearers = [], [], []
+        for k, (got_k, ref_k, f32_k) in enumerate(zip(got, twin, f32)):
+            errs.append(check_close(f"[precision] {name} {shape_text} output {k}", got_k, ref_k, RTOL,
+                                    ATOL_OF_MAX * float(ref_k.abs().max())))
+            if k >= 2:  # the bias takes no product: f32 in both precisions
+                continue
+            err32 = (got_k - f32_k).abs()
+            f32_gate = BF16_F32_OF_SCALE * scales[k] + RTOL * f32_k.abs() + ATOL_OF_MAX * float(f32_k.abs().max())
+            if not bool((err32 <= f32_gate).all()):
+                fail(f"[precision] {name} {shape_text} output {k}: {float(err32.max()):.3e} from the f32 kernel, "
+                     f"beyond the bf16 rounding bound")
+            nearer = errs[-1] / float(err32.max())
+            if not nearer < BF16_NEARER:
+                fail(f"[precision] {name} {shape_text} output {k}: {errs[-1]:.3e} from its bf16 twin against "
+                     f"{float(err32.max()):.3e} from the f32 kernel (ratio {nearer:.3e}, gate {BF16_NEARER}): "
+                     f"not the bf16 arithmetic")
+            shares.append(float((err32 / scales[k].clamp_min(1e-30)).max()) / 2.0**-8)
+            nearers.append(nearer)
+        same_bias = all(torch.equal(a, c) for a, c in zip(got[2:], f32[2:]))
+        return max(errs), max(shares), max(nearers), same_bias
+
+    for li, (i_dim, o_dim) in enumerate(LAYERS):  # the main path's shapes, timed
+        kind = "dparams" if li == 0 else "xs_dparams"
+        public, kernel, line = kinds[kind]
+        args = inputs(kind, B, i_dim, o_dim, S)
+        shape = f"B={B} S={S} I={i_dim} O={o_dim}"
+        err, share, nearer, same_bias = check(kind, shape, args)
+        g, x = args[0], args[1]
+        g16, x16 = g.to(torch.bfloat16), x.to(torch.bfloat16)
+        xt16 = x16.t().expand(S, i_dim, B) if kind == "dparams" else x16.transpose(1, 2)
+        lib = lambda: torch.bmm(xt16, g16, out_dtype=torch.float32)  # noqa: E731  (the S dW_s, no epilogue)
+        run = lambda: kernel(*args)  # noqa: E731
+        c_ms = call_ms(torch, run)
+        ms, plain_ms = device_ms(torch, run), device_ms(torch, lambda: sd.sampled_dense_dparams_bf16_plain(*args))
+        lib_ms, f32_ms = device_ms(torch, lib), device_ms(torch, lambda: public(*args))
+        flops = 2.0 * S * B * i_dim * o_dim
+        nbytes = 4.0 * (S * B * o_dim + x.numel() + 3 * i_dim * o_dim + 3 * o_dim)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        name = kernel.__name__
+        print(f"[precision] {name} {shape}: max|err| {err:.3e} from its bf16 twin ({nearer:.2e} of the max "
+              f"distance of dloc or drho from the f32 kernel, gate {BF16_NEARER}); from the f32 kernel at most "
+              f"{share:.3f} of 2^-8 sum|x||g| (gate 2); dbloc and dbrho bit-equal to the f32 kernel's: "
+              f"{same_bias}; kernel {ms:.4f} ms (call {c_ms:.4f} ms), f32 kernel "
+              f"{f32_ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}, {100 * b_ms / ms:.1f}% of the kernel)")
+        r = results.setdefault(name, {
+            "name": name, "route": "cuda", "source": src, "replaces": f"{pallas}:{line}",
+            "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "flops": 0.0, "bytes": 0.0, "library_ms": 0.0, "f32_ms": 0.0, "peak_flops": PEAK_BF16_FLOPS,
+            "per_shape": [],
+        })
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        for key, v in (("ms", ms), ("call_ms", c_ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("bound_ms", b_ms), ("flops", flops), ("bytes", nbytes), ("f32_ms", f32_ms)):
+            r[key] += v
+        r["per_shape"].append({"shape": shape, "ms": ms, "call_ms": c_ms, "plain_ms": plain_ms,
+                               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "f32_ms": f32_ms,
+                               "max_abs_err": err})
+    for b_dim, i_dim, o_dim, n_samples in DPARAMS_EDGE_SHAPES:
+        shape = f"B={b_dim} I={i_dim} O={o_dim} S={n_samples}"
+        errs = [check(kind, shape, inputs(kind, b_dim, i_dim, o_dim, n_samples)) for kind in kinds]
+        print(f"[precision] edge {shape}: max|err| from the bf16 twins dparams {errs[0][0]:.3e}, xs_dparams "
+              f"{errs[1][0]:.3e} ({errs[0][2]:.2e} and {errs[1][2]:.2e} of the distance from the f32 kernel); "
+              f"bit-identical repeats")
+    torch.cuda.synchronize()
+    return results
+
+
+def phase_precision_param_grad(torch) -> dict:
+    """model_7's posterior gradient under ROBUSTBNNS_KERNEL_PRECISION=default
+    on ``[param-grad]``'s setup (B = 128, S = 10): the gradient of the fused
+    predictive's cross-entropy in all 12 leaves launches exactly
+    :data:`BF16_PARAM_GRAD_LAUNCHES` and no f32 kernel; 12 finite leaves,
+    each apart from the f32 gradient; and nearer the port's CPU bf16
+    arithmetic (the same inputs on the CPU, through the bf16 twins) than
+    :data:`BF16_MODEL_NEARER` of its distance from the f32 gradient, by root
+    sums of squares over the leaves. Returns the bf16 gradient's launches."""
+    from robustbnns_tpu_torch.attacks.gradient_attacks import ce_on_outputs
+    from robustbnns_tpu_torch.models.architectures import build_architecture
+    from robustbnns_tpu_torch.ops.fused_predict import svi_predict_fused
+    from robustbnns_tpu_torch.utils.pytree import tree_leaves
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+
+    arch = build_architecture("fc2", "leaky", (28, 28, 1), 10, 1024, "mnist")
+    post = seeded_posterior(torch, arch, rel_scale=0.5, rho_spread=0.3)
+    seed = 4242
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.rand((B, 28, 28, 1), generator=gen, device="cuda")
+    labels = torch.randint(0, 10, (B,), generator=gen, device="cuda")
+
+    def grads(p, inp, lab):
+        leaves = type(p)(*(tuple({k: v.clone().requires_grad_(True) for k, v in layer.items()} for layer in tree)
+                           for tree in p))
+        flat = tree_leaves(leaves.loc) + tree_leaves(leaves.rho)
+        return torch.autograd.grad(ce_on_outputs(svi_predict_fused(arch, leaves, inp, S, seed), lab).sum(), flat)
+
+    with env_var("ROBUSTBNNS_KERNEL_PRECISION", "default"):
+        sd.reset_launch_counts()
+        low = grads(post, x, labels)
+        torch.cuda.synchronize()
+        counts = sd.launch_counts()
+        t0 = time.perf_counter()
+        cpu = grads(type(post)(*(tuple({k: v.cpu() for k, v in layer.items()} for layer in tree) for tree in post)),
+                    x.cpu(), labels.cpu())
+        cpu_s = time.perf_counter() - t0
+    exact = grads(post, x, labels)
+    print(f"[precision] model_7 posterior gradient under ROBUSTBNNS_KERNEL_PRECISION=default: launches "
+          f"{json.dumps(counts)}")
+    if counts != {name: BF16_PARAM_GRAD_LAUNCHES.get(name, 0) for name in counts}:
+        fail(f"[precision] the bf16 posterior gradient launched {counts}, not {BF16_PARAM_GRAD_LAUNCHES} alone")
+    names = [f"{t}/{li}/{k}" for t in ("loc", "rho") for li in range(3) for k in ("b", "w")]
+    for name, lo, ex in zip(names, low, exact):
+        if not bool(torch.isfinite(lo).all()):
+            fail(f"[precision] bf16 posterior gradient {name} is not finite")
+        if torch.equal(lo, ex):
+            fail(f"[precision] bf16 posterior gradient {name} equals the f32 one")
+    rss = lambda pairs: math.sqrt(sum(float((a.double() - b.double()).square().sum()) for a, b in pairs))  # noqa: E731
+    d_cpu, d_f32 = rss((lo.cpu(), c) for lo, c in zip(low, cpu)), rss(zip(low, exact))
+    norm = math.sqrt(sum(float(ex.double().square().sum()) for ex in exact))
+    share = d_cpu / d_f32
+    if not share < BF16_MODEL_NEARER:
+        fail(f"[precision] the card's bf16 posterior gradient is {share:.3e} of its distance from f32 away from the "
+             f"CPU's bf16 arithmetic (gate {BF16_MODEL_NEARER}): not the bf16 products")
+    print(f"[precision] model_7 fc2-1024 B={B} S={S} posterior gradient: 12 finite leaves, each apart from f32 "
+          f"({d_f32 / norm:.3e} of its norm, root sums of squares); {share:.3e} of that distance from the CPU's bf16 "
+          f"twins (gate {BF16_MODEL_NEARER}; the CPU took {cpu_s:.1f} s)")
+    return counts
+
+
 def _cli_pgd_in_turns(torch, cli, flags, bf16_flags=(), bf16_env=None):
     """PGD through the attack CLI in f32 and in bf16 (``bf16_flags`` added, or
     ``bf16_env`` = (name, value) set), in turns f32, bf16, bf16, f32:
@@ -1151,12 +1346,17 @@ def phase_precision_paths(torch, workdir: str, main_counts: dict) -> dict:
 
 
 def phase_precision(torch, workdir: str, main_counts: dict):
-    """``[precision]``: :func:`phase_precision_kernels`, then
+    """``[precision]``: :func:`phase_precision_kernels`,
+    :func:`phase_precision_dparams`, :func:`phase_precision_param_grad`, then
     :func:`phase_precision_paths`; the bf16 kernels' results and their
-    launches over model_7's FGSM + PGD."""
+    launches: the dparams kernels' over model_7's posterior gradient, the
+    others' over model_7's FGSM + PGD."""
     t0 = time.perf_counter()
     results = phase_precision_kernels(torch)
+    results.update(phase_precision_dparams(torch))
+    grad_counts = phase_precision_param_grad(torch)
     counts = phase_precision_paths(torch, workdir, main_counts)
+    counts = {**counts, **{name: grad_counts[name] for name in BF16_DPARAMS}}
     print(f"[precision] phase {time.perf_counter() - t0:.3f} s wall")
     return results, counts
 

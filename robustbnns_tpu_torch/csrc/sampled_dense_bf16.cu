@@ -42,35 +42,16 @@
 // - Any B, I, O and S: ragged edges are zero-filled in shared memory and
 //   masked at the store; vector loads only where the row length is a multiple
 //   of 4.
-#include <cuda_bf16.h>
-
+#include "sampled_dense_mma.cuh"
 #include "sampled_dense_passes.cuh"
 
 // Shared-memory tiles hold bf16 bit patterns as uint16_t.
 namespace sampled_dense {
 namespace {
 
-constexpr int kRows = 128;     // batch rows of a block
-constexpr int kThreads = 128;  // 4 warps of 32 rows each
-constexpr int kWarpRows = 32;  // two m16 tiles a warp
-constexpr int kNarrowO = 16;   // O <= kNarrowO takes the narrow tiles
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lower address) = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_word(const uint16_t* p) {  // two bf16, the lower index in the low half
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int kRows = 128;             // batch rows of a block
+constexpr int kThreads = kMmaThreads;  // 4 warps of 32 rows each
+constexpr int kNarrowO = 16;           // O <= kNarrowO takes the narrow tiles
 
 // Rows b0 .. b0+127, columns k0 .. k0+kDepth-1 of a row-major (B, n) matrix,
 // rounded to bf16 into As[row][k] (stride kDepth + 8), zero past B and n.
@@ -94,35 +75,6 @@ __device__ __forceinline__ void stage_a(uint16_t* __restrict__ as, const float* 
   }
 }
 
-// One kDepth-deep chunk of the block's products: warp w adds rows
-// 32w .. 32w+31 of As times the kCols rows of Bs (both k-contiguous).
-template <int kCols, int kDepth>
-__device__ __forceinline__ void mma_chunk(const uint16_t* __restrict__ as, const uint16_t* __restrict__ bs,
-                                          float (&acc)[2][kCols / 8][4]) {
-  constexpr int kStride = kDepth + 8;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int gq = lane / 4, tq = lane % 4;
-#pragma unroll
-  for (int k0 = 0; k0 < kDepth; k0 += 16) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const uint16_t* p = as + (warp * kWarpRows + 16 * mt + gq) * kStride + k0 + 2 * tq;
-      a[mt][0] = smem_word(p);
-      a[mt][1] = smem_word(p + 8 * kStride);
-      a[mt][2] = smem_word(p + 8);
-      a[mt][3] = smem_word(p + 8 * kStride + 8);
-    }
-#pragma unroll
-    for (int nt = 0; nt < kCols / 8; ++nt) {
-      const uint16_t* p = bs + (8 * nt + gq) * kStride + k0 + 2 * tq;
-      const uint32_t b[2] = {smem_word(p), smem_word(p + 8)};
-      mma_bf16_16816(acc[0][nt], a[0], b);
-      mma_bf16_16816(acc[1][nt], a[1], b);
-    }
-  }
-}
-
 // The accumulators of rows b0 + 32w + .., columns c0 + .. into dst (row
 // length n), plus add[column - c0] where add is given; masked at B and n.
 template <int kCols>
@@ -134,7 +86,7 @@ __device__ __forceinline__ void store_acc(float* __restrict__ dst, const float (
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int b = b0 + warp * kWarpRows + 16 * mt + gq + 8 * h;
+      const int b = b0 + warp * kMmaWarpRows + 16 * mt + gq + 8 * h;
       if (b >= B) continue;
 #pragma unroll
       for (int nt = 0; nt < kCols / 8; ++nt)

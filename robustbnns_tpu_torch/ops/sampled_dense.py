@@ -31,12 +31,14 @@ it is the same in every kernel here and in the plain twins, which compute it
 with int64 tensor arithmetic.
 
 ``ROBUSTBNNS_KERNEL_PRECISION=default``, read at every call as the JAX package
-reads it (``_dot_precision``, ``sampled_dense.py:44-65``), routes the forward
-and input-gradient wrappers to bf16 variants (``csrc/sampled_dense_bf16.cu``,
-counted as ``<wrapper>_bf16``): x (or g) and W_s rounded to bf16, products on
-the tensor cores summed in f32, f32 outputs; the noise, W_s in f32 and the bias
-as above. Their twins round the same operands and multiply them in f32. The
-parameter-gradient wrappers have no bf16 variant yet and raise under it.
+reads it (``_dot_precision``, ``sampled_dense.py:44-65``), routes every wrapper
+to its bf16 variant (counted as ``<wrapper>_bf16``): the forward and
+input-gradient kernels of ``csrc/sampled_dense_bf16.cu`` round x (or g) and W_s
+to bf16, the parameter-gradient kernels of ``csrc/sampled_dense_dparams_bf16.cu``
+round x and g (dW_s = bf16(x_s)ᵀ bf16(g_s)); products on the tensor cores summed
+in f32, f32 outputs; the noise, W_s in f32 and the bias as above (dbloc and
+dbrho from the unrounded g, as JAX's ``jnp.sum`` is no ``_dot``). Their twins
+round the same operands and multiply them in f32.
 
 Each wrapper launches its kernel for CUDA tensors (or raises), and runs its
 plain PyTorch twin for CPU tensors only. Each counts its kernel launches in
@@ -147,14 +149,17 @@ def sampled_dense_xs_dx_plain(g, loc, rho, n_samples: int, seed: int):
     return torch.matmul(g, _sampled_w(loc, rho, n_samples, seed).transpose(1, 2))
 
 
-def sampled_dense_dparams_plain(g, x, rho, brho, n_samples: int, seed: int):
-    """``(dloc, drho, dbloc, dbrho)`` from the formulas of the Pallas kernels
-    (``sampled_dense.py:153-167``), written out: autograd through
-    :func:`softplus` would give a kink at 0 where σ(rho) has none."""
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest, ties to even) and back to f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _dparams_plain(g, x, rho, brho, n_samples: int, seed: int, round_operands: bool):
     i_dim = rho.shape[0]
     eps = sampled_noise(seed, n_samples, i_dim + 1, rho.shape[1], rho.device)
-    dw = torch.matmul(x.transpose(-1, -2), g)  # (S, I, O): x_sᵀ g_s
-    db = g.sum(1)  # (S, O)
+    xr, gr = (_bf16(x), _bf16(g)) if round_operands else (x, g)
+    dw = torch.matmul(xr.transpose(-1, -2), gr)  # (S, I, O): x_sᵀ g_s
+    db = g.sum(1)  # (S, O), from the unrounded g in both precisions
     return (
         dw.sum(0),
         (dw * eps[:, :i_dim] * torch.sigmoid(rho)).sum(0),
@@ -163,13 +168,15 @@ def sampled_dense_dparams_plain(g, x, rho, brho, n_samples: int, seed: int):
     )
 
 
+def sampled_dense_dparams_plain(g, x, rho, brho, n_samples: int, seed: int):
+    """``(dloc, drho, dbloc, dbrho)`` from the formulas of the Pallas kernels
+    (``sampled_dense.py:153-167``), written out: autograd through
+    :func:`softplus` would give a kink at 0 where σ(rho) has none."""
+    return _dparams_plain(g, x, rho, brho, n_samples, seed, round_operands=False)
+
+
 # x (B, I) broadcasts against g (S, B, O) as xs (S, B, I) does (``:400-414``)
 sampled_dense_xs_dparams_plain = sampled_dense_dparams_plain
-
-
-def _bf16(t: torch.Tensor) -> torch.Tensor:
-    """``t`` rounded to bf16 (to nearest, ties to even) and back to f32."""
-    return t.to(torch.bfloat16).float()
 
 
 def sampled_dense_fwd_bf16_plain(x, loc, rho, bloc, brho, n_samples: int, seed: int):
@@ -191,13 +198,35 @@ def sampled_dense_xs_dx_bf16_plain(g, loc, rho, n_samples: int, seed: int):
     return torch.matmul(_bf16(g), _bf16(_sampled_w(loc, rho, n_samples, seed)).transpose(1, 2))
 
 
-def bf16_error_scale(kind: str, a, loc, rho, n_samples: int, seed: int, largest: bool = False) -> torch.Tensor:
+def sampled_dense_dparams_bf16_plain(g, x, rho, brho, n_samples: int, seed: int):
+    """The bf16 dparams kernels' function: dW_s = bf16(x_s)ᵀ bf16(g_s) in f32
+    (each product exact), then the f32 twin's formulas; dbloc and dbrho are
+    the f32 twin's, bit for bit."""
+    return _dparams_plain(g, x, rho, brho, n_samples, seed, round_operands=True)
+
+
+sampled_dense_xs_dparams_bf16_plain = sampled_dense_dparams_bf16_plain
+
+
+def bf16_error_scale(kind: str, a, loc, rho, n_samples: int, seed: int, largest: bool = False):
     """Per output of ``kind`` (``fwd``, ``xs_fwd``, ``dx``, ``xs_dx``), the sum
     over its contraction of |a|·|W_s| (``a`` is x, xs or g), or with
     ``largest`` the largest single term. Rounding both operands of every
     product to bf16 (unit roundoff 2⁻⁸) moves the output by at most about
     2·2⁻⁸ of the sum; a W_s that rounds to the other bf16 neighbour moves one
-    term by at most 2⁻⁷ of its own |a|·|W_s|, so at most 2⁻⁷ of the largest."""
+    term by at most 2⁻⁷ of its own |a|·|W_s|, so at most 2⁻⁷ of the largest.
+
+    For ``dparams`` and ``xs_dparams`` the arguments are the wrapper's,
+    ``a`` = g and ``loc`` = the layer input x (xs), and the result is the pair
+    (dloc's scale, drho's scale): Σ_s Σ_b |x_sbi||g_sbo|, and the same terms
+    weighted by |eps_s|·σ(rho). No W_s is rounded there, so ``largest`` does
+    not apply; the bias takes no product and has no scale."""
+    if kind in ("dparams", "xs_dparams"):
+        if largest:
+            raise ValueError("the dparams kinds round no W_s: no largest-term scale")
+        eps = sampled_noise(seed, n_samples, rho.shape[0], rho.shape[1], rho.device).abs()
+        terms = torch.matmul(loc.abs().transpose(-1, -2), a.abs())  # (S, I, O): Σ_b |x_sbi||g_sbo|
+        return terms.sum(0), (terms * eps * torch.sigmoid(rho)).sum(0)
     w, a = _sampled_w(loc, rho, n_samples, seed).abs(), a.abs()
     fwd = kind in ("fwd", "xs_fwd")
     if not largest:
@@ -233,6 +262,8 @@ _SIGNATURES = {
     "sampled_dense_xs_fwd_bf16": ("sampled_dense_bf16.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_dx_bf16": ("sampled_dense_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_xs_dx_bf16": ("sampled_dense_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_dparams_bf16": ("sampled_dense_dparams_bf16.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_xs_dparams_bf16": ("sampled_dense_dparams_bf16.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
 }
 
 
@@ -638,15 +669,6 @@ def sampled_dense_xs_dx_bf16(g, loc, rho, n_samples: int, seed: int) -> torch.Te
                       sum_samples=False, narrow_softplus=True)
 
 
-def _refuse_bf16_dparams(name: str) -> None:
-    if kernel_precision_default():
-        raise NotImplementedError(
-            f"{name} under ROBUSTBNNS_KERNEL_PRECISION=default: the bf16 parameter-gradient kernels "
-            "are not ported yet (the bf16 slice of the port covers the forward and input-gradient kernels; "
-            "ROADMAP.md Queue 2). Unset the variable for the exact f32 kernel."
-        )
-
-
 def _check_dparams(g, x, rho, brho, n_samples: int, x_lead: tuple) -> None:
     _check_params(rho, rho, brho)
     if g.dim() != 3 or g.shape[0] != n_samples or g.shape[2] != rho.shape[1]:
@@ -656,17 +678,22 @@ def _check_dparams(g, x, rho, brho, n_samples: int, x_lead: tuple) -> None:
         raise ValueError(f"the layer input must be {want}, got {tuple(x.shape)}")
 
 
-def _launch_dparams(name: str, g, x, rho, brho, n_samples: int, seed: int):
+def _dparams_launch(wrapper, plain, g, x, rho, brho, n_samples: int, seed: int):
+    """``plain`` on CPU tensors; else the kernel named as ``wrapper`` on
+    :func:`dparams_plan`'s geometry, counted on it."""
+    if _on_cpu(g, x, rho, brho):
+        return plain(g, x, rho, brho, n_samples, seed)
     _check_cuda(g, x, rho, brho)
     (_, b_dim, o_dim), i_dim = g.shape, rho.shape[0]
     plan = dparams_plan(n_samples, i_dim, o_dim, _sm_count(g.device))
     dloc, drho = (torch.empty((i_dim, o_dim), device=g.device) for _ in range(2))
     dbloc, dbrho = (torch.empty((o_dim,), device=g.device) for _ in range(2))
     partials = torch.empty(plan.scratch, device=g.device) if plan.scratch else None
-    _launch(name, g.device, g.data_ptr(), x.data_ptr(), rho.data_ptr(), brho.data_ptr(),
+    _launch(wrapper.__name__, g.device, g.data_ptr(), x.data_ptr(), rho.data_ptr(), brho.data_ptr(),
             partials.data_ptr() if partials is not None else None,
             dloc.data_ptr(), drho.data_ptr(), dbloc.data_ptr(), dbrho.data_ptr(),
             n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
+    wrapper.launches += 1
     return dloc, drho, dbloc, dbrho
 
 
@@ -690,12 +717,9 @@ def sampled_dense_dparams(g, x, rho, brho, n_samples: int, seed: int):
     launch.
     """
     _check_dparams(g, x, rho, brho, n_samples, ())
-    _refuse_bf16_dparams("sampled_dense_dparams")
-    if _on_cpu(g, x, rho, brho):
-        return sampled_dense_dparams_plain(g, x, rho, brho, n_samples, seed)
-    out = _launch_dparams("sampled_dense_dparams", g, x, rho, brho, n_samples, seed)
-    sampled_dense_dparams.launches += 1
-    return out
+    if kernel_precision_default():
+        return sampled_dense_dparams_bf16(g, x, rho, brho, n_samples, seed)
+    return _dparams_launch(sampled_dense_dparams, sampled_dense_dparams_plain, g, x, rho, brho, n_samples, seed)
 
 
 def sampled_dense_xs_dparams(g, xs, rho, brho, n_samples: int, seed: int):
@@ -710,18 +734,46 @@ def sampled_dense_xs_dparams(g, xs, rho, brho, n_samples: int, seed: int):
     :func:`sampled_dense_dparams`, xs[s] read for sample s.
     """
     _check_dparams(g, xs, rho, brho, n_samples, (n_samples,))
-    _refuse_bf16_dparams("sampled_dense_xs_dparams")
-    if _on_cpu(g, xs, rho, brho):
-        return sampled_dense_xs_dparams_plain(g, xs, rho, brho, n_samples, seed)
-    out = _launch_dparams("sampled_dense_xs_dparams", g, xs, rho, brho, n_samples, seed)
-    sampled_dense_xs_dparams.launches += 1
-    return out
+    if kernel_precision_default():
+        return sampled_dense_xs_dparams_bf16(g, xs, rho, brho, n_samples, seed)
+    return _dparams_launch(sampled_dense_xs_dparams, sampled_dense_xs_dparams_plain, g, xs, rho, brho, n_samples,
+                           seed)
+
+
+def sampled_dense_dparams_bf16(g, x, rho, brho, n_samples: int, seed: int):
+    """Pallas ``_bwd_dparams_kernel`` under ``Precision.DEFAULT`` -> the
+    tensor-core kernel of ``csrc/sampled_dense_dparams_bf16.cu``. g (S, B, O),
+    x (B, I) -> ``(dloc, drho, dbloc, dbrho)`` with dW_s = bf16(x)ᵀ bf16(g_s),
+    f32 sums; reached through :func:`sampled_dense_dparams` under
+    ``ROBUSTBNNS_KERNEL_PRECISION=default``.
+
+    Bound on the H100: moving the operands once (15.3 MB at the first layer
+    of fc2-1024, B=128, S=10: 4.6 µs) is above 2·S·B·I·O FLOP at the 989
+    TFLOP/s bf16 peak (2.1 µs); the S·I·O normals drawn on the FP32 pipe set
+    the floor. Design: :func:`dparams_plan`'s tiles, runs and clusters, the
+    batch contraction on ``mma.sync.m16n8k16`` over 32-row chunks of x and
+    g rounded to bf16 and transposed in shared memory, each Philox quad drawn
+    by one lane of the pair that shares it; the bias as the f32 kernel's, on
+    the unrounded g. One launch counted.
+    """
+    _check_dparams(g, x, rho, brho, n_samples, ())
+    return _dparams_launch(sampled_dense_dparams_bf16, sampled_dense_dparams_bf16_plain, g, x, rho, brho,
+                           n_samples, seed)
+
+
+def sampled_dense_xs_dparams_bf16(g, xs, rho, brho, n_samples: int, seed: int):
+    """Pallas ``_bwd_xs_dparams_kernel`` under ``Precision.DEFAULT``: as
+    :func:`sampled_dense_dparams_bf16` with the per-sample input xs (S, B, I)."""
+    _check_dparams(g, xs, rho, brho, n_samples, (n_samples,))
+    return _dparams_launch(sampled_dense_xs_dparams_bf16, sampled_dense_xs_dparams_bf16_plain, g, xs, rho, brho,
+                           n_samples, seed)
 
 
 KERNEL_WRAPPERS = (
     sampled_dense_fwd, sampled_dense_dx, sampled_dense_dparams,
     sampled_dense_xs_fwd, sampled_dense_xs_dx, sampled_dense_xs_dparams,
     sampled_dense_fwd_bf16, sampled_dense_dx_bf16, sampled_dense_xs_fwd_bf16, sampled_dense_xs_dx_bf16,
+    sampled_dense_dparams_bf16, sampled_dense_xs_dparams_bf16,
 )
 for _wrapper in KERNEL_WRAPPERS:
     _wrapper.launches = 0

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of the dx kernels, or with ``--fwd`` of the forward kernels
-or ``--dparams`` of the parameter-gradient kernels, goes on the card: the
-kernels of ``csrc/sampled_dense_dx.cu`` (``sampled_dense_fwd.cu``,
-``sampled_dense_dparams.cu``) rebuilt with one part cut out at a time, timed
-with ``chip_smoke.py``'s device-time yardstick at the main path's shapes.
+"""Where the time of the dx kernels, or with ``--fwd`` of the forward kernels,
+``--dparams`` of the parameter-gradient kernels or ``--dparams-bf16`` of their
+bf16 variants, goes on the card: the kernels of ``csrc/sampled_dense_dx.cu``
+(``sampled_dense_fwd.cu``, ``sampled_dense_dparams.cu``,
+``sampled_dense_dparams_bf16.cu``) rebuilt with one part cut out at a time,
+timed with ``chip_smoke.py``'s device-time yardstick at the main path's shapes.
 
-    python3 scripts/torch_dx_probe.py [--fwd | --dparams] [--diagnose] [SASS_DIR]
+    python3 scripts/torch_dx_probe.py [--fwd | --dparams | --dparams-bf16] [--diagnose] [SASS_DIR]
 
 Variants: ``full``, the kernel as committed, and ``no-noise``, with each
 Philox quad and Box-Muller of the wide kernel replaced by a constant quad (a
@@ -24,8 +25,14 @@ fetched), ``one-stage-loop-alone`` and ``unrolled-epilogue`` (the epilogue's
 loop over rows unrolled, a right result: its 16 Philox quads inline),
 ``epilogue-unroll-2`` and ``epilogue-unroll-4`` (unrolled by 2 or 4), and
 ``ffma-unroll-4`` and ``ffma-unroll-8`` (the chunk's 16-step FFMA loop
-unrolled by 4 or 8, not fully; right results). The narrow head shape is
-timed as committed only.
+unrolled by 4 or 8, not fully; right results). For dparams-bf16 (``no-noise``
+replaces the quad that ``noise_pair`` draws): ``no-bias`` (no block sums
+the bias), ``bias-from-global`` (the bias threads read g's rows from global
+memory, not the chunk's f32 copy in shared memory; a right result),
+``no-epilogue`` (no per-sample noise and running sums; the MMAs
+stay), ``one-stage`` (only each sample's first chunk staged: the loads and
+the staging's shared stores after it cut) and ``one-stage-no-epilogue``. The
+narrow head shape is timed as committed only.
 
 It also counts the SASS instructions of one ``normal4`` (a Philox4x32-10 and
 two Box-Muller pairs: four normals) from a one-line probe kernel with
@@ -55,6 +62,16 @@ DP_FFMA_LOOP = "#pragma unroll\n    for (int k = 0; k < kDpDepth; ++k) {\n      
 DP_UNROLLED = ("#pragma unroll 1\n    for (int r = 0; r < 8; ++r) {", "#pragma unroll\n    for (int r = 0; r < 8; ++r) {")
 DP_EPILOGUE = ("if ((u + 1) % C == 0) finish_sample((int)(u / C));", "")
 DP_ONE_STAGE = ("if (u + 1 < u_end) fetch(u + 1, buf ^ 1);", "if (u == u_begin && u + 1 < u_end) fetch(u + 1, buf ^ 1);")
+BF_NOISE = ("const float4 z = normal4(seed, s, i, q_base + 2 * (2 * m + odd) + (tq >> 1));",
+            "const float4 z = make_float4(0.5f, -0.25f, 1.5f, -1.0f);")
+BF_NO_BIAS = ("const bool bias = blockIdx.y == 0 && tid < kWideCols && o0 + tid < O;", "const bool bias = false;")
+BF_BIAS_FROM_GLOBAL = ("for (int k = 0; k < rows; ++k) db += gf[k * kGfStride + tid];",
+                       "for (int k = 0; k < rows; ++k) db += gs[(size_t)(b0 + k) * O + o0 + tid];")
+BF_NO_EPILOGUE = ("#pragma unroll 1\n    for (int r = 0; r < 4; ++r) {", "#pragma unroll 1\n    for (int r = 0; r < 0; ++r) {")
+BF_ONE_STAGE = ("      stage_t<kWideRows, kWideThreads>(as, nullptr, xs, B, I, b0, i0);\n"
+                "      stage_t<kWideCols, kWideThreads>(bs, gf, gs, B, O, b0, o0);\n",
+                "      if (c == 0) stage_t<kWideRows, kWideThreads>(as, nullptr, xs, B, I, b0, i0);\n"
+                "      if (c == 0) stage_t<kWideCols, kWideThreads>(bs, gf, gs, B, O, b0, o0);\n")
 
 
 def family(source: str, shapes, row_operand: str, unit: str) -> dict:
@@ -99,6 +116,21 @@ FAMILIES = {
                for n in (2, 4)},
             **{f"ffma-unroll-{n}": ((DP_FFMA_LOOP, DP_FFMA_LOOP.replace("unroll", f"unroll {n}", 1)),)
                for n in (4, 8)},
+        },
+    },
+    "dparams_bf16": {
+        "source": "sampled_dense_dparams_bf16.cu",
+        "shapes": (("sampled_dense_dparams_bf16", 784, 1024, (1, 2, 4)),
+                   ("sampled_dense_xs_dparams_bf16", 1024, 1024, (1, 2, 4)),
+                   ("sampled_dense_xs_dparams_bf16", 1024, 10, (2, 5, 10))),
+        "variants": {"full": (), "no-noise": (BF_NOISE,)},
+        "diagnostics": {
+            "no-bias": (BF_NO_BIAS,),
+            "bias-from-global": (BF_BIAS_FROM_GLOBAL,),
+            "no-epilogue": (BF_NO_EPILOGUE,),
+            "one-stage": (BF_ONE_STAGE,),
+            "one-stage-no-epilogue": (BF_ONE_STAGE, BF_NO_EPILOGUE),
+            "one-stage-no-epilogue-no-bias": (BF_ONE_STAGE, BF_NO_EPILOGUE, BF_NO_BIAS),
         },
     },
 }
@@ -178,7 +210,8 @@ def count_sass(sass: str) -> tuple[int, int]:
 
 def main() -> None:
     args = sys.argv[1:]
-    kind = "fwd" if "--fwd" in args else "dparams" if "--dparams" in args else "dx"
+    kind = ("fwd" if "--fwd" in args else "dparams" if "--dparams" in args else
+            "dparams_bf16" if "--dparams-bf16" in args else "dx")
     diagnose = "--diagnose" in args
     sass_dir = next((a for a in args if not a.startswith("--")), None)
     sys.path.insert(0, REPO)
@@ -207,9 +240,9 @@ def main() -> None:
             gen = torch.Generator(device="cuda").manual_seed(99)
             loc, rho, bloc, brho = _layer_inputs(torch, gen, i_dim, o_dim)
             sp = torch.empty_like(rho)
-            if kind == "dparams":
+            if kind.startswith("dparams"):
                 g = torch.randn((S, B, o_dim), generator=gen, device="cuda")
-                x = torch.rand((S, B, i_dim) if name == "sampled_dense_xs_dparams" else (B, i_dim),
+                x = torch.rand((S, B, i_dim) if name.startswith("sampled_dense_xs_dparams") else (B, i_dim),
                                generator=gen, device="cuda")
                 planned = sd.dparams_plan(S, i_dim, o_dim, sms).n_split
                 outs = [torch.empty((i_dim, o_dim), device="cuda") for _ in range(2)] + \

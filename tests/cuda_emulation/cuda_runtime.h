@@ -6,11 +6,17 @@
 // a grid run one after another, so __shared__ arrays are statics; the blocks
 // of a thread-block cluster (cudaLaunchKernelEx) run at once, with a cluster
 // barrier and each other's dynamic shared memory (cooperative_groups.h here),
-// so a kernel launched in clusters keeps all its shared memory dynamic. Build
+// so a kernel launched in clusters keeps all its shared memory dynamic. The
+// warp-wide instructions (__shfl_xor_sync here, mma.sync through
+// emulated_mma_m16n8k16_bf16) exchange the lanes' registers through a
+// per-block buffer between two block barriers, which stand in for the warp's
+// convergence: the kernels reach each of them with every thread of the block,
+// and each call asserts that all threads are at the same such call. Build
 // with -std=c++20 -ffp-contract=off so that nothing is fused that the card
 // computes unfused.
 #pragma once
 #include <barrier>
+#include <cassert>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -31,15 +37,23 @@
 #define __launch_bounds__(...)
 
 struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+struct uint2 { unsigned x, y; };
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+
+constexpr unsigned kEmulatedLaneWords = 10;  // the registers a lane gives a warp-wide instruction
 
 struct EmulatedBlock {
   std::barrier<>* barrier;
   std::vector<float> smem;  // dynamic shared memory
+  std::vector<std::uint32_t> lanes;  // kEmulatedLaneWords a thread
+  std::vector<unsigned long long> warp_calls;  // the warp-wide calls each thread has made
 };
 struct EmulatedCluster {
   std::barrier<>* barrier;
@@ -88,7 +102,9 @@ inline void run_grid(dim3 grid, unsigned threads, std::size_t smem, unsigned clu
         for (unsigned k = 0; k < cluster_z; ++k) {
           barriers.emplace_back(threads);
           blocks.push_back({&barriers.back(),
-                            std::vector<float>(smem / sizeof(float), std::numeric_limits<float>::quiet_NaN())});
+                            std::vector<float>(smem / sizeof(float), std::numeric_limits<float>::quiet_NaN()),
+                            std::vector<std::uint32_t>(threads * kEmulatedLaneWords),
+                            std::vector<unsigned long long>(threads)});
         }
         std::barrier<> cluster_barrier(threads * cluster_z);
         EmulatedCluster cluster{&cluster_barrier, &blocks};
@@ -104,6 +120,72 @@ inline void run_grid(dim3 grid, unsigned threads, std::size_t smem, unsigned clu
             });
         for (auto& th : team) th.join();
       }
+}
+
+// The first half of a warp-wide instruction: this thread's registers are in
+// its lanes slot; after the block barrier every thread may read every slot.
+// Asserts that every thread of the block is at the same warp-wide call: a
+// thread that skipped one would have met the barrier at a __syncthreads or
+// another call.
+inline std::uint32_t* emulated_warp_gather() {
+  EmulatedBlock& block = *current_block;
+  const unsigned t = threadIdx.x;
+  const unsigned long long call = ++block.warp_calls[t];
+  block.barrier->arrive_and_wait();
+  for (unsigned u = 0; u < blockDim.x; ++u)
+    assert(block.warp_calls[u] == call && "a warp-wide instruction not reached by every thread of the block");
+  return block.lanes.data() + (t / 32) * 32 * kEmulatedLaneWords;  // lane 0 of this thread's warp
+}
+
+// The second half: every thread has read what it needs.
+inline void emulated_warp_release() { current_block->barrier->arrive_and_wait(); }
+
+inline std::uint32_t* emulated_lane_slot() { return current_block->lanes.data() + threadIdx.x * kEmulatedLaneWords; }
+
+inline float __shfl_xor_sync(unsigned mask, float v, int lane_mask, int width = 32) {
+  assert(mask == 0xffffffffu && width == 32);
+  std::memcpy(emulated_lane_slot(), &v, 4);
+  const std::uint32_t* warp = emulated_warp_gather();
+  float out;
+  std::memcpy(&out, warp + ((threadIdx.x % 32) ^ (unsigned)lane_mask) * kEmulatedLaneWords, 4);
+  emulated_warp_release();
+  return out;
+}
+
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 with c as both C and D:
+// A (16 x 16) and B (16 x 8) put together from the 32 lanes' fragments by the
+// PTX layout (sampled_dense_mma.cuh), each product exact, this lane's four
+// outputs summed over k in order in f32.
+inline float emulated_bf16(std::uint32_t word, int high) {
+  const std::uint32_t bits = (high ? word >> 16 : word & 0xFFFFu) << 16;
+  float f;
+  std::memcpy(&f, &bits, 4);
+  return f;
+}
+
+inline void emulated_mma_m16n8k16_bf16(float (&c)[4], const std::uint32_t (&a)[4], const std::uint32_t (&b)[2]) {
+  std::uint32_t* mine = emulated_lane_slot();
+  for (int r = 0; r < 4; ++r) mine[r] = a[r];
+  for (int r = 0; r < 2; ++r) mine[4 + r] = b[r];
+  const std::uint32_t* warp = emulated_warp_gather();
+  auto A = [&](int row, int k) {  // a[0]: (gq, k < 8), a[1]: (gq + 8, k < 8), a[2]: (gq, k >= 8), a[3]: (gq + 8, k >= 8)
+    const int lane = 4 * (row % 8) + (k % 8) / 2, reg = (row >= 8) + 2 * (k >= 8);
+    return emulated_bf16(warp[lane * kEmulatedLaneWords + reg], k % 2);
+  };
+  auto B = [&](int k, int col) {  // b[0]: k < 8, b[1]: k >= 8, at lane 4 col + (k % 8) / 2
+    const int lane = 4 * col + (k % 8) / 2;
+    return emulated_bf16(warp[lane * kEmulatedLaneWords + 4 + (k >= 8)], k % 2);
+  };
+  const int gq = (threadIdx.x % 32) / 4, tq = threadIdx.x % 4;
+  float d[4];
+  for (int e = 0; e < 4; ++e) {
+    const int row = gq + 8 * (e / 2), col = 2 * tq + e % 2;
+    float sum = c[e];
+    for (int k = 0; k < 16; ++k) sum += A(row, k) * B(k, col);
+    d[e] = sum;
+  }
+  emulated_warp_release();
+  for (int e = 0; e < 4; ++e) c[e] = d[e];
 }
 
 // kernel<<<grid, threads, smem, stream>>>(args) becomes

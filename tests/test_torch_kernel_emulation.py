@@ -1,21 +1,28 @@
 """The CUDA sources of the sampled-dense kernels run on the CPU, against their plain twins.
 
-``csrc/sampled_dense_fwd.cu``, ``csrc/sampled_dense_dx.cu`` and
-``csrc/sampled_dense_dparams.cu`` are built with g++ against
-``tests/cuda_emulation/cuda_runtime.h``, a CPU stand-in for the few CUDA pieces
-they use (one std::thread per CUDA thread, a barrier for ``__syncthreads``, a
-per-launch buffer for ``extern __shared__``; ``cp.async`` of
-``sampled_dense_common.cuh`` becomes a plain copy; the headers are copied next
-to the source), and called through ctypes with the launch plans of
-``ops/sampled_dense.fwd_plan``, ``dx_plan`` and ``dparams_plan``. This checks
-the kernels' indexing, masking, work split and fixed-order sum of partials at
+Every ``csrc/*.cu`` source is built with g++ against ``tests/cuda_emulation/``,
+a CPU stand-in for the few CUDA pieces they use (``cuda_runtime.h``: one
+std::thread per CUDA thread, a barrier for ``__syncthreads``, a per-launch
+buffer for ``extern __shared__``, ``__shfl_xor_sync``; ``cuda_bf16.h``: the
+round-to-nearest-even bf16 conversions), with two headers of ``csrc/``
+rewritten on their way next to the source: ``cp.async`` of
+``sampled_dense_common.cuh`` becomes a plain copy, and the inline PTX of
+``mma_bf16_16816`` (``sampled_dense_mma.cuh``) a call of
+``emulated_mma_m16n8k16_bf16``. That stand-in and the shuffle exchange the 32
+lanes' registers through a per-block buffer between two block barriers: safe
+because every thread of a block reaches each ``mma.sync`` and shuffle in these
+kernels, which each call asserts. The kernels are called through ctypes with
+the launch plans of ``ops/sampled_dense.fwd_plan``, ``dx_plan`` and
+``dparams_plan``. This checks the kernels' indexing, masking, work split,
+fixed-order sum of partials, MMA fragment layout and noise-quad ownership at
 ragged shapes on a machine without a card; the card itself is checked by
-``tests/test_torch_kernels.py`` and ``chip_smoke.py``. Same tolerance as
-there: 1e-4 relative plus 1e-4 of the largest entry.
-
-``csrc/sampled_dense_bf16.cu`` (the bf16 variants) is not built here: its
-warp-wide ``mma.sync`` has no one-thread-per-CUDA-thread stand-in, so those
-kernels are held to their twins on the card only.
+``tests/test_torch_kernels.py`` and ``chip_smoke.py``. Same gates as there:
+the f32 kernels 1e-4 relative plus 1e-4 of the largest entry of their twins;
+the bf16 kernels that plus 2⁻⁷ of the largest term |x||W_s| for the
+forward and input gradient (a W_s that the C library and torch round an f32
+ulp apart may land on the other bf16 neighbour), the f32 gate alone for the
+parameter gradients (no W_s is rounded there), and nearer their bf16 twins
+than a tenth of their distance from the f32 twins.
 """
 import ctypes
 import importlib
@@ -35,6 +42,7 @@ sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
 EMULATION = Path(__file__).parent / "cuda_emulation"
 LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)<<<([^;]*?)>>>\((.*?)\);", re.S)
 DYNAMIC_SHARED = re.compile(r"extern __shared__ __align__\(\d+\) float (\w+)\[\];")
+MMA_ASM = re.compile(r"(void mma_bf16_16816\(.*?\)) \{\n  asm volatile\(.*?\n\}\n", re.S)
 CP_ASYNC = {  # the PTX helpers of the source, as plain copies
     "cp_async16": "__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {\n"
                   "  for (int j = 0; j < 4; ++j) smem[j] = valid ? gmem[j] : 0.f;\n}\n",
@@ -65,22 +73,33 @@ def emulated_header(source: str) -> str:
     return out
 
 
+def emulated_mma_header(source: str) -> str:
+    """The tensor-core header with ``mma_bf16_16816``'s inline PTX replaced by the stand-in."""
+    out, n = MMA_ASM.subn(r"\1 {\n  emulated_mma_m16n8k16_bf16(c, a, b);\n}\n", source)
+    assert n == 1
+    return out
+
+
+EMULATED_HEADERS = {"sampled_dense_common.cuh": emulated_header, "sampled_dense_mma.cuh": emulated_mma_header}
+
+
 def build(tmp_path_factory, source: str, names) -> ctypes.CDLL:
-    """``csrc/<source>`` built with g++ next to copies of the headers, the
-    shared one emulated (a quoted include finds them there before ``CSRC``)."""
+    """``csrc/<source>`` built with g++ next to copies of the headers, those
+    with PTX emulated (a quoted include finds them there before ``CSRC``)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel source for the CPU")
     work = tmp_path_factory.mktemp(Path(source).stem)
     for header in CSRC.glob("*.cuh"):
         text = header.read_text()
-        (work / header.name).write_text(emulated_header(text) if header.name == "sampled_dense_common.cuh" else text)
+        (work / header.name).write_text(EMULATED_HEADERS.get(header.name, str)(text))
     src = work / f"{Path(source).stem}.cpp"
     src.write_text(emulated_source((CSRC / source).read_text()))
     lib = work / f"lib{Path(source).stem}.so"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-I", str(EMULATION), "-I", str(CSRC), "-o", str(lib), str(src), "-lpthread"],
-                   check=True, capture_output=True)
+    done = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+                           "-I", str(EMULATION), "-I", str(CSRC), "-o", str(lib), str(src), "-lpthread"],
+                          capture_output=True, text=True)
+    assert done.returncode == 0, done.stderr[-4000:]
     dll = ctypes.CDLL(str(lib))
     for name in names:
         getattr(dll, name).argtypes = sd._SIGNATURES[name][1]
@@ -196,13 +215,15 @@ def dparams_library(tmp_path_factory):
     return build(tmp_path_factory, "sampled_dense_dparams.cu", DPARAMS)
 
 
-def run_dparams(dll, g, x, rho, brho, seed, sms):
-    """One dparams call; NaN-filled outputs and scratch, so a missed write shows."""
+def run_dparams(dll, g, x, rho, brho, seed, sms, bf16=False):
+    """One dparams call (of the bf16 kernels with ``bf16``); NaN-filled
+    outputs and scratch, so a missed write shows."""
     (s, b, o), i = g.shape, rho.shape[0]
     plan = sd.dparams_plan(s, i, o, sms)
     outs = [torch.full((i, o), float("nan")) for _ in range(2)] + [torch.full((o,), float("nan")) for _ in range(2)]
     partials = torch.full(plan.scratch, float("nan")) if plan.scratch else None
-    fn = dll.sampled_dense_xs_dparams if x.dim() == 3 else dll.sampled_dense_dparams
+    name = ("sampled_dense_xs_dparams" if x.dim() == 3 else "sampled_dense_dparams") + ("_bf16" if bf16 else "")
+    fn = getattr(dll, name)
     err = fn(g.data_ptr(), x.data_ptr(), rho.data_ptr(), brho.data_ptr(),
              partials.data_ptr() if partials is not None else None, *(t.data_ptr() for t in outs),
              s, b, i, o, seed, plan.n_split, None)
@@ -247,4 +268,115 @@ def test_dparams_kernels_match_twins_on_the_cpu(dparams_library, shape, sms, run
                        (got_xs, sd.sampled_dense_xs_dparams_plain(g, xs, rho, brho, s, 2026))):
         for got_t, want_t in zip(outs, want):
             torch.testing.assert_close(got_t, want_t, rtol=1e-4, atol=1e-4 * float(want_t.abs().max()))
+    assert all(torch.equal(a, c) for a, c in zip(broadcast, got))
+
+
+BF16 = ("sampled_dense_fwd_bf16", "sampled_dense_xs_fwd_bf16", "sampled_dense_dx_bf16", "sampled_dense_xs_dx_bf16")
+DPARAMS_BF16 = ("sampled_dense_dparams_bf16", "sampled_dense_xs_dparams_bf16")
+
+
+@pytest.fixture(scope="module")
+def bf16_library(tmp_path_factory):
+    return build(tmp_path_factory, "sampled_dense_bf16.cu", BF16)
+
+
+@pytest.fixture(scope="module")
+def dparams_bf16_library(tmp_path_factory):
+    return build(tmp_path_factory, "sampled_dense_dparams_bf16.cu", DPARAMS_BF16)
+
+
+def assert_bf16_close(kind, got, twin, f32, a, loc, rho, s, seed):
+    """The card's gate of a bf16 forward or input-gradient kernel (a W_s may
+    round to the other bf16 neighbour), and nearer its bf16 twin than a tenth
+    of its distance from the f32 twin."""
+    term = sd.bf16_error_scale(kind, a, loc, rho, s, seed, largest=True)
+    err = (got - twin).abs()
+    assert (err <= 2.0**-7 * term + 1e-4 * twin.abs() + 1e-4 * float(twin.abs().max())).all(), kind
+    assert float(err.max()) < 0.1 * float((got - f32).abs().max()), kind
+
+
+@pytest.mark.parametrize("shape,sms", [
+    ((37, 70, 10, 3), 132),  # the head's narrow tiles, I = 70 ragged over 32-deep chunks
+    ((1, 70, 13, 1), 132),  # narrow, one row, O % 4 != 0
+    ((37, 70, 66, 2), 132),  # wide, O % 4 != 0 and I % 4 != 0: plain loads, two output tiles
+    ((129, 24, 20, 2), 1),  # wide, two row tiles, a ragged 64-output tile, one run: no partials
+], ids=lambda v: "B{}_I{}_O{}_S{}".format(*v) if isinstance(v, tuple) else f"{v}sm")
+def test_bf16_fwd_kernels_match_bf16_twins_on_the_cpu(bf16_library, shape, sms):
+    """Both bf16 forwards against their bf16 twins through the m16n8k16 stand-in."""
+    b, i, o, s = shape
+    rng = np.random.default_rng(b * 7919 + i * 31 + o)
+
+    def normal(*dims, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.normal(size=dims) * scale + shift).astype(np.float32))
+
+    params = (normal(i, o, scale=0.1), normal(i, o, scale=0.5, shift=-3.0),
+              normal(o, scale=0.1), normal(o, scale=0.5, shift=-3.0))
+    for x, name in ((normal(b, i), "fwd"), (normal(s, b, i), "xs_fwd")):
+        plan = sd.fwd_plan(s, b, i, o, sms)
+        out = torch.full((s, b, o), float("nan"))
+        sp = torch.full_like(params[1], float("nan"))
+        partials = torch.full(plan.scratch, float("nan")) if plan.scratch else None
+        err = getattr(bf16_library, f"sampled_dense_{name}_bf16")(
+            x.data_ptr(), *(t.data_ptr() for t in params), sp.data_ptr(),
+            partials.data_ptr() if partials is not None else None, out.data_ptr(), s, b, i, o, 2026, plan.n_split, None)
+        assert err == 0
+        twin = getattr(sd, f"sampled_dense_{name}_bf16_plain")(x, *params, s, 2026)
+        f32 = getattr(sd, f"sampled_dense_{name}_plain")(x, *params, s, 2026)
+        assert_bf16_close(name, out, twin, f32, x, params[0], params[1], s, 2026)
+
+
+@pytest.mark.parametrize("shape,sms", [
+    ((37, 70, 10, 3), 132),  # the narrow tiles (32 inputs), O = 10
+    ((45, 70, 66, 2), 132),  # wide, O % 4 != 0: plain loads; dx split into runs, dxs too
+    ((129, 40, 20, 2), 1),  # two row tiles, one run: no partials
+], ids=lambda v: "B{}_I{}_O{}_S{}".format(*v) if isinstance(v, tuple) else f"{v}sm")
+def test_bf16_dx_kernels_match_bf16_twins_on_the_cpu(bf16_library, shape, sms):
+    """Both bf16 input gradients against their bf16 twins through the m16n8k16 stand-in."""
+    b, i, o, s = shape
+    rng = np.random.default_rng(b * 7919 + i * 31 + o)
+
+    def normal(*dims, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.normal(size=dims) * scale + shift).astype(np.float32))
+
+    g, loc, rho = normal(s, b, o), normal(i, o, scale=0.1), normal(i, o, scale=0.5, shift=-3.0)
+    for name, sum_samples in (("dx", True), ("xs_dx", False)):
+        plan = sd.dx_plan(s, b, i, o, sms, sum_samples)
+        out = torch.full((b, i) if sum_samples else (s, b, i), float("nan"))
+        sp = torch.full_like(rho, float("nan"))
+        partials = torch.full(plan.scratch, float("nan")) if plan.scratch else None
+        err = getattr(bf16_library, f"sampled_dense_{name}_bf16")(
+            g.data_ptr(), loc.data_ptr(), rho.data_ptr(), sp.data_ptr(),
+            partials.data_ptr() if partials is not None else None, out.data_ptr(), s, b, i, o, 2026, plan.n_split, None)
+        assert err == 0
+        twin = getattr(sd, f"sampled_dense_{name}_bf16_plain")(g, loc, rho, s, 2026)
+        f32 = getattr(sd, f"sampled_dense_{name}_plain")(g, loc, rho, s, 2026)
+        assert_bf16_close(name, out, twin, f32, g, loc, rho, s, 2026)
+
+
+@pytest.mark.parametrize("shape,sms,runs", [
+    ((37, 70, 10, 3), 132, 3),  # the head's narrow path, I = 70 ragged over three input blocks
+    ((1, 70, 13, 1), 132, 1),  # narrow, one row, O % 4 != 0 in the last quad: no partials
+    ((37, 70, 66, 2), 132, 2),  # wide, O % 4 != 0 and I % 4 != 0: plain loads, two output tiles
+    ((65, 24, 20, 3), 132, 3),  # wide, O = 20: a ragged 64-output tile, three 32-row chunks, a cluster of 3
+    ((9, 130, 20, 9), 132, 8),  # wide, two input tiles, eight runs: the largest cluster, runs of one or two
+    ((45, 70, 66, 2), 1, 1),  # wide, one run
+], ids=lambda v: "B{}_I{}_O{}_S{}".format(*v) if isinstance(v, tuple) else str(v))
+def test_bf16_dparams_kernels_match_bf16_twins_on_the_cpu(dparams_bf16_library, shape, sms, runs):
+    """Both bf16 dparams kernels against their bf16 twins at the f32 gate
+    (dloc and drho nearer them than a tenth of their distance from the f32
+    twins), and xs_dparams on a broadcast x equal to dparams."""
+    b, i, o, s = shape
+    g, x, xs, rho, brho = dparams_case(shape)
+    got, plan = run_dparams(dparams_bf16_library, g, x, rho, brho, 2026, sms, bf16=True)
+    assert plan.n_split == runs
+    got_xs, _ = run_dparams(dparams_bf16_library, g, xs, rho, brho, 2026, sms, bf16=True)
+    broadcast, _ = run_dparams(dparams_bf16_library, g, x.expand(s, b, i).contiguous(), rho, brho, 2026, sms,
+                               bf16=True)
+    for outs, inp in ((got, x), (got_xs, xs)):
+        twin = sd.sampled_dense_dparams_bf16_plain(g, inp, rho, brho, s, 2026)
+        f32 = sd.sampled_dense_dparams_plain(g, inp, rho, brho, s, 2026)
+        for k, (got_t, want_t, f32_t) in enumerate(zip(outs, twin, f32)):
+            torch.testing.assert_close(got_t, want_t, rtol=1e-4, atol=1e-4 * float(want_t.abs().max()))
+            if k < 2:
+                assert float((got_t - want_t).abs().max()) < 0.1 * float((got_t - f32_t).abs().max()), k
     assert all(torch.equal(a, c) for a, c in zip(broadcast, got))

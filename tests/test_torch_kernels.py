@@ -13,13 +13,16 @@ round ``log``/``sin``/``cos`` an ulp apart, so results agree to 1e-4 relative
 plus 1e-4 of the largest entry. The noise itself is compared entry by entry to
 1e-5 absolute: a few ulps of an O(1) normal.
 
-The bf16 variants (``ROBUSTBNNS_KERNEL_PRECISION=default``) multiply the same
-bf16 operands as their twins, exactly in f32, so they differ only in the
-order of the f32 sums and where a W_s that the kernel and torch round an ulp
-apart in f32 lands on the other bf16 neighbour: one term off by at most 2⁻⁷
-of its |x||W_s|. Each output is held to 2⁻⁸·Σ|x||W_s| + 1e-4 of the largest
-entry of its twin, and to 2·2⁻⁸·Σ|x||W_s| (both operands rounded) plus the
-f32 tolerance of the exact f32 twin.
+The bf16 forward and input-gradient variants
+(``ROBUSTBNNS_KERNEL_PRECISION=default``) multiply the same bf16 operands as
+their twins, exactly in f32, so they differ only in the order of the f32 sums
+and where a W_s that the kernel and torch round an ulp apart in f32 lands on
+the other bf16 neighbour: one term off by at most 2⁻⁷ of its |x||W_s|. Each
+output is held to the f32 tolerance of its twin plus 2⁻⁷ of its largest term,
+and to 2·2⁻⁸·Σ|x||W_s| (both operands rounded) plus the f32 tolerance of the
+exact f32 twin. The bf16 parameter-gradient variants round x and g, which
+round alike on the card and on the CPU, and no W_s: they meet their twins at
+the f32 tolerance alone.
 """
 import importlib
 import math
@@ -282,15 +285,44 @@ def test_bf16_kernels_match_bf16_twins(cuda, shape, monkeypatch):
         assert float(err.max()) < 0.1 * float(err32.max()), (kind, float(err.max()), float(err32.max()))
 
 
-def test_bf16_has_no_dparams_kernel(cuda, monkeypatch):
-    """Under ROBUSTBNNS_KERNEL_PRECISION=default the parameter-gradient
-    wrappers raise on the card: they never run the f32 kernel in its place."""
-    b, i, o, s = 8, 24, 20, 3
+BF16_DPARAMS_SHAPES = DPARAMS_EDGE_SHAPES + [  # (B, I, O, S) beyond the edge shapes: model_7's three layers
+    (128, 784, 1024, 10),
+    (128, 1024, 1024, 10),
+    (128, 1024, 10, 10),
+]
+
+
+@pytest.mark.parametrize("shape", BF16_DPARAMS_SHAPES, ids=lambda s: "B{}_I{}_O{}_S{}".format(*s))
+def test_bf16_dparams_kernels_match_bf16_twins(cuda, shape, monkeypatch):
+    """Under ROBUSTBNNS_KERNEL_PRECISION=default each parameter-gradient
+    wrapper launches its bf16 kernel, counted under the bf16 name only:
+    bit-identical across two calls; within the f32 tolerance of the bf16
+    twin (no W_s is rounded, so the kernel and its twin form the same exact
+    products and differ in the order of the f32 sums alone); within the
+    bf16 rounding bound of the exact f32 kernel; and dloc and drho nearer the
+    bf16 twin than a tenth of their distance from the f32 kernel."""
+    b, i, o, s = shape
     p = layer(b, i, o, s, cuda)
-    monkeypatch.setenv("ROBUSTBNNS_KERNEL_PRECISION", "default")
-    before = sd.sampled_dense_dparams.launches, sd.sampled_dense_xs_dparams.launches
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        sd.sampled_dense_dparams(p["g"], p["x"], p["rho"], p["brho"], s, 1)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        sd.sampled_dense_xs_dparams(p["g"], p["xs"], p["rho"], p["brho"], s, 1)
-    assert (sd.sampled_dense_dparams.launches, sd.sampled_dense_xs_dparams.launches) == before
+    seed = 2028
+    for kind, public, kernel, x in (("dparams", sd.sampled_dense_dparams, sd.sampled_dense_dparams_bf16, p["x"]),
+                                    ("xs_dparams", sd.sampled_dense_xs_dparams, sd.sampled_dense_xs_dparams_bf16,
+                                     p["xs"])):
+        args = (p["g"], x, p["rho"], p["brho"], s, seed)
+        monkeypatch.setenv("ROBUSTBNNS_KERNEL_PRECISION", "default")
+        before, f32_before = kernel.launches, public.launches
+        got, again = public(*args), public(*args)
+        torch.cuda.synchronize()
+        assert (kernel.launches, public.launches) == (before + 2, f32_before), kind
+        assert all(torch.equal(a, c) and bool(torch.isfinite(a).all()) for a, c in zip(got, again)), kind
+        monkeypatch.delenv("ROBUSTBNNS_KERNEL_PRECISION")
+        twin = sd.sampled_dense_dparams_bf16_plain(*args)
+        f32 = public(*args)
+        scales = sd.bf16_error_scale(kind, p["g"], x, p["rho"], s, seed)
+        for k, (got_t, twin_t, f32_t) in enumerate(zip(got, twin, f32)):
+            assert_close(got_t, twin_t)
+            if k < 2:
+                err32 = (got_t - f32_t).abs()
+                assert (err32 <= 2 * 2.0**-8 * scales[k] + 1e-4 * f32_t.abs()
+                        + 1e-4 * float(f32_t.abs().max())).all(), (kind, k)
+                err = float((got_t - twin_t).abs().max())
+                assert err < 0.1 * float(err32.max()), (kind, k, err, float(err32.max()))

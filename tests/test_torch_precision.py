@@ -310,8 +310,8 @@ def test_fused_predictive_follows_the_kernel_precision_only(monkeypatch):
     """The fused fc2 predictive: ROBUSTBNNS_BF16 leaves it on the f32 twins
     (JAX's kernels read only ROBUSTBNNS_KERNEL_PRECISION); under
     ROBUSTBNNS_KERNEL_PRECISION=default it runs the bf16 twins, its input
-    gradient too, and its parameter gradient raises instead of running the
-    f32 parameter-gradient twin."""
+    gradient too, and its parameter gradient runs the two bf16
+    parameter-gradient twins and no f32 twin."""
     arch = build_architecture("fc2", "leaky", (6, 6, 1), 10, 32)
     rng = np.random.default_rng(7)
     loc = tuple({k: (rng.normal(size=v.shape) * 0.2).astype(np.float32) for k, v in layer.items()}
@@ -320,7 +320,7 @@ def test_fused_predictive_follows_the_kernel_precision_only(monkeypatch):
     post = meanfield_from_numpy(loc, rho)
     x = t(rng.uniform(size=(5, 6, 6, 1)))
     calls = []
-    for name in ("fwd", "xs_fwd", "dx", "xs_dx"):
+    for name in ("fwd", "xs_fwd", "dx", "xs_dx", "dparams", "xs_dparams"):
         for suffix in ("_plain", "_bf16_plain"):
             fn = getattr(sd, f"sampled_dense_{name}{suffix}")
             monkeypatch.setattr(sd, f"sampled_dense_{name}{suffix}",
@@ -337,10 +337,14 @@ def test_fused_predictive_follows_the_kernel_precision_only(monkeypatch):
     assert sorted(set(calls)) == ["dx_bf16_plain", "fwd_bf16_plain", "xs_dx_bf16_plain", "xs_fwd_bf16_plain"]
     assert torch.isfinite(xr.grad).all() and not torch.equal(low.detach(), exact)
     of_max(low.detach(), exact, 2.0**-5)
-    leaves = post.loc[0]["w"].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        sd.sampled_dense(x.reshape(5, -1), leaves, post.rho[0]["w"], post.loc[0]["b"], post.rho[0]["b"],
-                         4, 3).sum().backward()
+    calls.clear()
+    leaves = type(post)(*(tuple({k: v.clone().requires_grad_(True) for k, v in layer.items()} for layer in tree)
+                          for tree in post))
+    flat = [v for tree in leaves for layer in tree for v in layer.values()]
+    grads = torch.autograd.grad(svi_predict_fused(arch, leaves, x, 4, seed=3)[:, 0].sum(), flat)
+    assert sorted(set(calls)) == ["dparams_bf16_plain", "fwd_bf16_plain", "xs_dparams_bf16_plain",
+                                  "xs_dx_bf16_plain", "xs_fwd_bf16_plain"]
+    assert len(grads) == 12 and all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def test_hmc_potential_and_gradient_match_jax_bf16(bf16_env):
