@@ -44,7 +44,12 @@ Phases, each fatal on failure:
    f32 gate + 2^-7 of the largest term |x_i||W_si|), against the f32 kernels
    (the bf16 rounding bound), and nearer the twin than a tenth of their
    distance from the f32 kernel, at model_7's shapes and the edge shapes,
-   bit-identical across calls, timed beside the f32 kernels, and the
+   bit-identical across calls, timed beside the f32 kernels (the two
+   per-sample ones, redesigned in ``csrc/sampled_dense_xs_bf16.cu``, also
+   beside their earlier design, the partials one, rebuilt from
+   ``csrc/sampled_dense_bf16.cu``
+   with :data:`PARTIALS_XS_BF16` and beside the noise floor of their normals,
+   :data:`NOISE_FLOOR_CU`, with ``xs_bf16_plan``'s geometry), and the
    finite-difference adjoint of both precisions; the two bf16 parameter-
    gradient kernels through the public wrappers under the variable (counted
    under their bf16 names only) against their bf16 twins at the f32 gate,
@@ -63,7 +68,8 @@ Phases, each fatal on failure:
    HMC ``precision="default"`` against "high" (apart, and within bounds),
    its logits under the sampler's scope nearer the CPU's bf16 arithmetic,
    HMC evaluations/s of both in turns, a 2-draw NUTS run; TF32 still off
-   after;
+   after; then ``[attack-profile]``'s PGD under the variable (wall against
+   device time an iteration);
    then ``[mesh]``, the mesh path at one NCCL rank, each stage bit-equal to
    the same call without a mesh: the attack CLI with ``--mesh=auto`` (x_adv
    and the launch counts of phase 7, NCCL's collective in the device trace
@@ -346,10 +352,152 @@ def phase_device(torch) -> str:
     return smi
 
 
-def phase_build() -> None:
+# The earlier design of the two bf16 per-sample kernels, rebuilt beside the
+# port's to time both in one process: csrc/sampled_dense_bf16.cu keeps the
+# templates (launch_fwd, launch_dx) whose shared-input instances it exports;
+# these entry points, appended to a copy of it, export the per-sample instances
+# as that design ran them (a softplus pass, the runs' partial tiles and a
+# second pass that sums them).
+PARTIALS_XS_BF16 = """
+extern "C" int sampled_dense_xs_fwd_bf16_partials(const float* xs, const float* loc, const float* rho,
+                                                  const float* bloc, const float* brho, float* sp, float* partials,
+                                                  float* out, int S, int B, int I, int O, uint32_t seed, int n_split,
+                                                  void* stream) {
+  return sampled_dense::launch_fwd<true>(xs, loc, rho, bloc, brho, sp, partials, out, S, B, I, O, seed, n_split,
+                                         static_cast<cudaStream_t>(stream));
+}
+extern "C" int sampled_dense_xs_dx_bf16_partials(const float* g, const float* loc, const float* rho, float* sp,
+                                                 float* partials, float* dxs, int S, int B, int I, int O, uint32_t seed,
+                                                 int n_split, void* stream) {
+  return sampled_dense::launch_dx<false>(g, loc, rho, sp, partials, dxs, S, B, I, O, seed, n_split,
+                                         static_cast<cudaStream_t>(stream));
+}
+"""
+# The noise floor of a call: its S·I·O normals drawn with the kernels'
+# normal4, each thread folding the quads of ``rows`` rows of one column quad
+# into one stored float (nothing read, so nothing is optimised away and
+# nothing else is timed), with enough threads to fill the card.
+NOISE_FLOOR_CU = """
+#include "sampled_dense_common.cuh"
+namespace {
+__global__ void __launch_bounds__(256) noise_floor_kernel(float* __restrict__ out, uint32_t seed, int I, int quads,
+                                                          int rows) {
+  const int flat = blockIdx.x * 256 + threadIdx.x, q = flat % quads, i0 = flat / quads * rows;
+  float fold = 0.f;
+  for (int i = i0; i < min(I, i0 + rows); ++i) {
+    const float4 z = sampled_dense::normal4(seed, blockIdx.y, i, q);
+    fold += (z.x + z.y) + (z.z + z.w);
+  }
+  out[(size_t)blockIdx.y * gridDim.x * 256 + flat] = fold;
+}
+}
+// out: S * ceil(ceil(O / 4) * ceil(I / rows) / 256) * 256 floats
+extern "C" int noise_floor(float* out, int S, int I, int O, int rows, uint32_t seed, void* stream) {
+  const int quads = (O + 3) / 4;
+  const dim3 grid((quads * ((I + rows - 1) / rows) + 255) / 256, S);
+  noise_floor_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(out, seed, I, quads, rows);
+  return (int)cudaGetLastError();
+}
+"""
+_extra_builds: dict = {}
+
+
+def start_extra_build(name: str, text: str, workdir: str) -> None:
+    """Compile ``text`` (a CUDA source that may include csrc's headers) with
+    the port's nvcc flags into ``workdir``, in the background."""
+    from robustbnns_tpu_torch.ops import build
+
+    src, lib = os.path.join(workdir, f"{name}.cu"), os.path.join(workdir, f"lib{name}.so")
+    with open(src, "w") as f:
+        f.write(text)
+    _extra_builds[name] = (lib, subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", lib, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+
+def extra_library(name: str):
+    """The library of :func:`start_extra_build`, waited for and loaded once."""
+    import ctypes
+
+    lib, proc = _extra_builds[name]
+    if not isinstance(proc, ctypes.CDLL):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"[build] {name} failed:\n{out}")
+        for line in out.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+        _extra_builds[name] = (lib, ctypes.CDLL(lib))
+    return _extra_builds[name][1]
+
+
+def start_comparison_builds(workdir: str) -> None:
+    """The partials design's per-sample kernels and the noise floor, for ``[precision]``."""
+    from robustbnns_tpu_torch.ops import build
+
+    start_extra_build("partials_xs_bf16", (build.CSRC / "sampled_dense_bf16.cu").read_text() + PARTIALS_XS_BF16, workdir)
+    start_extra_build("noise_floor", NOISE_FLOOR_CU, workdir)
+
+
+def partials_xs_bf16(kind: str):
+    """The partials design's kernel of ``kind`` (``xs_fwd``, ``xs_dx``), typed as the
+    port's entry point of that name."""
+    import ctypes
+
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    fn = getattr(extra_library("partials_xs_bf16"), f"sampled_dense_{kind}_bf16_partials")
+    fn.argtypes, fn.restype = sd._SIGNATURES[f"sampled_dense_{kind}_bf16"][1], ctypes.c_int
+    return fn
+
+
+def partials_xs_bf16_call(torch, kind: str, a, params, n_samples: int, seed: int):
+    """One call of the partials design's kernel on its own plan (fwd_plan, dx_plan) and
+    scratch, as its wrapper made it; ``params``: loc, rho and (``xs_fwd``)
+    bloc, brho. Returns the output."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    b_dim = a.shape[1]
+    i_dim, o_dim = params[0].shape
+    plan = (sd.fwd_plan(n_samples, b_dim, i_dim, o_dim, sms) if kind == "xs_fwd"
+            else sd.dx_plan(n_samples, b_dim, i_dim, o_dim, sms, False))
+    out = torch.empty((n_samples, b_dim, o_dim if kind == "xs_fwd" else i_dim), device=a.device)
+    sp = torch.empty_like(params[1])
+    partials = torch.empty(plan.scratch, device=a.device) if plan.scratch else None
+    err = partials_xs_bf16(kind)(a.data_ptr(), *(t.data_ptr() for t in params), sp.data_ptr(),
+                             partials.data_ptr() if partials is not None else None, out.data_ptr(), n_samples,
+                             b_dim, i_dim, o_dim, seed, plan.n_split, torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"the partials design's {kind}_bf16 kernel failed to launch: cudaError {err}")
+    return out
+
+
+def noise_floor_ms(torch, n_samples: int, i_dim: int, o_dim: int) -> float:
+    """Device ms of :data:`NOISE_FLOOR_CU` drawing the S·I·O normals of one
+    call: at most 16 rows a thread, and at least 2,048 threads an SM."""
+    import ctypes
+
+    lib = extra_library("noise_floor")
+    lib.noise_floor.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_uint32, ctypes.c_void_p]
+    lib.noise_floor.restype = ctypes.c_int
+    quads = -(-o_dim // 4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = max(1, min(16, n_samples * quads * i_dim // (2048 * sms)))
+    out = torch.empty((n_samples * -(-quads * -(-i_dim // rows) // 256) * 256,), device="cuda")
+
+    def run():
+        err = lib.noise_floor(out.data_ptr(), n_samples, i_dim, o_dim, rows, 7,
+                              torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"noise_floor failed to launch: cudaError {err}")
+
+    return device_ms(torch, run)
+
+
+def phase_build(workdir: str) -> None:
     from robustbnns_tpu_torch.ops import build
 
     t0 = time.perf_counter()
+    start_comparison_builds(workdir)  # compiled beside the port's sources, waited for in [precision]
     build.build_all()
     print(f"[build] {len(build.SOURCES)} sources in {time.perf_counter() - t0:.1f} s")
     for source, log in build.build_log.items():
@@ -779,7 +927,7 @@ def phase_main_path(torch, workdir: str) -> dict:
     return counts, runs
 
 
-def phase_attack_profile(torch) -> None:
+def phase_attack_profile(torch, phase: str = "attack-profile", what: str = "PGD") -> None:
     """Wall clock and device time of 40-step PGD at model_7's widths, as the
     CLI runs it (256 images in batches of 128, S = 10, fused): the median
     wall time of three unprofiled attacks, and the device time of their
@@ -795,7 +943,7 @@ def phase_attack_profile(torch) -> None:
     x = torch.rand((n, 28, 28, 1), generator=gen, device="cuda")
     y = torch.nn.functional.one_hot(torch.randint(0, 10, (n,), generator=gen, device="cuda"), 10).float()
     run = lambda: attack(bnn, x, y, method="pgd", n_samples=S, fused=True, save=False, verbose=False)  # noqa: E731
-    print_pgd_profile(torch, "attack-profile", "PGD", run, n, iters)
+    print_pgd_profile(torch, phase, what, run, n, iters)
 
 
 def print_pgd_profile(torch, phase: str, what: str, run, n: int, iters: int) -> None:
@@ -868,7 +1016,10 @@ def phase_precision_kernels(torch) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(1235)
     seed = 20261017
-    src, pallas = "robustbnns_tpu_torch/csrc/sampled_dense_bf16.cu", "robustbnns_tpu/ops/sampled_dense.py"
+    pallas = "robustbnns_tpu/ops/sampled_dense.py"
+    sources = {kind: f"robustbnns_tpu_torch/csrc/sampled_dense_{'xs_' if kind.startswith('xs') else ''}bf16.cu"
+               for kind in ("fwd", "dx", "xs_fwd", "xs_dx")}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     kinds = {  # kind: (bf16 wrapper, bf16 twin, f32 wrapper, Pallas line, shared input)
         "fwd": (sd.sampled_dense_fwd_bf16, sd.sampled_dense_fwd_bf16_plain, sd.sampled_dense_fwd, 99, True),
         "dx": (sd.sampled_dense_dx_bf16, sd.sampled_dense_dx_bf16_plain, sd.sampled_dense_dx, 114, True),
@@ -876,7 +1027,7 @@ def phase_precision_kernels(torch) -> dict:
                    False),
         "xs_dx": (sd.sampled_dense_xs_dx_bf16, sd.sampled_dense_xs_dx_bf16_plain, sd.sampled_dense_xs_dx, 362, False),
     }
-    results = {}
+    results, got_ref = {}, {}  # got_ref: the last checked call of each kind, and its bf16 twin
 
     def inputs(kind, b_dim, i_dim, o_dim, n_samples):
         loc, rho, bloc, brho = _layer_inputs(torch, gen, i_dim, o_dim)
@@ -915,6 +1066,7 @@ def phase_precision_kernels(torch) -> dict:
             fail(f"[precision] {kind}_bf16 {shape_text}: {float(err.max()):.3e} from its bf16 twin against "
                  f"{float(err32.max()):.3e} from the f32 kernel (ratio {nearer:.3e}, gate {BF16_NEARER}): "
                  f"not the bf16 arithmetic")
+        got_ref[kind] = (got, ref)
         return float(err.max()), float((err32 / scale).max()) / 2.0**-8, nearer
 
     for li, (i_dim, o_dim) in enumerate(LAYERS):  # the main path's shapes, timed
@@ -945,13 +1097,26 @@ def phase_precision_kernels(torch) -> dict:
             nbytes = 4.0 * (a.numel() + 2 * i_dim * o_dim + (2 * o_dim if kind.endswith("fwd") else 0) + out_numel)
             b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
             name = f"sampled_dense_{kind}_bf16"
+            extra = {}
+            if kind.startswith("xs"):  # the redesigned kernels: the partials design and the noise floor beside them
+                before = lambda: partials_xs_bf16_call(torch, kind, a, rest, S, seed)  # noqa: E731
+                before_err = float((before() - got_ref[kind][1]).abs().max())
+                extra = {"before_ms": device_ms(torch, before), "before_call_ms": call_ms(torch, before),
+                         "noise_floor_ms": noise_floor_ms(torch, S, i_dim, o_dim)}
+                plan = sd.xs_bf16_plan(S, B, i_dim, o_dim, sms, kind[3:])
+                print(f"[precision] {name} {shape}: xs_bf16_plan on {sms} SMs: n_split {plan.n_split}, grid "
+                      f"{plan.grid}, {plan.cols}-column tiles, {plan.depth}-deep chunks x {plan.chunks}, "
+                      f"softplus scratch {plan.softplus_scratch}; the partials design (rebuilt) "
+                      f"{extra['before_ms']:.4f} ms (call {extra['before_call_ms']:.4f} ms; max|err| from the bf16 "
+                      f"twin {before_err:.3e}), the noise floor of its {S * i_dim * o_dim} normals "
+                      f"{extra['noise_floor_ms']:.4f} ms")
             print(f"[precision] {name} {shape}: max|err| {err:.3e} from its bf16 twin ({nearer:.2e} of its max "
                   f"distance from the f32 kernel, gate {BF16_NEARER}); from the f32 kernel at most {share:.3f} of "
                   f"2^-8 sum|x||W| (gate 2); kernel {ms:.4f} ms (call {c_ms:.4f} ms), f32 kernel "
                   f"{f32_ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
                   f"({b_by}, {100 * b_ms / ms:.1f}% of the kernel)")
             r = results.setdefault(name, {
-                "name": name, "route": "cuda", "source": src, "replaces": f"{pallas}:{line}",
+                "name": name, "route": "cuda", "source": sources[kind], "replaces": f"{pallas}:{line}",
                 "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                 "flops": 0.0, "bytes": 0.0, "library_ms": 0.0, "f32_ms": 0.0, "peak_flops": PEAK_BF16_FLOPS,
                 "per_shape": [],
@@ -962,7 +1127,7 @@ def phase_precision_kernels(torch) -> dict:
                 r[key] += v
             r["per_shape"].append({"shape": shape, "ms": ms, "call_ms": c_ms, "plain_ms": plain_ms,
                                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "f32_ms": f32_ms,
-                                   "max_abs_err": err})
+                                   "max_abs_err": err, **extra})
     for kinds_here, shapes in ((("fwd", "xs_fwd"), FWD_EDGE_SHAPES), (("dx", "xs_dx"), DX_EDGE_SHAPES)):
         for b_dim, i_dim, o_dim, n_samples in shapes:
             errs = []
@@ -1357,6 +1522,8 @@ def phase_precision(torch, workdir: str, main_counts: dict):
     grad_counts = phase_precision_param_grad(torch)
     counts = phase_precision_paths(torch, workdir, main_counts)
     counts = {**counts, **{name: grad_counts[name] for name in BF16_DPARAMS}}
+    with env_var("ROBUSTBNNS_KERNEL_PRECISION", "default"):  # [attack-profile] on the bf16 kernels
+        phase_attack_profile(torch, "precision", "PGD under ROBUSTBNNS_KERNEL_PRECISION=default")
     print(f"[precision] phase {time.perf_counter() - t0:.3f} s wall")
     return results, counts
 
@@ -2893,7 +3060,7 @@ def main() -> None:
             fail("the port imported JAX or the JAX package")
         phase_env(torch)
         phase_device(torch)
-        phase_build()
+        phase_build(workdir)
         kernels = phase_kernels(torch)
         phase_fwd_edges(torch)
         phase_dx_edges(torch)

@@ -1,15 +1,19 @@
-// bf16 tensor-core variants of the forward and input-gradient sampled-dense
-// kernels, for ROBUSTBNNS_KERNEL_PRECISION=default: out[s] = x W_s + b_s
-// (xs[s] W_s + b_s), dx = sum_s g_s W_s^T and dxs[s] = g_s W_s^T, where every
+// bf16 tensor-core variants of the shared-input forward and input-gradient
+// sampled-dense kernels, for ROBUSTBNNS_KERNEL_PRECISION=default: out[s] =
+// x W_s + b_s and dx = sum_s g_s W_s^T, where every
 // product takes operands rounded to bf16 (x or g, and W_s) and sums in f32
 // into an f32 result. W_s = loc + softplus(rho) * eps_s is drawn in f32 from the
 // f32 kernels' noise (sampled_dense_common.cuh) and rounded to bf16 only as it
 // enters shared memory; the bias row and its noise stay f32 and are added in
 // f32, as in the f32 kernels.
 //
-// Replaces the Pallas kernels _fwd_kernel, _bwd_dx_kernel, _fwd_kernel_xs and
-// _bwd_xs_dx_kernel (robustbnns_tpu/ops/sampled_dense.py:99, :114, :347, :362)
-// under Precision.DEFAULT (_dot, :61-65): single-pass bf16 MXU products there.
+// Replaces the Pallas kernels _fwd_kernel and _bwd_dx_kernel
+// (robustbnns_tpu/ops/sampled_dense.py:99, :114) under Precision.DEFAULT
+// (_dot, :61-65): single-pass bf16 MXU products there. Their templates also
+// have per-sample instances (kPerSampleX, !kSum): the earlier design of
+// _fwd_kernel_xs and _bwd_xs_dx_kernel, which sampled_dense_xs_bf16.cu has
+// replaced; this source exports them no longer (chip_smoke.PARTIALS_XS_BF16
+// rebuilds them to time the two designs side by side).
 //
 // What bounds them on the H100. At the main path's shapes (B = 128, S = 10)
 // the wide layers do 2*S*B*I*O = 2.06 and 2.68 GFLOP, 2.1 and 2.7 us at the
@@ -285,14 +289,6 @@ extern "C" int sampled_dense_fwd_bf16(const float* x, const float* loc, const fl
                                           static_cast<cudaStream_t>(stream));
 }
 
-// out[s] = bf16(xs[s]) bf16(W_s) + b_s. As sampled_dense_fwd_bf16.
-extern "C" int sampled_dense_xs_fwd_bf16(const float* xs, const float* loc, const float* rho, const float* bloc,
-                                         const float* brho, float* sp, float* partials, float* out, int S, int B,
-                                         int I, int O, uint32_t seed, int n_split, void* stream) {
-  return sampled_dense::launch_fwd<true>(xs, loc, rho, bloc, brho, sp, partials, out, S, B, I, O, seed, n_split,
-                                         static_cast<cudaStream_t>(stream));
-}
-
 // dx = sum_s bf16(g_s) bf16(W_s)^T, f32 sums. sp: an (I, O) scratch for
 // softplus(rho); partials: an (n_split, B, I) scratch when n_split > 1.
 extern "C" int sampled_dense_dx_bf16(const float* g, const float* loc, const float* rho, float* sp,
@@ -300,12 +296,4 @@ extern "C" int sampled_dense_dx_bf16(const float* g, const float* loc, const flo
                                      int n_split, void* stream) {
   return sampled_dense::launch_dx<true>(g, loc, rho, sp, partials, dx, S, B, I, O, seed, n_split,
                                         static_cast<cudaStream_t>(stream));
-}
-
-// dxs[s] = bf16(g_s) bf16(W_s)^T. As sampled_dense_dx_bf16, with (n_split, S, B, I) partials.
-extern "C" int sampled_dense_xs_dx_bf16(const float* g, const float* loc, const float* rho, float* sp,
-                                        float* partials, float* dxs, int S, int B, int I, int O, uint32_t seed,
-                                        int n_split, void* stream) {
-  return sampled_dense::launch_dx<false>(g, loc, rho, sp, partials, dxs, S, B, I, O, seed, n_split,
-                                         static_cast<cudaStream_t>(stream));
 }

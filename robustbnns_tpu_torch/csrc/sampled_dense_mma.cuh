@@ -1,7 +1,8 @@
 // The bf16 tensor-core pieces of the sampled-dense kernels: one warp-wide
 // mma.sync.m16n8k16 (bf16 operands, f32 accumulators), the packing of two f32
 // values into a bf16 pair, and a 4-warp block's products over one staged
-// chunk. Shared by sampled_dense_bf16.cu and sampled_dense_dparams_bf16.cu.
+// chunk; the transposing ldmatrix of sampled_dense_xs_bf16.cu. Shared by the
+// three bf16 sources.
 //
 // Fragment layout of m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16"),
 // for lane = 4 gq + tq: a[0] holds A(gq, 2tq .. 2tq+1), a[1] A(gq+8, ..),
@@ -27,6 +28,19 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16: lane 8j + r gives the
+// address of row r of 8 x 8 matrix j (8 bf16, 16-byte aligned); lane
+// 4 gq + tq receives in r[j] the elements (row 2tq, column gq) and
+// (2tq + 1, gq) of matrix j, the first in the low half: for a row-major
+// (k, n) B operand, the m16n8k16 B fragment of the matrix's columns.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16_t* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

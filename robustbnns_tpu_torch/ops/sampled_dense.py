@@ -33,8 +33,10 @@ with int64 tensor arithmetic.
 ``ROBUSTBNNS_KERNEL_PRECISION=default``, read at every call as the JAX package
 reads it (``_dot_precision``, ``sampled_dense.py:44-65``), routes every wrapper
 to its bf16 variant (counted as ``<wrapper>_bf16``): the forward and
-input-gradient kernels of ``csrc/sampled_dense_bf16.cu`` round x (or g) and W_s
-to bf16, the parameter-gradient kernels of ``csrc/sampled_dense_dparams_bf16.cu``
+input-gradient kernels of ``csrc/sampled_dense_bf16.cu`` (shared input) and
+``csrc/sampled_dense_xs_bf16.cu`` (per-sample input, :func:`xs_bf16_plan`)
+round x (or g) and W_s to bf16, the parameter-gradient kernels of
+``csrc/sampled_dense_dparams_bf16.cu``
 round x and g (dW_s = bf16(x_s)ᵀ bf16(g_s)); products on the tensor cores summed
 in f32, f32 outputs; the noise, W_s in f32 and the bias as above (dbloc and
 dbrho from the unrounded g, as JAX's ``jnp.sum`` is no ``_dot``). Their twins
@@ -259,9 +261,9 @@ _SIGNATURES = {
     "sampled_dense_dparams": ("sampled_dense_dparams.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_xs_dparams": ("sampled_dense_dparams.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_fwd_bf16": ("sampled_dense_bf16.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_xs_fwd_bf16": ("sampled_dense_bf16.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_xs_fwd_bf16": ("sampled_dense_xs_bf16.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_dx_bf16": ("sampled_dense_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_xs_dx_bf16": ("sampled_dense_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_xs_dx_bf16": ("sampled_dense_xs_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_dparams_bf16": ("sampled_dense_dparams_bf16.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_xs_dparams_bf16": ("sampled_dense_dparams_bf16.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
 }
@@ -506,6 +508,91 @@ def dparams_sample_runs(plan: DparamsPlan, n_samples: int) -> list[range]:
     return [range(n_samples * r // n, n_samples * (r + 1) // n) for r in range(n)]
 
 
+# Geometry of the bf16 per-sample kernels (csrc/sampled_dense_xs_bf16.cu): a
+# block of 256 threads owns 128 batch rows x 64 columns of one sample (three
+# fit on an SM: at most 80 registers a thread, 64 KB of shared memory) and
+# walks a run of 16-deep chunks of the contraction; the runs of a tile are one
+# cluster of at most XS_MAX_RUNS. O <= 16 takes the heads' tiles: the forward
+# 128 x 16, dx 128 x 64 over the one chunk of O.
+XS_ROWS, XS_COLS, XS_DEPTH, XS_BLOCKS_PER_SM, XS_MAX_RUNS = 128, 64, 16, 3, 8
+XS_NARROW_COLS, XS_NARROW_FWD_DEPTH = 16, 64
+XS_RUN_OVERHEAD = 4  # chunks' worth of a run's two unhidden first chunks and its cluster sum
+
+
+@dataclass(frozen=True)
+class XsBf16Plan:
+    """Launch geometry of one call of a bf16 per-sample kernel.
+
+    ``grid``: (column tiles, S, row tiles · n_split); the ``n_split`` runs of a
+    tile are one thread-block cluster along z (rank r walks
+    ``xs_bf16_chunk_runs(plan)[r]``) that sums them on chip in the order
+    0 .. n_split-1. ``softplus_scratch``: the wide path reads softplus(rho)
+    from an (I, O) scratch; the heads compute it inline. No partials.
+    """
+
+    narrow: bool
+    n_split: int
+    grid: tuple[int, int, int]
+    cols: int  # columns of a tile: O for the forward, I for dx
+    depth: int  # contraction a chunk: I for the forward, O for dx
+    chunks: int
+    softplus_scratch: bool
+
+
+def xs_bf16_plan(n_samples: int, b_dim: int, i_dim: int, o_dim: int, sms: int, kind: str) -> XsBf16Plan:
+    """Where each chunk of the bf16 per-sample kernel ``kind`` (``"fwd"``:
+    xs_fwd, ``"dx"``: xs_dx) runs, for a card with ``sms`` SMs.
+
+    A tile is (column tile, sample, row tile). When the tiles fill the SMs'
+    ``XS_BLOCKS_PER_SM`` slots, one run a tile. Otherwise each tile's chunks
+    are split into the n <= :data:`XS_MAX_RUNS` runs that minimise the
+    blocks' share of the slots (at least one wave) times a run's length (its
+    chunks plus :data:`XS_RUN_OVERHEAD`), the smallest n on a tie: at
+    model_7's hidden layer 3 runs, measured 1.5-3% faster than 2 and 4 on the
+    H100 (``scripts/torch_dx_probe.py --xs-bf16``).
+    """
+    if kind not in ("fwd", "dx"):
+        raise ValueError(f"kind must be 'fwd' or 'dx', got {kind!r}")
+    narrow = o_dim <= NARROW_MAX_O
+    k_dim, n_dim = (i_dim, o_dim) if kind == "fwd" else (o_dim, i_dim)
+    head_fwd = narrow and kind == "fwd"
+    cols, depth = (XS_NARROW_COLS, XS_NARROW_FWD_DEPTH) if head_fwd else (XS_COLS, XS_DEPTH)
+    chunks = _cdiv(k_dim, depth)
+    col_tiles, b_tiles = _cdiv(n_dim, cols), _cdiv(b_dim, XS_ROWS)
+    tiles, slots = col_tiles * n_samples * b_tiles, XS_BLOCKS_PER_SM * sms
+    n_split = 1
+    if tiles < slots:
+        cost = lambda n: max(1.0, tiles * n / slots) * (_cdiv(chunks, n) + XS_RUN_OVERHEAD)  # noqa: E731
+        n_split = min(range(1, min(XS_MAX_RUNS, chunks) + 1), key=lambda n: (cost(n), n))
+    return XsBf16Plan(narrow, n_split, (col_tiles, n_samples, b_tiles * n_split), cols, depth, chunks,
+                      not narrow)
+
+
+def xs_bf16_chunk_runs(plan: XsBf16Plan) -> list[range]:
+    """The chunks that each run of a tile walks, as the kernels compute them."""
+    c, n = plan.chunks, plan.n_split
+    return [range(c * r // n, c * (r + 1) // n) for r in range(n)]
+
+
+def _xs_bf16_launch(wrapper, plain, a, params, n_samples: int, seed: int, kind: str) -> torch.Tensor:
+    """``plain`` on CPU tensors; else the bf16 per-sample kernel named as
+    ``wrapper`` on :func:`xs_bf16_plan`'s geometry, counted on it. ``a`` is xs
+    (forward: ``params`` = loc, rho, bloc, brho) or g (dx: loc, rho)."""
+    if _on_cpu(a, *params):
+        return plain(a, *params, n_samples, seed)
+    _check_cuda(a, *params)
+    b_dim = a.shape[1]
+    i_dim, o_dim = params[0].shape
+    plan = xs_bf16_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(a.device), kind)
+    out = torch.empty((n_samples, b_dim, o_dim if kind == "fwd" else i_dim), device=a.device)
+    sp = torch.empty_like(params[1]) if plan.softplus_scratch else None
+    _launch(wrapper.__name__, a.device, a.data_ptr(), *(t.data_ptr() for t in params),
+            sp.data_ptr() if sp is not None else None, None, out.data_ptr(),
+            n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
+    wrapper.launches += 1
+    return out
+
+
 def _fwd_launch(wrapper, plain, x, loc, rho, bloc, brho, n_samples: int, seed: int,
                 narrow_softplus: bool = False) -> torch.Tensor:
     """``plain`` on CPU tensors; else the kernel named as ``wrapper``, counted
@@ -653,20 +740,44 @@ def sampled_dense_dx_bf16(g, loc, rho, n_samples: int, seed: int) -> torch.Tenso
 
 
 def sampled_dense_xs_fwd_bf16(xs, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
-    """Pallas ``_fwd_kernel_xs`` under ``Precision.DEFAULT``: as
-    :func:`sampled_dense_fwd_bf16` with the per-sample input xs (S, B, I)."""
+    """Pallas ``_fwd_kernel_xs`` under ``Precision.DEFAULT`` -> the tensor-core
+    kernel of ``csrc/sampled_dense_xs_bf16.cu``. (S, B, I) -> (S, B, O) =
+    bf16(xs[s]) bf16(W_s) + b_s with f32 sums.
+
+    Bound on the H100: the S·I·O normals drawn on the FP32 pipe (10.5 M at
+    the hidden layer of fc2-1024, B=128, S=10: 25.5 µs for a kernel that
+    only draws them), far above the products (2.7 µs at the bf16 peak) and
+    the bytes (5.6 µs); the 10-class head by moving xs and its launch.
+    Design (:func:`xs_bf16_plan`): 128 x 64 tiles of one sample on 8 warps
+    of ``mma.sync.m16n8k16``, three blocks an SM; 16-deep chunks of I whose
+    xs rows, loc and softplus(rho) ``cp.async`` copies two chunks ahead
+    through three stages of shared memory (xs rounded to bf16 as read), one
+    barrier a chunk, each thread drawing one quad of the next chunk's W_s
+    (stored k-major, read by ``ldmatrix.trans``) while the current chunk's
+    products run; each tile's runs one cluster that sums them on chip in a
+    fixed order (no partials; bit-identical from call to call). The wide
+    path launches a softplus(rho) pass and the kernel, the head (128 x 16
+    tiles, 64-deep chunks, softplus inline) one kernel; one launch counted.
+    """
     _check_input(xs, loc, rho, bloc, brho, n_samples)
-    return _fwd_launch(sampled_dense_xs_fwd_bf16, sampled_dense_xs_fwd_bf16_plain, xs, loc, rho, bloc, brho,
-                       n_samples, seed, narrow_softplus=True)
+    return _xs_bf16_launch(sampled_dense_xs_fwd_bf16, sampled_dense_xs_fwd_bf16_plain, xs, (loc, rho, bloc, brho),
+                           n_samples, seed, "fwd")
 
 
 def sampled_dense_xs_dx_bf16(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
-    """Pallas ``_bwd_xs_dx_kernel`` under ``Precision.DEFAULT``: dxs[s] =
-    bf16(g_s) bf16(W_s)ᵀ with f32 sums, as :func:`sampled_dense_dx_bf16`
-    with one sample per block row."""
+    """Pallas ``_bwd_xs_dx_kernel`` under ``Precision.DEFAULT`` -> the
+    tensor-core kernel of ``csrc/sampled_dense_xs_bf16.cu``. g (S, B, O) ->
+    dxs (S, B, I) = bf16(g_s) bf16(W_s)ᵀ with f32 sums.
+
+    Bound as :func:`sampled_dense_xs_fwd_bf16` (the head by writing dxs).
+    Design: its tiles, pipeline and clusters with the columns over I and the
+    chunks over O; W_s stored as drawn (its quads run along the contraction),
+    each B fragment register one 32-bit read. The head is 128 x 64 tiles of
+    one 16-deep chunk of O, softplus inline: one kernel. One launch counted.
+    """
     _check_cotangent(g, loc, rho, n_samples)
-    return _dx_launch(sampled_dense_xs_dx_bf16, sampled_dense_xs_dx_bf16_plain, g, loc, rho, n_samples, seed,
-                      sum_samples=False, narrow_softplus=True)
+    return _xs_bf16_launch(sampled_dense_xs_dx_bf16, sampled_dense_xs_dx_bf16_plain, g, (loc, rho), n_samples,
+                           seed, "dx")
 
 
 def _check_dparams(g, x, rho, brho, n_samples: int, x_lead: tuple) -> None:

@@ -7,9 +7,10 @@
 // of a thread-block cluster (cudaLaunchKernelEx) run at once, with a cluster
 // barrier and each other's dynamic shared memory (cooperative_groups.h here),
 // so a kernel launched in clusters keeps all its shared memory dynamic. The
-// warp-wide instructions (__shfl_xor_sync here, mma.sync through
-// emulated_mma_m16n8k16_bf16) exchange the lanes' registers through a
-// per-block buffer between two block barriers, which stand in for the warp's
+// warp-wide instructions (__shfl_xor_sync here, mma.sync and ldmatrix through
+// emulated_mma_m16n8k16_bf16 and emulated_ldmatrix_x4_trans) exchange the
+// lanes' registers through a per-block buffer between two block barriers,
+// which stand in for the warp's
 // convergence: the kernels reach each of them with every thread of the block,
 // and each call asserts that all threads are at the same such call. Build
 // with -std=c++20 -ffp-contract=off so that nothing is fused that the card
@@ -186,6 +187,29 @@ inline void emulated_mma_m16n8k16_bf16(float (&c)[4], const std::uint32_t (&a)[4
   }
   emulated_warp_release();
   for (int e = 0; e < 4; ++e) c[e] = d[e];
+}
+
+// ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16: lane 8j + r gives the
+// address of row r of matrix j (8 bf16, 16-byte aligned); lane 4 gq + tq
+// receives in r[j] the elements (row 2tq, column gq) and (row 2tq + 1, column
+// gq) of matrix j, the first in the low half (PTX ISA, "Warp-level matrix
+// load instruction: ldmatrix").
+inline void emulated_ldmatrix_x4_trans(std::uint32_t (&r)[4], const std::uint16_t* row) {
+  assert(reinterpret_cast<std::uintptr_t>(row) % 16 == 0 && "ldmatrix rows are 16-byte aligned");
+  static_assert(sizeof row <= 2 * sizeof(std::uint32_t));
+  std::memcpy(emulated_lane_slot(), &row, sizeof row);
+  const std::uint32_t* warp = emulated_warp_gather();
+  auto row_of = [&](int lane) {
+    const std::uint16_t* p;
+    std::memcpy(&p, warp + lane * kEmulatedLaneWords, sizeof p);
+    return p;
+  };
+  const int gq = (threadIdx.x % 32) / 4, tq = threadIdx.x % 4;
+  std::uint32_t out[4];
+  for (int j = 0; j < 4; ++j)
+    out[j] = row_of(8 * j + 2 * tq)[gq] | static_cast<std::uint32_t>(row_of(8 * j + 2 * tq + 1)[gq]) << 16;
+  emulated_warp_release();
+  for (int j = 0; j < 4; ++j) r[j] = out[j];
 }
 
 // kernel<<<grid, threads, smem, stream>>>(args) becomes

@@ -6,14 +6,17 @@ std::thread per CUDA thread, a barrier for ``__syncthreads``, a per-launch
 buffer for ``extern __shared__``, ``__shfl_xor_sync``; ``cuda_bf16.h``: the
 round-to-nearest-even bf16 conversions), with two headers of ``csrc/``
 rewritten on their way next to the source: ``cp.async`` of
-``sampled_dense_common.cuh`` becomes a plain copy, and the inline PTX of
-``mma_bf16_16816`` (``sampled_dense_mma.cuh``) a call of
-``emulated_mma_m16n8k16_bf16``. That stand-in and the shuffle exchange the 32
+``sampled_dense_common.cuh`` becomes a plain copy (and ``cp.async.wait_group``
+of a source nothing), and the inline PTX of ``mma_bf16_16816`` and
+``ldmatrix_x4_trans`` (``sampled_dense_mma.cuh``) calls of
+``emulated_mma_m16n8k16_bf16`` and ``emulated_ldmatrix_x4_trans``. Those
+stand-ins and the shuffle exchange the 32
 lanes' registers through a per-block buffer between two block barriers: safe
 because every thread of a block reaches each ``mma.sync`` and shuffle in these
 kernels, which each call asserts. The kernels are called through ctypes with
-the launch plans of ``ops/sampled_dense.fwd_plan``, ``dx_plan`` and
-``dparams_plan``. This checks the kernels' indexing, masking, work split,
+the launch plans of ``ops/sampled_dense.fwd_plan``, ``dx_plan``,
+``dparams_plan`` and ``xs_bf16_plan`` (the bf16 per-sample kernels, held
+further in ``tests/test_torch_xs_bf16.py``). This checks the kernels' indexing, masking, work split,
 fixed-order sum of partials, MMA fragment layout and noise-quad ownership at
 ragged shapes on a machine without a card; the card itself is checked by
 ``tests/test_torch_kernels.py`` and ``chip_smoke.py``. Same gates as there:
@@ -43,6 +46,8 @@ EMULATION = Path(__file__).parent / "cuda_emulation"
 LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)<<<([^;]*?)>>>\((.*?)\);", re.S)
 DYNAMIC_SHARED = re.compile(r"extern __shared__ __align__\(\d+\) float (\w+)\[\];")
 MMA_ASM = re.compile(r"(void mma_bf16_16816\(.*?\)) \{\n  asm volatile\(.*?\n\}\n", re.S)
+CP_ASYNC_WAIT = re.compile(r"(void cp_async_wait_pending\(\)) \{\n  asm volatile\(.*?\n\}\n", re.S)
+LDMATRIX_ASM = re.compile(r"(void ldmatrix_x4_trans\(.*?\)) \{\n.*?  asm volatile\(.*?\n\}\n", re.S)
 CP_ASYNC = {  # the PTX helpers of the source, as plain copies
     "cp_async16": "__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {\n"
                   "  for (int j = 0; j < 4; ++j) smem[j] = valid ? gmem[j] : 0.f;\n}\n",
@@ -52,13 +57,15 @@ CP_ASYNC = {  # the PTX helpers of the source, as plain copies
 
 
 def emulated_source(source: str) -> str:
-    """A kernel source with each launch and dynamic shared array replaced."""
+    """A kernel source with each launch, dynamic shared array and
+    ``cp.async.wait_group`` helper replaced."""
 
     def launch(m):
         grid, threads, smem, _stream = (p.strip() for p in m.group(2).split(","))
         return f"emulated_launch(dim3({grid}), {threads}, {smem}, [&] {{ {m.group(1)}({m.group(3)}); }});"
 
     source = DYNAMIC_SHARED.sub(r"float* \1 = emulated_dynamic_shared();", source)
+    source = CP_ASYNC_WAIT.sub(r"\1 {}\n", source)  # the stand-in's cp.async copies have landed at once
     return LAUNCH.sub(launch, source)
 
 
@@ -74,8 +81,11 @@ def emulated_header(source: str) -> str:
 
 
 def emulated_mma_header(source: str) -> str:
-    """The tensor-core header with ``mma_bf16_16816``'s inline PTX replaced by the stand-in."""
+    """The tensor-core header with the inline PTX of ``mma_bf16_16816`` and
+    ``ldmatrix_x4_trans`` replaced by their stand-ins."""
     out, n = MMA_ASM.subn(r"\1 {\n  emulated_mma_m16n8k16_bf16(c, a, b);\n}\n", source)
+    assert n == 1
+    out, n = LDMATRIX_ASM.subn(r"\1 {\n  emulated_ldmatrix_x4_trans(r, row);\n}\n", out)
     assert n == 1
     return out
 
@@ -271,13 +281,42 @@ def test_dparams_kernels_match_twins_on_the_cpu(dparams_library, shape, sms, run
     assert all(torch.equal(a, c) for a, c in zip(broadcast, got))
 
 
-BF16 = ("sampled_dense_fwd_bf16", "sampled_dense_xs_fwd_bf16", "sampled_dense_dx_bf16", "sampled_dense_xs_dx_bf16")
+BF16 = ("sampled_dense_fwd_bf16", "sampled_dense_dx_bf16")
+XS_BF16 = ("sampled_dense_xs_fwd_bf16", "sampled_dense_xs_dx_bf16")
 DPARAMS_BF16 = ("sampled_dense_dparams_bf16", "sampled_dense_xs_dparams_bf16")
 
 
 @pytest.fixture(scope="module")
 def bf16_library(tmp_path_factory):
     return build(tmp_path_factory, "sampled_dense_bf16.cu", BF16)
+
+
+@pytest.fixture(scope="module")
+def xs_bf16_library(tmp_path_factory):
+    return build(tmp_path_factory, "sampled_dense_xs_bf16.cu", XS_BF16)
+
+
+def run_bf16(lib, name, a, params, out_shape, n_samples, sms, kind):
+    """One bf16 forward (``params`` = loc, rho, bloc, brho) or input-gradient
+    (loc, rho) call on its plan: ``sampled_dense_bf16.cu``'s fwd_plan or
+    dx_plan with an (I, O) softplus scratch and the partials; the per-sample
+    kernels of ``sampled_dense_xs_bf16.cu`` on xs_bf16_plan (no partials).
+    NaN-filled output and scratch, so a missed write shows."""
+    b, i, o = a.shape[-2], *params[0].shape
+    if name.startswith("xs"):
+        plan = sd.xs_bf16_plan(n_samples, b, i, o, sms, kind)
+        scratch, sp_needed = (), plan.softplus_scratch
+    else:
+        plan = sd.fwd_plan(n_samples, b, i, o, sms) if kind == "fwd" else sd.dx_plan(n_samples, b, i, o, sms, True)
+        scratch, sp_needed = plan.scratch, True
+    out = torch.full(out_shape, float("nan"))
+    sp = torch.full_like(params[1], float("nan")) if sp_needed else None
+    partials = torch.full(scratch, float("nan")) if scratch else None
+    scratch_ptrs = (t.data_ptr() if t is not None else None for t in (sp, partials))
+    err = getattr(lib, f"sampled_dense_{name}_bf16")(a.data_ptr(), *(t.data_ptr() for t in params), *scratch_ptrs,
+                                                     out.data_ptr(), n_samples, b, i, o, 2026, plan.n_split, None)
+    assert err == 0
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -301,8 +340,9 @@ def assert_bf16_close(kind, got, twin, f32, a, loc, rho, s, seed):
     ((37, 70, 66, 2), 132),  # wide, O % 4 != 0 and I % 4 != 0: plain loads, two output tiles
     ((129, 24, 20, 2), 1),  # wide, two row tiles, a ragged 64-output tile, one run: no partials
 ], ids=lambda v: "B{}_I{}_O{}_S{}".format(*v) if isinstance(v, tuple) else f"{v}sm")
-def test_bf16_fwd_kernels_match_bf16_twins_on_the_cpu(bf16_library, shape, sms):
-    """Both bf16 forwards against their bf16 twins through the m16n8k16 stand-in."""
+def test_bf16_fwd_kernels_match_bf16_twins_on_the_cpu(bf16_library, xs_bf16_library, shape, sms):
+    """Both bf16 forwards against their bf16 twins through the m16n8k16 stand-in
+    (xs_fwd: the kernel of ``sampled_dense_xs_bf16.cu`` on xs_bf16_plan)."""
     b, i, o, s = shape
     rng = np.random.default_rng(b * 7919 + i * 31 + o)
 
@@ -311,15 +351,8 @@ def test_bf16_fwd_kernels_match_bf16_twins_on_the_cpu(bf16_library, shape, sms):
 
     params = (normal(i, o, scale=0.1), normal(i, o, scale=0.5, shift=-3.0),
               normal(o, scale=0.1), normal(o, scale=0.5, shift=-3.0))
-    for x, name in ((normal(b, i), "fwd"), (normal(s, b, i), "xs_fwd")):
-        plan = sd.fwd_plan(s, b, i, o, sms)
-        out = torch.full((s, b, o), float("nan"))
-        sp = torch.full_like(params[1], float("nan"))
-        partials = torch.full(plan.scratch, float("nan")) if plan.scratch else None
-        err = getattr(bf16_library, f"sampled_dense_{name}_bf16")(
-            x.data_ptr(), *(t.data_ptr() for t in params), sp.data_ptr(),
-            partials.data_ptr() if partials is not None else None, out.data_ptr(), s, b, i, o, 2026, plan.n_split, None)
-        assert err == 0
+    for x, name, lib in ((normal(b, i), "fwd", bf16_library), (normal(s, b, i), "xs_fwd", xs_bf16_library)):
+        out = run_bf16(lib, name, x, params, (s, b, o), s, sms, "fwd")
         twin = getattr(sd, f"sampled_dense_{name}_bf16_plain")(x, *params, s, 2026)
         f32 = getattr(sd, f"sampled_dense_{name}_plain")(x, *params, s, 2026)
         assert_bf16_close(name, out, twin, f32, x, params[0], params[1], s, 2026)
@@ -330,8 +363,9 @@ def test_bf16_fwd_kernels_match_bf16_twins_on_the_cpu(bf16_library, shape, sms):
     ((45, 70, 66, 2), 132),  # wide, O % 4 != 0: plain loads; dx split into runs, dxs too
     ((129, 40, 20, 2), 1),  # two row tiles, one run: no partials
 ], ids=lambda v: "B{}_I{}_O{}_S{}".format(*v) if isinstance(v, tuple) else f"{v}sm")
-def test_bf16_dx_kernels_match_bf16_twins_on_the_cpu(bf16_library, shape, sms):
-    """Both bf16 input gradients against their bf16 twins through the m16n8k16 stand-in."""
+def test_bf16_dx_kernels_match_bf16_twins_on_the_cpu(bf16_library, xs_bf16_library, shape, sms):
+    """Both bf16 input gradients against their bf16 twins through the m16n8k16
+    stand-in (xs_dx: the kernel of ``sampled_dense_xs_bf16.cu`` on xs_bf16_plan)."""
     b, i, o, s = shape
     rng = np.random.default_rng(b * 7919 + i * 31 + o)
 
@@ -339,15 +373,8 @@ def test_bf16_dx_kernels_match_bf16_twins_on_the_cpu(bf16_library, shape, sms):
         return torch.from_numpy((rng.normal(size=dims) * scale + shift).astype(np.float32))
 
     g, loc, rho = normal(s, b, o), normal(i, o, scale=0.1), normal(i, o, scale=0.5, shift=-3.0)
-    for name, sum_samples in (("dx", True), ("xs_dx", False)):
-        plan = sd.dx_plan(s, b, i, o, sms, sum_samples)
-        out = torch.full((b, i) if sum_samples else (s, b, i), float("nan"))
-        sp = torch.full_like(rho, float("nan"))
-        partials = torch.full(plan.scratch, float("nan")) if plan.scratch else None
-        err = getattr(bf16_library, f"sampled_dense_{name}_bf16")(
-            g.data_ptr(), loc.data_ptr(), rho.data_ptr(), sp.data_ptr(),
-            partials.data_ptr() if partials is not None else None, out.data_ptr(), s, b, i, o, 2026, plan.n_split, None)
-        assert err == 0
+    for name, lib, out_shape in (("dx", bf16_library, (b, i)), ("xs_dx", xs_bf16_library, (s, b, i))):
+        out = run_bf16(lib, name, g, (loc, rho), out_shape, s, sms, "dx")
         twin = getattr(sd, f"sampled_dense_{name}_bf16_plain")(g, loc, rho, s, 2026)
         f32 = getattr(sd, f"sampled_dense_{name}_plain")(g, loc, rho, s, 2026)
         assert_bf16_close(name, out, twin, f32, g, loc, rho, s, 2026)
