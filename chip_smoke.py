@@ -44,18 +44,21 @@ Phases, each fatal on failure:
    f32 gate + 2^-7 of the largest term |x_i||W_si|), against the f32 kernels
    (the bf16 rounding bound), and nearer the twin than a tenth of their
    distance from the f32 kernel, at model_7's shapes and the edge shapes,
-   bit-identical across calls, timed beside the f32 kernels (the two
-   per-sample ones, redesigned in ``csrc/sampled_dense_xs_bf16.cu``, also
-   beside their earlier design, the partials one, rebuilt from
-   ``csrc/sampled_dense_bf16.cu``
-   with :data:`PARTIALS_XS_BF16` and beside the noise floor of their normals,
-   :data:`NOISE_FLOOR_CU`, with ``xs_bf16_plan``'s geometry), and the
+   bit-identical across calls, timed beside the f32 kernels (the three
+   forward and per-sample ones of ``csrc/sampled_dense_xs_bf16.cu``, on
+   ``xs_bf16_plan``'s geometry, also beside their earlier design, the
+   partials one, rebuilt from ``csrc/sampled_dense_bf16.cu`` with
+   :data:`PARTIALS_BF16`, and beside the noise floor of their normals,
+   :data:`NOISE_FLOOR_CU`), and the
    finite-difference adjoint of both precisions; the two bf16 parameter-
    gradient kernels through the public wrappers under the variable (counted
    under their bf16 names only) against their bf16 twins at the f32 gate,
    within the bf16 rounding bound of the f32 kernels and nearer the twin than
-   a tenth of that distance, at model_7's three shapes (timed) and the
-   dparams edge shapes, bit-identical across calls; model_7's posterior
+   a tenth of that distance, dbloc and dbrho bit-equal to the f32 kernel's,
+   at model_7's three shapes (timed; the wide ones also beside the earlier
+   shared-sums design, rebuilt from :data:`SHARED_SUMS_DPARAMS_BF16`, and the
+   noise floor) and the dparams edge shapes, bit-identical across calls;
+   model_7's posterior
    gradient (``[param-grad]``'s setup) under the variable: exactly 1 fwd, 2
    xs_fwd, 2 xs_dx, 1 dparams and 2 xs_dparams bf16 launches and no f32
    one, 12 finite leaves apart from f32 and nearer the CPU's bf16 twins
@@ -352,13 +355,19 @@ def phase_device(torch) -> str:
     return smi
 
 
-# The earlier design of the two bf16 per-sample kernels, rebuilt beside the
-# port's to time both in one process: csrc/sampled_dense_bf16.cu keeps the
-# templates (launch_fwd, launch_dx) whose shared-input instances it exports;
-# these entry points, appended to a copy of it, export the per-sample instances
-# as that design ran them (a softplus pass, the runs' partial tiles and a
-# second pass that sums them).
-PARTIALS_XS_BF16 = """
+# The earlier (partials) design of the bf16 forward kernels and the per-sample
+# dx, rebuilt beside the port's to time both in one process:
+# csrc/sampled_dense_bf16.cu keeps the templates (launch_fwd, launch_dx) and
+# exports only the shared-input dx; these entry points, appended to a copy of
+# it, export the forward and the per-sample dx as that design ran them (a
+# softplus pass, the runs' partial tiles and a second pass that sums them).
+PARTIALS_BF16 = """
+extern "C" int sampled_dense_fwd_bf16_partials(const float* x, const float* loc, const float* rho, const float* bloc,
+                                               const float* brho, float* sp, float* partials, float* out, int S,
+                                               int B, int I, int O, uint32_t seed, int n_split, void* stream) {
+  return sampled_dense::launch_fwd<false>(x, loc, rho, bloc, brho, sp, partials, out, S, B, I, O, seed, n_split,
+                                          static_cast<cudaStream_t>(stream));
+}
 extern "C" int sampled_dense_xs_fwd_bf16_partials(const float* xs, const float* loc, const float* rho,
                                                   const float* bloc, const float* brho, float* sp, float* partials,
                                                   float* out, int S, int B, int I, int O, uint32_t seed, int n_split,
@@ -431,44 +440,75 @@ def extra_library(name: str):
     return _extra_builds[name][1]
 
 
+# The earlier design of the wide bf16 parameter-gradient kernel (running sums
+# in shared memory), rebuilt beside the port's to time both in one process.
+SHARED_SUMS_DPARAMS_BF16 = os.path.join(REPO, "scripts", "comparison_kernels",
+                                        "sampled_dense_dparams_bf16_shared_sums.cu")
+
+
 def start_comparison_builds(workdir: str) -> None:
-    """The partials design's per-sample kernels and the noise floor, for ``[precision]``."""
+    """The partials design's forwards and per-sample dx, the shared-sums
+    design's wide dparams and the noise floor, for ``[precision]``."""
     from robustbnns_tpu_torch.ops import build
 
-    start_extra_build("partials_xs_bf16", (build.CSRC / "sampled_dense_bf16.cu").read_text() + PARTIALS_XS_BF16, workdir)
+    start_extra_build("partials_bf16", (build.CSRC / "sampled_dense_bf16.cu").read_text() + PARTIALS_BF16, workdir)
+    with open(SHARED_SUMS_DPARAMS_BF16) as f:
+        start_extra_build("shared_sums_dparams_bf16", f.read(), workdir)
     start_extra_build("noise_floor", NOISE_FLOOR_CU, workdir)
 
 
-def partials_xs_bf16(kind: str):
-    """The partials design's kernel of ``kind`` (``xs_fwd``, ``xs_dx``), typed as the
-    port's entry point of that name."""
+def earlier_bf16(library: str, name: str):
+    """The earlier design's entry point ``name`` of the comparison build
+    ``library``, typed as the port's entry point it stands beside."""
     import ctypes
 
     sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
-    fn = getattr(extra_library("partials_xs_bf16"), f"sampled_dense_{kind}_bf16_partials")
-    fn.argtypes, fn.restype = sd._SIGNATURES[f"sampled_dense_{kind}_bf16"][1], ctypes.c_int
+    fn = getattr(extra_library(library), name)
+    port_name = name.removesuffix("_partials").removesuffix("_shared_sums")
+    fn.argtypes, fn.restype = sd._SIGNATURES[port_name][1], ctypes.c_int
     return fn
 
 
-def partials_xs_bf16_call(torch, kind: str, a, params, n_samples: int, seed: int):
-    """One call of the partials design's kernel on its own plan (fwd_plan, dx_plan) and
-    scratch, as its wrapper made it; ``params``: loc, rho and (``xs_fwd``)
-    bloc, brho. Returns the output."""
+def partials_bf16_call(torch, kind: str, a, params, n_samples: int, seed: int):
+    """One call of the partials design's kernel of ``kind`` (``fwd``,
+    ``xs_fwd``, ``xs_dx``) on its own plan (fwd_plan, dx_plan) and scratch, as
+    its wrapper made it; ``params``: loc, rho and (the forwards) bloc, brho.
+    Returns the output."""
     sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    b_dim = a.shape[1]
+    b_dim = a.shape[-2]
     i_dim, o_dim = params[0].shape
-    plan = (sd.fwd_plan(n_samples, b_dim, i_dim, o_dim, sms) if kind == "xs_fwd"
+    fwd = kind.endswith("fwd")
+    plan = (sd.fwd_plan(n_samples, b_dim, i_dim, o_dim, sms) if fwd
             else sd.dx_plan(n_samples, b_dim, i_dim, o_dim, sms, False))
-    out = torch.empty((n_samples, b_dim, o_dim if kind == "xs_fwd" else i_dim), device=a.device)
+    out = torch.empty((n_samples, b_dim, o_dim if fwd else i_dim), device=a.device)
     sp = torch.empty_like(params[1])
     partials = torch.empty(plan.scratch, device=a.device) if plan.scratch else None
-    err = partials_xs_bf16(kind)(a.data_ptr(), *(t.data_ptr() for t in params), sp.data_ptr(),
-                             partials.data_ptr() if partials is not None else None, out.data_ptr(), n_samples,
-                             b_dim, i_dim, o_dim, seed, plan.n_split, torch.cuda.current_stream().cuda_stream)
+    err = earlier_bf16("partials_bf16", f"sampled_dense_{kind}_bf16_partials")(
+        a.data_ptr(), *(t.data_ptr() for t in params), sp.data_ptr(),
+        partials.data_ptr() if partials is not None else None, out.data_ptr(), n_samples, b_dim, i_dim, o_dim, seed,
+        plan.n_split, torch.cuda.current_stream().cuda_stream)
     if err:
         fail(f"the partials design's {kind}_bf16 kernel failed to launch: cudaError {err}")
     return out
+
+
+def shared_sums_dparams_bf16_call(torch, kind: str, g, x, rho, brho, n_samples: int, seed: int):
+    """One call of the shared-sums design's wide kernel of ``kind``
+    (``dparams``, ``xs_dparams``) on the wide plan it ran on. Returns
+    (dloc, drho, dbloc, dbrho)."""
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    (_, b_dim, o_dim), i_dim = g.shape, rho.shape[0]
+    plan = sd.dparams_plan(n_samples, i_dim, o_dim, sms)
+    outs = [torch.empty((i_dim, o_dim), device=g.device) for _ in range(2)] + \
+        [torch.empty((o_dim,), device=g.device) for _ in range(2)]
+    err = earlier_bf16("shared_sums_dparams_bf16", f"sampled_dense_{kind}_bf16_shared_sums")(
+        g.data_ptr(), x.data_ptr(), rho.data_ptr(), brho.data_ptr(), None, *(t.data_ptr() for t in outs), n_samples,
+        b_dim, i_dim, o_dim, seed, plan.n_split, torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"the shared-sums design's {kind}_bf16 kernel failed to launch: cudaError {err}")
+    return tuple(outs)
 
 
 def noise_floor_ms(torch, n_samples: int, i_dim: int, o_dim: int) -> float:
@@ -1017,7 +1057,7 @@ def phase_precision_kernels(torch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1235)
     seed = 20261017
     pallas = "robustbnns_tpu/ops/sampled_dense.py"
-    sources = {kind: f"robustbnns_tpu_torch/csrc/sampled_dense_{'xs_' if kind.startswith('xs') else ''}bf16.cu"
+    sources = {kind: f"robustbnns_tpu_torch/csrc/sampled_dense_{'' if kind == 'dx' else 'xs_'}bf16.cu"
                for kind in ("fwd", "dx", "xs_fwd", "xs_dx")}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     kinds = {  # kind: (bf16 wrapper, bf16 twin, f32 wrapper, Pallas line, shared input)
@@ -1098,18 +1138,18 @@ def phase_precision_kernels(torch) -> dict:
             b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
             name = f"sampled_dense_{kind}_bf16"
             extra = {}
-            if kind.startswith("xs"):  # the redesigned kernels: the partials design and the noise floor beside them
-                before = lambda: partials_xs_bf16_call(torch, kind, a, rest, S, seed)  # noqa: E731
+            if kind != "dx":  # the redesigned kernels: the partials design and the noise floor beside them
+                before = lambda: partials_bf16_call(torch, kind, a, rest, S, seed)  # noqa: E731
                 before_err = float((before() - got_ref[kind][1]).abs().max())
                 extra = {"before_ms": device_ms(torch, before), "before_call_ms": call_ms(torch, before),
                          "noise_floor_ms": noise_floor_ms(torch, S, i_dim, o_dim)}
-                plan = sd.xs_bf16_plan(S, B, i_dim, o_dim, sms, kind[3:])
+                plan = sd.xs_bf16_plan(S, B, i_dim, o_dim, sms, kind.removeprefix("xs_"))
                 print(f"[precision] {name} {shape}: xs_bf16_plan on {sms} SMs: n_split {plan.n_split}, grid "
                       f"{plan.grid}, {plan.cols}-column tiles, {plan.depth}-deep chunks x {plan.chunks}, "
                       f"softplus scratch {plan.softplus_scratch}; the partials design (rebuilt) "
                       f"{extra['before_ms']:.4f} ms (call {extra['before_call_ms']:.4f} ms; max|err| from the bf16 "
-                      f"twin {before_err:.3e}), the noise floor of its {S * i_dim * o_dim} normals "
-                      f"{extra['noise_floor_ms']:.4f} ms")
+                      f"twin {before_err:.3e}; x{extra['before_ms'] / ms:.2f} the kernel's time), the noise floor "
+                      f"of its {S * i_dim * o_dim} normals {extra['noise_floor_ms']:.4f} ms")
             print(f"[precision] {name} {shape}: max|err| {err:.3e} from its bf16 twin ({nearer:.2e} of its max "
                   f"distance from the f32 kernel, gate {BF16_NEARER}); from the f32 kernel at most {share:.3f} of "
                   f"2^-8 sum|x||W| (gate 2); kernel {ms:.4f} ms (call {c_ms:.4f} ms), f32 kernel "
@@ -1166,10 +1206,12 @@ def phase_precision_dparams(torch) -> dict:
     kernel and twin form the same exact products and sum them in another
     order), against the f32 kernels (the bf16 rounding bound), dloc and drho
     nearer the twin than BF16_NEARER of their distance from the f32 kernel,
-    bit-identical across calls; at model_7's three shapes, timed beside the
-    twin, one cuBLAS bf16 product and the f32 kernel, and at the dparams edge
-    shapes."""
+    dbloc and dbrho bit-equal to the f32 kernel's, bit-identical across calls;
+    at model_7's three shapes, timed beside the twin, one cuBLAS bf16 product
+    and the f32 kernel (the wide shapes also beside the earlier shared-sums
+    design, rebuilt, and the noise floor), and at the dparams edge shapes."""
     sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     gen = torch.Generator(device="cuda").manual_seed(1236)
     seed = 20261018
@@ -1226,6 +1268,8 @@ def phase_precision_dparams(torch) -> dict:
             shares.append(float((err32 / scales[k].clamp_min(1e-30)).max()) / 2.0**-8)
             nearers.append(nearer)
         same_bias = all(torch.equal(a, c) for a, c in zip(got[2:], f32[2:]))
+        if not same_bias:
+            fail(f"[precision] {name} {shape_text}: dbloc or dbrho not bit-equal to the f32 kernel's")
         return max(errs), max(shares), max(nearers), same_bias
 
     for li, (i_dim, o_dim) in enumerate(LAYERS):  # the main path's shapes, timed
@@ -1246,6 +1290,19 @@ def phase_precision_dparams(torch) -> dict:
         nbytes = 4.0 * (S * B * o_dim + x.numel() + 3 * i_dim * o_dim + 3 * o_dim)
         b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
         name = kernel.__name__
+        extra = {}
+        if o_dim > 16:  # the redesigned wide kernel: the shared-sums design and the noise floor beside it
+            before = lambda: shared_sums_dparams_bf16_call(torch, kind, *args)  # noqa: E731
+            ref = sd.sampled_dense_dparams_bf16_plain(*args)
+            before_err = max(float((a - c).abs().max()) for a, c in zip(before(), ref))
+            extra = {"before_ms": device_ms(torch, before), "before_call_ms": call_ms(torch, before),
+                     "noise_floor_ms": noise_floor_ms(torch, S, i_dim, o_dim)}
+            plan = sd.dparams_bf16_plan(S, B, i_dim, o_dim, sms)
+            print(f"[precision] {name} {shape}: dparams_bf16_plan on {sms} SMs: n_split {plan.n_split}, grid "
+                  f"{plan.grid}, {plan.chunks} chunks a sample; the shared-sums design (rebuilt) "
+                  f"{extra['before_ms']:.4f} ms (call {extra['before_call_ms']:.4f} ms; max|err| from the bf16 "
+                  f"twin {before_err:.3e}; x{extra['before_ms'] / ms:.2f} the kernel's time), the noise floor of "
+                  f"its {S * i_dim * o_dim} normals {extra['noise_floor_ms']:.4f} ms")
         print(f"[precision] {name} {shape}: max|err| {err:.3e} from its bf16 twin ({nearer:.2e} of the max "
               f"distance of dloc or drho from the f32 kernel, gate {BF16_NEARER}); from the f32 kernel at most "
               f"{share:.3f} of 2^-8 sum|x||g| (gate 2); dbloc and dbrho bit-equal to the f32 kernel's: "
@@ -1264,7 +1321,7 @@ def phase_precision_dparams(torch) -> dict:
             r[key] += v
         r["per_shape"].append({"shape": shape, "ms": ms, "call_ms": c_ms, "plain_ms": plain_ms,
                                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "f32_ms": f32_ms,
-                               "max_abs_err": err})
+                               "max_abs_err": err, "bias_bit_equal_to_f32": same_bias, **extra})
     for b_dim, i_dim, o_dim, n_samples in DPARAMS_EDGE_SHAPES:
         shape = f"B={b_dim} I={i_dim} O={o_dim} S={n_samples}"
         errs = [check(kind, shape, inputs(kind, b_dim, i_dim, o_dim, n_samples)) for kind in kinds]

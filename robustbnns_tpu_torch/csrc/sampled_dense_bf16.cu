@@ -7,13 +7,15 @@
 // enters shared memory; the bias row and its noise stay f32 and are added in
 // f32, as in the f32 kernels.
 //
-// Replaces the Pallas kernels _fwd_kernel and _bwd_dx_kernel
-// (robustbnns_tpu/ops/sampled_dense.py:99, :114) under Precision.DEFAULT
-// (_dot, :61-65): single-pass bf16 MXU products there. Their templates also
-// have per-sample instances (kPerSampleX, !kSum): the earlier design of
-// _fwd_kernel_xs and _bwd_xs_dx_kernel, which sampled_dense_xs_bf16.cu has
-// replaced; this source exports them no longer (chip_smoke.PARTIALS_XS_BF16
-// rebuilds them to time the two designs side by side).
+// Replaces the Pallas kernel _bwd_dx_kernel
+// (robustbnns_tpu/ops/sampled_dense.py:114) under Precision.DEFAULT (_dot,
+// :61-65): single-pass bf16 MXU products there; this source exports only
+// sampled_dense_dx_bf16. The forward template is the earlier (partials)
+// design of _fwd_kernel and, in its per-sample instances, of _fwd_kernel_xs,
+// and the dx template's per-sample instances that of _bwd_xs_dx_kernel:
+// sampled_dense_xs_bf16.cu has replaced all three, and this source exports
+// none of them (chip_smoke.PARTIALS_BF16 rebuilds them to time the two
+// designs side by side).
 //
 // What bounds them on the H100. At the main path's shapes (B = 128, S = 10)
 // the wide layers do 2*S*B*I*O = 2.06 and 2.68 GFLOP, 2.1 and 2.7 us at the
@@ -279,15 +281,6 @@ int launch_dx(const float* g, const float* loc, const float* rho, float* sp, flo
 
 }  // namespace
 }  // namespace sampled_dense
-
-// out[s] = bf16(x) bf16(W_s) + b_s, f32 sums. sp: an (I, O) scratch for
-// softplus(rho); partials: an (n_split, S, B, O) scratch when n_split > 1.
-extern "C" int sampled_dense_fwd_bf16(const float* x, const float* loc, const float* rho, const float* bloc,
-                                      const float* brho, float* sp, float* partials, float* out, int S, int B,
-                                      int I, int O, uint32_t seed, int n_split, void* stream) {
-  return sampled_dense::launch_fwd<false>(x, loc, rho, bloc, brho, sp, partials, out, S, B, I, O, seed, n_split,
-                                          static_cast<cudaStream_t>(stream));
-}
 
 // dx = sum_s bf16(g_s) bf16(W_s)^T, f32 sums. sp: an (I, O) scratch for
 // softplus(rho); partials: an (n_split, B, I) scratch when n_split > 1.

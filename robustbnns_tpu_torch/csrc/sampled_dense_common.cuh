@@ -92,6 +92,11 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool 
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+// cp.async.wait_group: all but this thread's newest kPending cp.async groups have landed.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
 
 // Rows b .. b+7, columns c .. c+3 of a row-major (., n) matrix from the
 // register tile's columns c0 .. c0+3, masked at B and n.

@@ -1,14 +1,18 @@
-// bf16 tensor-core kernels of the per-sample sampled-dense layers, for
-// ROBUSTBNNS_KERNEL_PRECISION=default: out[s] = bf16(xs[s]) bf16(W_s) + b_s and
-// dxs[s] = bf16(g_s) bf16(W_s)^T, every product exact in f32 and summed in f32
-// into an f32 result. W_s = loc + softplus(rho) * eps_s is drawn in f32 from the
+// bf16 tensor-core kernels of the per-sample sampled-dense layers and of the
+// shared-input forward, for ROBUSTBNNS_KERNEL_PRECISION=default: out[s] =
+// bf16(xs[s]) bf16(W_s) + b_s, out[s] = bf16(x) bf16(W_s) + b_s and dxs[s] =
+// bf16(g_s) bf16(W_s)^T, every product exact in f32 and summed in f32 into an
+// f32 result. W_s = loc + softplus(rho) * eps_s is drawn in f32 from the
 // f32 kernels' noise (sampled_dense_common.cuh) and rounded to bf16 only as it
 // enters shared memory; the bias row and its noise stay f32 and are added in
 // f32.
 //
-// Replaces the Pallas kernels _fwd_kernel_xs and _bwd_xs_dx_kernel
-// (robustbnns_tpu/ops/sampled_dense.py:347, :362) under Precision.DEFAULT
-// (_dot, :61-65): single-pass bf16 MXU products there.
+// Replaces the Pallas kernels _fwd_kernel_xs, _bwd_xs_dx_kernel and
+// _fwd_kernel (robustbnns_tpu/ops/sampled_dense.py:347, :362, :99) under
+// Precision.DEFAULT (_dot, :61-65): single-pass bf16 MXU products there. The
+// shared-input forward is the per-sample one with x's sample stride 0
+// (kSharedA): every sample's blocks read the same x (B, I), which stays in L2
+// (about 0.4 MB at model_7's first layer).
 //
 // What bounds them on the H100. At model_7's hidden layer (B = 128, S = 10,
 // 1024 -> 1024) a call does 2*S*B*I*O = 2.7 GFLOP (2.7 us at the 989 TFLOP/s
@@ -73,12 +77,6 @@ constexpr int kXsRows = 128;     // batch rows of a tile
 constexpr int kXsStages = 3;     // chunks in shared memory: the one in use and two in flight
 constexpr int kXsMaxRuns = 8;    // runs of a tile, one cluster: the portable cluster size
 constexpr int kXsNarrowO = 16;   // O <= kXsNarrowO takes the heads' instances
-
-// cp.async.wait_group: all but this thread's newest kPending cp.async groups have landed.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait_pending() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // The shared-memory layout of one instance, in floats: kXsStages stages of a
 // chunk's f32 operands as copied (A rows, then the loc and scale blocks of
@@ -214,9 +212,10 @@ __device__ __forceinline__ void mma_stage(const float* __restrict__ as, const ui
 // One 128-row x kCols-column tile of sample s over a run of the chunks of the
 // contraction. Block x: the column tile; y: the sample; z: row tile * n_split
 // + run. The n_split runs of a tile are one cluster along z, rank r run r.
-template <bool kFwd, int kCols, int kDepth, bool kInlineSoftplus>
+// kSharedA (forward only): a is x (B, I), the same for every sample.
+template <bool kFwd, int kCols, int kDepth, bool kInlineSoftplus, bool kSharedA = false>
 __global__ void __launch_bounds__(kXsThreads, 3) xs_bf16_kernel(
-    const float* __restrict__ a,      // xs (S, B, I) or g (S, B, O)
+    const float* __restrict__ a,      // xs (S, B, I) or g (S, B, O); x (B, I) with kSharedA
     const float* __restrict__ loc,    // (I, O)
     const float* __restrict__ scale,  // (I, O): softplus(rho), or rho with kInlineSoftplus
     const float* __restrict__ bloc,   // (O,), forward only
@@ -235,7 +234,7 @@ __global__ void __launch_bounds__(kXsThreads, 3) xs_bf16_kernel(
   const int run = (int)blockIdx.z % n_split, b0 = (int)blockIdx.z / n_split * kXsRows;
   const int C = (K + kDepth - 1) / kDepth;
   const int c_begin = (int)((long long)C * run / n_split), c_end = (int)((long long)C * (run + 1) / n_split);
-  const float* a_s = a + (size_t)s * B * K;
+  const float* a_s = kSharedA ? a : a + (size_t)s * B * K;
 
   if (kFwd && tid < kCols / 4) {  // b_s of columns n0 + 4 tid .. +3, zero past O
     const int o = n0 + 4 * tid;
@@ -329,18 +328,19 @@ __global__ void __launch_bounds__(kXsThreads, 3) xs_bf16_kernel(
   cluster.sync();
 }
 
-template <bool kFwd, int kCols, int kDepth, bool kInlineSoftplus>
+template <bool kFwd, int kCols, int kDepth, bool kInlineSoftplus, bool kSharedA>
 int launch_tiles(const float* a, const float* loc, const float* scale, const float* bloc, const float* brho,
                  float* out, int S, int B, int I, int O, uint32_t seed, int n_split, cudaStream_t stream) {
   using L = XsLayout<kFwd, kCols, kDepth>;
   // above the 48 KB a block gets without asking; set once, before any graph capture
-  static const cudaError_t attr = cudaFuncSetAttribute(xs_bf16_kernel<kFwd, kCols, kDepth, kInlineSoftplus>,
-                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(xs_bf16_kernel<kFwd, kCols, kDepth, kInlineSoftplus, kSharedA>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != cudaSuccess) return (int)attr;
   const int N = kFwd ? O : I;
   const dim3 grid((N + kCols - 1) / kCols, S, (B + kXsRows - 1) / kXsRows * n_split);
   if (n_split == 1) {  // no cluster attribute: a block is its own cluster, and launches sooner
-    xs_bf16_kernel<kFwd, kCols, kDepth, kInlineSoftplus><<<grid, kXsThreads, L::kBytes, stream>>>(
+    xs_bf16_kernel<kFwd, kCols, kDepth, kInlineSoftplus, kSharedA><<<grid, kXsThreads, L::kBytes, stream>>>(
         a, loc, scale, bloc, brho, out, S, B, I, O, seed, n_split);
     return (int)cudaGetLastError();
   }
@@ -354,14 +354,14 @@ int launch_tiles(const float* a, const float* loc, const float* scale, const flo
   config.stream = stream;
   config.attrs = &cluster_dims;
   config.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&config, xs_bf16_kernel<kFwd, kCols, kDepth, kInlineSoftplus>, a, loc,
-                                             scale, bloc, brho, out, S, B, I, O, seed, n_split);
+  const cudaError_t err = cudaLaunchKernelEx(&config, xs_bf16_kernel<kFwd, kCols, kDepth, kInlineSoftplus, kSharedA>,
+                                             a, loc, scale, bloc, brho, out, S, B, I, O, seed, n_split);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// The per-sample kernel on xs_bf16_plan's geometry: O > 16 after the
-// softplus pass into sp, O <= 16 with softplus inline in one launch.
-template <bool kFwd>
+// The kernel on xs_bf16_plan's geometry: O > 16 after the softplus pass into
+// sp, O <= 16 with softplus inline in one launch.
+template <bool kFwd, bool kSharedA>
 int launch_xs(const float* a, const float* loc, const float* rho, const float* bloc, const float* brho, float* sp,
               float* out, int S, int B, int I, int O, uint32_t seed, int n_split, cudaStream_t stream) {
   const bool narrow = O <= kXsNarrowO;
@@ -371,12 +371,14 @@ int launch_xs(const float* a, const float* loc, const float* rho, const float* b
       n_split > (K + depth - 1) / depth || S > 65535 || row_blocks > 65535 || (!narrow && !sp))
     return (int)cudaErrorInvalidValue;
   if (narrow) {
-    return kFwd ? launch_tiles<kFwd, 16, 64, true>(a, loc, rho, bloc, brho, out, S, B, I, O, seed, n_split, stream)
-                : launch_tiles<kFwd, 64, 16, true>(a, loc, rho, bloc, brho, out, S, B, I, O, seed, n_split, stream);
+    return kFwd ? launch_tiles<kFwd, 16, 64, true, kSharedA>(a, loc, rho, bloc, brho, out, S, B, I, O, seed, n_split,
+                                                             stream)
+                : launch_tiles<kFwd, 64, 16, true, kSharedA>(a, loc, rho, bloc, brho, out, S, B, I, O, seed, n_split,
+                                                             stream);
   }
   const long long n_params = (long long)I * O;
   softplus_kernel<<<elementwise_blocks(n_params), 256, 0, stream>>>(rho, sp, n_params);
-  return launch_tiles<kFwd, 64, 16, false>(a, loc, sp, bloc, brho, out, S, B, I, O, seed, n_split, stream);
+  return launch_tiles<kFwd, 64, 16, false, kSharedA>(a, loc, sp, bloc, brho, out, S, B, I, O, seed, n_split, stream);
 }
 
 }  // namespace
@@ -388,7 +390,7 @@ extern "C" int sampled_dense_xs_fwd_bf16(const float* xs, const float* loc, cons
                                          const float* brho, float* sp, float* partials, float* out, int S, int B,
                                          int I, int O, uint32_t seed, int n_split, void* stream) {
   (void)partials;
-  return sampled_dense::launch_xs<true>(xs, loc, rho, bloc, brho, sp, out, S, B, I, O, seed, n_split,
+  return sampled_dense::launch_xs<true, false>(xs, loc, rho, bloc, brho, sp, out, S, B, I, O, seed, n_split,
                                         static_cast<cudaStream_t>(stream));
 }
 
@@ -397,6 +399,16 @@ extern "C" int sampled_dense_xs_dx_bf16(const float* g, const float* loc, const 
                                         float* partials, float* dxs, int S, int B, int I, int O, uint32_t seed,
                                         int n_split, void* stream) {
   (void)partials;
-  return sampled_dense::launch_xs<false>(g, loc, rho, nullptr, nullptr, sp, dxs, S, B, I, O, seed, n_split,
+  return sampled_dense::launch_xs<false, false>(g, loc, rho, nullptr, nullptr, sp, dxs, S, B, I, O, seed, n_split,
                                          static_cast<cudaStream_t>(stream));
+}
+
+// out[s] = bf16(x) bf16(W_s) + b_s for a shared x (B, I), f32 sums. As
+// sampled_dense_xs_fwd_bf16.
+extern "C" int sampled_dense_fwd_bf16(const float* x, const float* loc, const float* rho, const float* bloc,
+                                      const float* brho, float* sp, float* partials, float* out, int S, int B, int I,
+                                      int O, uint32_t seed, int n_split, void* stream) {
+  (void)partials;
+  return sampled_dense::launch_xs<true, true>(x, loc, rho, bloc, brho, sp, out, S, B, I, O, seed, n_split,
+                                              static_cast<cudaStream_t>(stream));
 }

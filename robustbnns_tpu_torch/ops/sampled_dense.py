@@ -32,11 +32,13 @@ with int64 tensor arithmetic.
 
 ``ROBUSTBNNS_KERNEL_PRECISION=default``, read at every call as the JAX package
 reads it (``_dot_precision``, ``sampled_dense.py:44-65``), routes every wrapper
-to its bf16 variant (counted as ``<wrapper>_bf16``): the forward and
-input-gradient kernels of ``csrc/sampled_dense_bf16.cu`` (shared input) and
-``csrc/sampled_dense_xs_bf16.cu`` (per-sample input, :func:`xs_bf16_plan`)
-round x (or g) and W_s to bf16, the parameter-gradient kernels of
-``csrc/sampled_dense_dparams_bf16.cu``
+to its bf16 variant (counted as ``<wrapper>_bf16``): the forward kernels of
+``csrc/sampled_dense_xs_bf16.cu`` (shared and per-sample input,
+:func:`xs_bf16_plan`), the input-gradient kernels of
+``csrc/sampled_dense_bf16.cu`` (summed over samples) and
+``csrc/sampled_dense_xs_bf16.cu`` (per sample) round x (or g) and W_s to
+bf16, the parameter-gradient kernels of ``csrc/sampled_dense_dparams_bf16.cu``
+(:func:`dparams_bf16_plan`)
 round x and g (dW_s = bf16(x_s)ᵀ bf16(g_s)); products on the tensor cores summed
 in f32, f32 outputs; the noise, W_s in f32 and the bias as above (dbloc and
 dbrho from the unrounded g, as JAX's ``jnp.sum`` is no ``_dot``). Their twins
@@ -260,7 +262,7 @@ _SIGNATURES = {
     "sampled_dense_xs_dx": ("sampled_dense_dx.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_dparams": ("sampled_dense_dparams.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_xs_dparams": ("sampled_dense_dparams.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_fwd_bf16": ("sampled_dense_bf16.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_fwd_bf16": ("sampled_dense_xs_bf16.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_xs_fwd_bf16": ("sampled_dense_xs_bf16.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_dx_bf16": ("sampled_dense_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_xs_dx_bf16": ("sampled_dense_xs_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
@@ -502,13 +504,53 @@ def dparams_plan(n_samples: int, i_dim: int, o_dim: int, sms: int) -> DparamsPla
     return DparamsPlan(False, n_split, (o_tiles, i_tiles, n_split), ())
 
 
-def dparams_sample_runs(plan: DparamsPlan, n_samples: int) -> list[range]:
-    """The samples that each run of a tile walks, as the kernels compute them."""
+def dparams_sample_runs(plan, n_samples: int) -> list[range]:
+    """The samples that each run of a tile walks, as the kernels compute them
+    (``plan``: a :class:`DparamsPlan` or :class:`DparamsBf16Plan`)."""
     n = plan.n_split
     return [range(n_samples * r // n, n_samples * (r + 1) // n) for r in range(n)]
 
 
-# Geometry of the bf16 per-sample kernels (csrc/sampled_dense_xs_bf16.cu): a
+# The bf16 dparams kernels (csrc/sampled_dense_dparams_bf16.cu) take
+# dparams_plan's geometry: the wide kernel's block of 256 threads owns the same
+# 128 x 64 tile, two blocks an SM (at most 128 registers a thread, 107.5 KB of
+# shared memory), and walks the 32-row chunks of a run of samples.
+DP_BF16_DEPTH, DP_BF16_EPS_ITEMS = 32, 8
+
+
+@dataclass(frozen=True)
+class DparamsBf16Plan:
+    """Launch geometry of one call of a bf16 dparams kernel: as
+    :class:`DparamsPlan`, and ``chunks``, the 32-row chunks of the batch that
+    each sample takes on the wide path (the units of a run)."""
+
+    narrow: bool
+    n_split: int
+    grid: tuple[int, int, int]
+    scratch: tuple[int, ...]
+    chunks: int
+
+
+def dparams_bf16_plan(n_samples: int, b_dim: int, i_dim: int, o_dim: int, sms: int) -> DparamsBf16Plan:
+    """Where each sample and chunk of the bf16 dparams kernels runs, for a card
+    with ``sms`` SMs: :func:`dparams_plan`'s tiles, blocks an SM and split, so
+    the bf16 and the f32 kernels sum the bias over the same runs of samples
+    and dbloc and dbrho stay bit-equal; and the chunks of a sample."""
+    plan = dparams_plan(n_samples, i_dim, o_dim, sms)
+    return DparamsBf16Plan(plan.narrow, plan.n_split, plan.grid, plan.scratch, _cdiv(b_dim, DP_BF16_DEPTH))
+
+
+def dparams_bf16_units(plan: DparamsBf16Plan, n_samples: int) -> list[list[tuple[int, int, range]]]:
+    """Per run of a wide tile, its units as the kernel walks them: (sample,
+    chunk, the lane's eps quads drawn with that chunk). Each lane draws the
+    8 Philox quads of a sample that its accumulators hold, quad k with the
+    sample's chunk c where 8c / C <= k < 8(c + 1) / C."""
+    c_dim, k_dim = plan.chunks, DP_BF16_EPS_ITEMS
+    return [[(s, c, range(k_dim * c // c_dim, k_dim * (c + 1) // c_dim)) for s in run for c in range(c_dim)]
+            for run in dparams_sample_runs(plan, n_samples)]
+
+
+# Geometry of the bf16 kernels of csrc/sampled_dense_xs_bf16.cu (xs_fwd, xs_dx and fwd): a
 # block of 256 threads owns 128 batch rows x 64 columns of one sample (three
 # fit on an SM: at most 80 registers a thread, 64 KB of shared memory) and
 # walks a run of 16-deep chunks of the contraction; the runs of a tile are one
@@ -540,8 +582,9 @@ class XsBf16Plan:
 
 
 def xs_bf16_plan(n_samples: int, b_dim: int, i_dim: int, o_dim: int, sms: int, kind: str) -> XsBf16Plan:
-    """Where each chunk of the bf16 per-sample kernel ``kind`` (``"fwd"``:
-    xs_fwd, ``"dx"``: xs_dx) runs, for a card with ``sms`` SMs.
+    """Where each chunk of the bf16 kernel ``kind`` of ``sampled_dense_xs_bf16.cu``
+    (``"fwd"``: xs_fwd, and fwd, whose shared x is xs with sample stride 0;
+    ``"dx"``: xs_dx) runs, for a card with ``sms`` SMs.
 
     A tile is (column tile, sample, row tile). When the tiles fill the SMs'
     ``XS_BLOCKS_PER_SM`` slots, one run a tile. Otherwise each tile's chunks
@@ -575,13 +618,14 @@ def xs_bf16_chunk_runs(plan: XsBf16Plan) -> list[range]:
 
 
 def _xs_bf16_launch(wrapper, plain, a, params, n_samples: int, seed: int, kind: str) -> torch.Tensor:
-    """``plain`` on CPU tensors; else the bf16 per-sample kernel named as
-    ``wrapper`` on :func:`xs_bf16_plan`'s geometry, counted on it. ``a`` is xs
-    (forward: ``params`` = loc, rho, bloc, brho) or g (dx: loc, rho)."""
+    """``plain`` on CPU tensors; else the kernel of ``sampled_dense_xs_bf16.cu``
+    named as ``wrapper`` on :func:`xs_bf16_plan`'s geometry, counted on it.
+    ``a`` is xs or the shared x (forward: ``params`` = loc, rho, bloc, brho)
+    or g (dx: loc, rho)."""
     if _on_cpu(a, *params):
         return plain(a, *params, n_samples, seed)
     _check_cuda(a, *params)
-    b_dim = a.shape[1]
+    b_dim = a.shape[-2]
     i_dim, o_dim = params[0].shape
     plan = xs_bf16_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(a.device), kind)
     out = torch.empty((n_samples, b_dim, o_dim if kind == "fwd" else i_dim), device=a.device)
@@ -593,11 +637,9 @@ def _xs_bf16_launch(wrapper, plain, a, params, n_samples: int, seed: int, kind: 
     return out
 
 
-def _fwd_launch(wrapper, plain, x, loc, rho, bloc, brho, n_samples: int, seed: int,
-                narrow_softplus: bool = False) -> torch.Tensor:
+def _fwd_launch(wrapper, plain, x, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
     """``plain`` on CPU tensors; else the kernel named as ``wrapper``, counted
-    on it. ``narrow_softplus``: the kernel's narrow path (O <= 16) also reads
-    softplus(rho) from the (I, O) scratch (the wide path always does)."""
+    on it."""
     if _on_cpu(x, loc, rho, bloc, brho):
         return plain(x, loc, rho, bloc, brho, n_samples, seed)
     _check_cuda(x, loc, rho, bloc, brho)
@@ -605,7 +647,7 @@ def _fwd_launch(wrapper, plain, x, loc, rho, bloc, brho, n_samples: int, seed: i
     o_dim = loc.shape[1]
     plan = fwd_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(x.device))
     out = torch.empty((n_samples, b_dim, o_dim), device=x.device)
-    sp = torch.empty_like(rho) if narrow_softplus or not plan.narrow else None
+    sp = None if plan.narrow else torch.empty_like(rho)
     partials = torch.empty(plan.scratch, device=x.device) if plan.scratch else None
     _launch(wrapper.__name__, x.device, x.data_ptr(), loc.data_ptr(), rho.data_ptr(), bloc.data_ptr(),
             brho.data_ptr(), *(t.data_ptr() if t is not None else None for t in (sp, partials)), out.data_ptr(),
@@ -712,19 +754,20 @@ def sampled_dense_xs_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
 
 def sampled_dense_fwd_bf16(x, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
     """Pallas ``_fwd_kernel`` under ``Precision.DEFAULT`` -> the tensor-core
-    kernel of ``csrc/sampled_dense_bf16.cu``. (B, I) -> (S, B, O) =
+    kernel of ``csrc/sampled_dense_xs_bf16.cu``. (B, I) -> (S, B, O) =
     bf16(x) bf16(W_s) + b_s with f32 sums; reached through
     :func:`sampled_dense_fwd` under ``ROBUSTBNNS_KERNEL_PRECISION=default``.
 
-    Bound on the H100: 2·S·B·I·O FLOP at the 989 TFLOP/s bf16 peak is below
-    moving the operands once; the S·I·O normals drawn on the FP32 pipe set
-    the floor. Design: :func:`fwd_plan`'s tiles and runs, each chunk's x and
-    W_s rounded to bf16 in shared memory, ``mma.sync.m16n8k16`` with f32
-    accumulators; one launch counted.
+    Bound on the H100: the S·I·O normals drawn on the FP32 pipe (8.0 M at the
+    first layer of fc2-1024, B=128, S=10), far above the products at the 989
+    TFLOP/s bf16 peak and the bytes. Design: :func:`sampled_dense_xs_fwd_bf16`'s
+    kernel and :func:`xs_bf16_plan` with x's sample stride 0 (every sample's
+    blocks read the one x, which stays in L2); no partials. One launch
+    counted.
     """
     _check_input(x, loc, rho, bloc, brho, None)
-    return _fwd_launch(sampled_dense_fwd_bf16, sampled_dense_fwd_bf16_plain, x, loc, rho, bloc, brho, n_samples,
-                       seed, narrow_softplus=True)
+    return _xs_bf16_launch(sampled_dense_fwd_bf16, sampled_dense_fwd_bf16_plain, x, (loc, rho, bloc, brho),
+                           n_samples, seed, "fwd")
 
 
 def sampled_dense_dx_bf16(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
@@ -861,11 +904,18 @@ def sampled_dense_dparams_bf16(g, x, rho, brho, n_samples: int, seed: int):
     Bound on the H100: moving the operands once (15.3 MB at the first layer
     of fc2-1024, B=128, S=10: 4.6 µs) is above 2·S·B·I·O FLOP at the 989
     TFLOP/s bf16 peak (2.1 µs); the S·I·O normals drawn on the FP32 pipe set
-    the floor. Design: :func:`dparams_plan`'s tiles, runs and clusters, the
-    batch contraction on ``mma.sync.m16n8k16`` over 32-row chunks of x and
-    g rounded to bf16 and transposed in shared memory, each Philox quad drawn
-    by one lane of the pair that shares it; the bias as the f32 kernel's, on
-    the unrounded g. One launch counted.
+    the floor. Design (:func:`dparams_bf16_plan`): 128 x 64 tiles of
+    dloc/drho on 8 warps, two blocks an SM; 32-row chunks of x and g copied
+    as they lie by ``cp.async`` two chunks ahead through three stages
+    (rounded to bf16 as read), the batch contraction on
+    ``mma.sync.m16n8k16``, the fragments ordered so that a lane's
+    accumulators hold whole Philox quads; each lane draws its own quads of
+    eps_s, a share with each chunk, before the chunk's products; dW_s, and
+    the running sums of dW_s and dW_s ⊙ eps_s, in registers; each tile's
+    runs one cluster that
+    sums them on chip in a fixed order. The bias as the f32 kernel's, on the
+    unrounded g. O <= 16 takes a narrow path (32 inputs a block). One launch
+    counted.
     """
     _check_dparams(g, x, rho, brho, n_samples, ())
     return _dparams_launch(sampled_dense_dparams_bf16, sampled_dense_dparams_bf16_plain, g, x, rho, brho,

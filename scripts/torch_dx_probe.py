@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of the dx kernels, or with ``--fwd`` of the forward kernels,
 ``--dparams`` of the parameter-gradient kernels, ``--dparams-bf16`` of their
-bf16 variants or ``--xs-bf16`` of the bf16 per-sample kernels, goes on the
-card: the kernels of ``csrc/sampled_dense_dx.cu`` (``sampled_dense_fwd.cu``,
+bf16 variants, ``--xs-bf16`` of the bf16 per-sample kernels or ``--fwd-bf16``
+of the bf16 shared-input forward, goes on the card: the kernels of
+``csrc/sampled_dense_dx.cu`` (``sampled_dense_fwd.cu``,
 ``sampled_dense_dparams.cu``, ``sampled_dense_dparams_bf16.cu``,
 ``sampled_dense_xs_bf16.cu``) rebuilt with one part cut out at a time, timed
 with ``chip_smoke.py``'s device-time yardstick at the main path's shapes.
 
-    python3 scripts/torch_dx_probe.py [--fwd | --dparams | --dparams-bf16 | --xs-bf16] [--diagnose] [SASS_DIR]
+    python3 scripts/torch_dx_probe.py [--fwd | --dparams | --dparams-bf16 | --xs-bf16 | --fwd-bf16]
+                                      [--diagnose] [SASS_DIR]
     python3 scripts/torch_dx_probe.py --family=xs_bf16 --diagnose [--every-split]
 
 ``--family=NAME`` probes one entry of ``FAMILIES``; ``--every-split`` runs the
@@ -30,14 +32,23 @@ fetched), ``one-stage-loop-alone`` and ``unrolled-epilogue`` (the epilogue's
 loop over rows unrolled, a right result: its 16 Philox quads inline),
 ``epilogue-unroll-2`` and ``epilogue-unroll-4`` (unrolled by 2 or 4), and
 ``ffma-unroll-4`` and ``ffma-unroll-8`` (the chunk's 16-step FFMA loop
-unrolled by 4 or 8, not fully; right results). For dparams-bf16 (``no-noise``
-replaces the quad that ``noise_pair`` draws): ``no-bias`` (no block sums
-the bias), ``bias-from-global`` (the bias threads read g's rows from global
-memory, not the chunk's f32 copy in shared memory; a right result),
-``no-epilogue`` (no per-sample noise and running sums; the MMAs
+unrolled by 4 or 8, not fully; right results).
+
+``--dparams-bf16`` probes two designs of the wide bf16 dparams kernels. The
+earlier one (``dparams_bf16_shared_sums``:
+``scripts/comparison_kernels/sampled_dense_dparams_bf16_shared_sums.cu``;
+``no-noise`` replaces the quad that ``noise_pair`` draws): ``no-bias`` (no
+block sums the bias), ``bias-from-global`` (the bias threads read g's rows
+from global memory, not the chunk's f32 copy in shared memory; a right
+result), ``no-epilogue`` (no per-sample noise and running sums; the MMAs
 stay), ``one-stage`` (only each sample's first chunk staged: the loads and
 the staging's shared stores after it cut) and ``one-stage-no-epilogue``. The
-narrow head shape is timed as committed only.
+committed one (``dparams_bf16``): ``no-noise``; diagnostics described at
+``DP_NO_NOISE``, with blocks an SM and active clusters; the narrow head
+shape is timed as committed only. ``--fwd-bf16``: the partials design of
+the shared-input forward (``fwd_bf16_partials``) and the committed one
+(``fwd_bf16``, ``sampled_dense_xs_bf16.cu`` with x's sample stride 0), with
+the ``--xs-bf16`` families' diagnostics.
 
 ``--xs-bf16`` probes two designs of xs_fwd and xs_dx, each at 1024→1024 and
 the 1024→10 head (every variant at the heads too). The partials design
@@ -140,11 +151,11 @@ FAMILIES = {
                for n in (4, 8)},
         },
     },
-    "dparams_bf16": {
-        "source": "sampled_dense_dparams_bf16.cu",
-        "shapes": (("sampled_dense_dparams_bf16", 784, 1024, (1, 2, 4)),
-                   ("sampled_dense_xs_dparams_bf16", 1024, 1024, (1, 2, 4)),
-                   ("sampled_dense_xs_dparams_bf16", 1024, 10, (2, 5, 10))),
+    "dparams_bf16_shared_sums": {
+        "source": "sampled_dense_dparams_bf16_shared_sums.cu", "dir": "scripts/comparison_kernels",
+        "suffix": "_shared_sums",
+        "shapes": (("sampled_dense_dparams_bf16_shared_sums", 784, 1024, (1, 2, 4)),
+                   ("sampled_dense_xs_dparams_bf16_shared_sums", 1024, 1024, (1, 2, 4))),
         "variants": {"full": (), "no-noise": (BF_NOISE,)},
         "diagnostics": {
             "no-bias": (BF_NO_BIAS,),
@@ -156,9 +167,9 @@ FAMILIES = {
         },
     },
 }
-# The partials design of the bf16 per-sample kernels (sampled_dense_bf16.cu with
-# chip_smoke.PARTIALS_XS_BF16 appended): as committed, without the noise, with one
-# staged chunk, without the partials' sum pass or the softplus pass
+# The partials design of the bf16 forwards and per-sample dx (sampled_dense_bf16.cu
+# with chip_smoke.PARTIALS_BF16 appended): as committed, without the noise, with
+# one staged chunk, without the partials' sum pass or the softplus pass
 PARTIALS_ONE_STAGE = [("    stage_a<kDepth>(as, xs, B, I, b0, i0);", "    if (c == c_begin) stage_a<kDepth>(as, xs, B, I, b0, i0);"),
                   ("    for (int f = tid; f < kDepth * kQuads; f += kThreads) {",
                    "    for (int f = tid; c == c_begin && f < kDepth * kQuads; f += kThreads) {"),
@@ -170,16 +181,23 @@ PARTIALS_NO_SUM_PASS = ("    sum_partials_kernel<<<elementwise_blocks(n), 256, 0
 PARTIALS_NO_SOFTPLUS_PASS = ("  softplus_kernel<<<elementwise_blocks(n_params), 256, 0, stream>>>(rho, sp, n_params);", "")
 XS_SHAPES = (("xs_fwd", 1024, 1024, (1, 2, 3, 4)), ("xs_dx", 1024, 1024, (1, 2, 3, 4)),
              ("xs_fwd", 1024, 10, ()), ("xs_dx", 1024, 10, ()))
+PARTIALS_DIAGNOSTICS = {
+    "one-stage": tuple(PARTIALS_ONE_STAGE),
+    "no-sum-pass": (PARTIALS_NO_SUM_PASS,),
+    "no-softplus-pass": (PARTIALS_NO_SOFTPLUS_PASS,),
+    "no-sum-no-softplus-pass": (PARTIALS_NO_SUM_PASS, PARTIALS_NO_SOFTPLUS_PASS),
+}
 FAMILIES["xs_bf16_partials"] = {
-    "source": "sampled_dense_bf16.cu", "append": "PARTIALS_XS_BF16", "suffix": "_partials",
+    "source": "sampled_dense_bf16.cu", "append": "PARTIALS_BF16", "suffix": "_partials",
     "shapes": tuple((f"sampled_dense_{k}_bf16_partials", i, o, splits) for k, i, o, splits in XS_SHAPES),
     "variants": {"full": (), "no-noise": (NOISE,)},
-    "diagnostics": {
-        "one-stage": tuple(PARTIALS_ONE_STAGE),
-        "no-sum-pass": (PARTIALS_NO_SUM_PASS,),
-        "no-softplus-pass": (PARTIALS_NO_SOFTPLUS_PASS,),
-        "no-sum-no-softplus-pass": (PARTIALS_NO_SUM_PASS, PARTIALS_NO_SOFTPLUS_PASS),
-    },
+    "diagnostics": PARTIALS_DIAGNOSTICS,
+}
+FAMILIES["fwd_bf16_partials"] = {
+    "source": "sampled_dense_bf16.cu", "append": "PARTIALS_BF16", "suffix": "_partials",
+    "shapes": (("sampled_dense_fwd_bf16_partials", 784, 1024, (2, 3, 4)),),
+    "variants": {"full": (), "no-noise": (NOISE,)},
+    "diagnostics": PARTIALS_DIAGNOSTICS,
 }
 # The redesigned bf16 per-sample kernels (sampled_dense_xs_bf16.cu): as
 # committed, without the noise; at the planned split also without the runs'
@@ -193,8 +211,8 @@ XS_NO_CLUSTER_SUM = ("    for (int k = 1; k < n_split; ++k) {", "    for (int k 
 XS_ONE_STAGE = [("    if (c + 2 < c_end)\n      fetch<", "    if (c + 2 < c_end && c < 0)\n      fetch<"),
                 ("    if (c + 1 < c_end) {\n", "    if (c + 1 < c_end && c < 0) {\n")]
 XS_WIDE_LAUNCH = ("  softplus_kernel<<<elementwise_blocks(n_params), 256, 0, stream>>>(rho, sp, n_params);\n"
-                  "  return launch_tiles<kFwd, 64, 16, false>(a, loc, sp,")
-XS_INLINE_SOFTPLUS = (XS_WIDE_LAUNCH, "  return launch_tiles<kFwd, 64, 16, true>(a, loc, rho,")
+                  "  return launch_tiles<kFwd, 64, 16, false, kSharedA>(a, loc, sp,")
+XS_INLINE_SOFTPLUS = (XS_WIDE_LAUNCH, "  return launch_tiles<kFwd, 64, 16, true, kSharedA>(a, loc, rho,")
 XS_EMPTY = ("  for (int c = c_begin; c < c_end; ++c) {", "  if (n_split > 0) return;\n  for (int c = c_begin; c < c_end; ++c) {")
 XS_NO_EPILOGUE = ("  // Park the tile", "  if (n_split > 0) return;\n  // Park the tile")
 XS_MMA = ("    mma_stage<kFwd, kCols, kDepth>(stages + it % kXsStages * L::kStage, bs + it % 2 * L::kBHalves, acc);\n")
@@ -246,6 +264,76 @@ FAMILIES["xs_bf16"] = {
     },
     "append_full": "XS_OCCUPANCY",
 }
+# The shared-input forward: the same source and diagnostics at fwd's shape
+FAMILIES["fwd_bf16"] = {
+    **FAMILIES["xs_bf16"],
+    "shapes": (("sampled_dense_fwd_bf16", 784, 1024, (1, 2, 3, 4, 6, 8)),),
+}
+# The redesigned wide bf16 dparams kernels (sampled_dense_dparams_bf16.cu): as
+# committed, without the noise; at the planned split also without the runs'
+# sum over the cluster, with the first two units alone copied, without the
+# products, without the noise and the products, without the bias, without the
+# per-sample epilogue (so without the products, whose results it alone
+# reads), with nothing after the prologue ("empty"), with each chunk's share
+# of the noise drawn after its products ("draw-last") or two quads at a time
+# ("draw-unroll-2"), with the bias summed by the last input tile's blocks
+# ("bias-last-tile"; these three right results); and the wide kernel's
+# blocks an SM and active clusters of 1, 2, 3, 4 and 8
+DP_NO_NOISE = ("const float4 z = i < I && o < O ? normal4(seed, s, i, o >> 2) : make_float4(0.f, 0.f, 0.f, 0.f);",
+               "const float4 z = make_float4(0.5f, -0.25f, 1.5f, -1.0f);")
+DP_PEER = "\n      const float* peer = cluster.map_shared_rank(park, k);"
+DP_NO_CLUSTER_SUM = ("    for (int k = 1; k < n_split; ++k) {" + DP_PEER, "    for (int k = 1; k < 1; ++k) {" + DP_PEER)
+DP_BF16_ONE_STAGE = ("    if (u + 2 < U)\n      fetch_unit", "    if (u + 2 < U && u < 0)\n      fetch_unit")
+DP_NO_MMA = ("    mma_unit(stage, wm, wn, acc);\n", "")
+DP_NO_BIAS = ("const bool bias = blockIdx.y == 0 && tid < kWideCols && o0 + tid < O;", "const bool bias = false;")
+DP_BIAS_LAST_TILE = (DP_NO_BIAS[0], DP_NO_BIAS[0].replace("blockIdx.y == 0", "blockIdx.y == gridDim.y - 1"))
+DP_NO_EPILOGUE = ("    if (c == C - 1) {  // the sample's last", "    if (c == C - 1 && c < 0) {  // the sample's last")
+DP_EMPTY = ("  for (int u = 0; u < U; ++u) {", "  if (n_split > 0) return;\n  for (int u = 0; u < U; ++u) {")
+DP_MMA = "    mma_unit(stage, wm, wn, acc);\n"
+DP_DRAW = ("    for (int k = kEpsQuads * c / C; k < kEpsQuads * (c + 1) / C; ++k) "
+           "draw_eps(eps, seed, s, I, O, i_w, o_w, k);\n")
+DP_STAGE = "    const float* stage = stages + u % kWideStages * kStageFloats;\n"
+DP_DRAW_LAST = (DP_DRAW + DP_STAGE + DP_MMA, DP_STAGE + DP_MMA + DP_DRAW)
+DP_DRAW_UNROLL_2 = (DP_DRAW, "#pragma unroll 2\n" + DP_DRAW)
+DP_OCCUPANCY = """
+extern "C" int dparams_occupancy(int per_sample, int n_split, int* blocks, int* clusters) {
+  using namespace sampled_dense;
+  auto* kernel = per_sample ? dparams_bf16_wide_kernel<true> : dparams_bf16_wide_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmemBytes);
+  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWideThreads, kWideSmemBytes);
+  cudaLaunchAttribute cluster_dims;
+  cluster_dims.id = cudaLaunchAttributeClusterDimension;
+  cluster_dims.val.clusterDim.x = 1, cluster_dims.val.clusterDim.y = 1, cluster_dims.val.clusterDim.z = n_split;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(16, 8, n_split);
+  config.blockDim = dim3(kWideThreads);
+  config.dynamicSmemBytes = kWideSmemBytes;
+  config.attrs = &cluster_dims;
+  config.numAttrs = 1;
+  if (!err) err = cudaOccupancyMaxActiveClusters(clusters, kernel, &config);
+  return (int)err;
+}
+"""
+FAMILIES["dparams_bf16"] = {
+    "source": "sampled_dense_dparams_bf16.cu",
+    "shapes": (("sampled_dense_dparams_bf16", 784, 1024, (1, 2, 3, 4, 8)),
+               ("sampled_dense_xs_dparams_bf16", 1024, 1024, (1, 2, 3, 4, 8)),
+               ("sampled_dense_xs_dparams_bf16", 1024, 10, (2, 5, 10))),
+    "variants": {"full": (), "no-noise": (DP_NO_NOISE,)},
+    "diagnostics": {
+        "no-cluster-sum": (DP_NO_CLUSTER_SUM,),
+        "one-stage": (DP_BF16_ONE_STAGE,),
+        "no-mma": (DP_NO_MMA,),
+        "no-noise-no-mma": (DP_NO_NOISE, DP_NO_MMA),
+        "no-bias": (DP_NO_BIAS,),
+        "no-epilogue": (DP_NO_EPILOGUE,),
+        "empty": (DP_EMPTY,),
+        "draw-last": (DP_DRAW_LAST,),
+        "bias-last-tile": (DP_BIAS_LAST_TILE,),
+        "draw-unroll-2": (DP_DRAW_UNROLL_2,),
+    },
+    "append_full": "DP_OCCUPANCY",
+}
 NOISE_PROBE = """#include "sampled_dense_common.cuh"
 extern "C" __global__ void noise_probe(float4* out, uint32_t seed) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = sampled_dense::normal4(seed, blockIdx.x, threadIdx.x, 7u);
@@ -255,7 +343,8 @@ extern "C" __global__ void noise_probe(float4* out, uint32_t seed) {
 
 def start_variant(build, fam: dict, swaps, workdir: str, tag: str):
     """nvcc on the family's source with ``swaps`` applied, in the background."""
-    source = (build.CSRC / fam["source"]).read_text()
+    with open(os.path.join(REPO, fam["dir"], fam["source"]) if "dir" in fam else build.CSRC / fam["source"]) as f:
+        source = f.read()
     for old, new in swaps:
         if old not in source:
             raise RuntimeError(f"probe {tag}: the source no longer holds {old!r}")
@@ -338,7 +427,9 @@ def count_sass(sass: str) -> tuple[int, int]:
 def planned_split(sd, fam: dict, name: str, i_dim: int, o_dim: int, sms: int) -> int:
     """The split the port's plan picks for ``name`` of ``fam`` at B, S."""
     if fam["source"] == "sampled_dense_xs_bf16.cu":
-        return sd.xs_bf16_plan(S, B, i_dim, o_dim, sms, "fwd" if "xs_fwd" in name else "dx").n_split
+        return sd.xs_bf16_plan(S, B, i_dim, o_dim, sms, "fwd" if "fwd" in name else "dx").n_split
+    if "dparams_bf16" in name:
+        return sd.dparams_bf16_plan(S, B, i_dim, o_dim, sms).n_split
     if "dparams" in name:
         return sd.dparams_plan(S, i_dim, o_dim, sms).n_split
     if "_dx" in name:
@@ -356,7 +447,7 @@ def probe_family(torch, build, sd, kind: str, diagnose: bool, workdir: str, sms:
     variants = {**fam["variants"], **(fam["diagnostics"] if diagnose else {})}
     started = {tag: start_variant(build, fam, swaps, workdir, tag) for tag, swaps in variants.items()}
     libs = {tag: finish_variant(sd, fam, job, tag) for tag, job in started.items()}
-    xs_family = kind.startswith("xs_bf16")
+    xs_family = kind.startswith(("xs_bf16", "fwd_bf16"))
     for name, i_dim, o_dim, splits in fam["shapes"]:
         gen = torch.Generator(device="cuda").manual_seed(99)
         loc, rho, bloc, brho = _layer_inputs(torch, gen, i_dim, o_dim)
@@ -383,7 +474,7 @@ def probe_family(torch, build, sd, kind: str, diagnose: bool, workdir: str, sms:
             head = (x.data_ptr(), loc.data_ptr(), rho.data_ptr(), bloc.data_ptr(), brho.data_ptr(),
                     sp.data_ptr())
             scratch = lambda n: (n, S, B, o_dim)  # noqa: E731
-        if fam["source"] == "sampled_dense_xs_bf16.cu":
+        if fam["source"] == "sampled_dense_xs_bf16.cu" or ("dparams_bf16" in name and o_dim > 16):
             scratch = lambda n: None  # noqa: E731  (the runs of a tile sum in their cluster)
         for n_split in sorted(set(splits) | {planned}):
             shape = scratch(n_split)
@@ -412,14 +503,16 @@ def probe_family(torch, build, sd, kind: str, diagnose: bool, workdir: str, sms:
                 print(f"{tag_line} {name} B={B} S={S} I={i_dim} O={o_dim} n_split {n_split}"
                       f"{' (planned)' if n_split == planned else ''}: {tag} {ms:.4f} ms")
         if "append_full" in fam and o_dim > 16:
-            occ = libs["full"].xs_occupancy
+            dparams = fam["append_full"] == "DP_OCCUPANCY"
+            occ = libs["full"].dparams_occupancy if dparams else libs["full"].xs_occupancy
             occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
             for n_split in (1, 2, 3, 4, 8):
                 blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
-                err = occ(int("xs_fwd" in name), n_split, ctypes.byref(blocks), ctypes.byref(clusters))
+                first = int("xs_dparams" in name) if dparams else int("fwd" in name)
+                err = occ(first, n_split, ctypes.byref(blocks), ctypes.byref(clusters))
                 print(f"{tag_line} {name} I={i_dim} O={o_dim}: {blocks.value} blocks an SM, "
                       f"{clusters.value} active clusters of {n_split} (cudaError {err})")
-        if xs_family and kind == "xs_bf16_partials":
+        if kind.endswith("_partials") or (kind == "dparams_bf16" and o_dim > 16):
             from chip_smoke import noise_floor_ms
 
             floor = noise_floor_ms(torch, S, i_dim, o_dim)
@@ -432,8 +525,9 @@ def main() -> None:
     args = sys.argv[1:]
     family = next((a.split("=", 1)[1] for a in args if a.startswith("--family=")), None)
     kinds = ([family] if family else ["fwd"] if "--fwd" in args else ["dparams"] if "--dparams" in args else
-             ["dparams_bf16"] if "--dparams-bf16" in args else ["xs_bf16_partials", "xs_bf16"] if "--xs-bf16" in args
-             else ["dx"])
+             ["dparams_bf16_shared_sums", "dparams_bf16"] if "--dparams-bf16" in args else
+             ["xs_bf16_partials", "xs_bf16"] if "--xs-bf16" in args else
+             ["fwd_bf16_partials", "fwd_bf16"] if "--fwd-bf16" in args else ["dx"])
     diagnose = "--diagnose" in args
     sass_dir = next((a for a in args if not a.startswith("--")), None)
     sys.path.insert(0, REPO)
@@ -448,7 +542,7 @@ def main() -> None:
 
     sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    kinds = [k for k in kinds if k in FAMILIES and (build.CSRC / FAMILIES[k]["source"]).exists()]
+    kinds = [k for k in kinds if k in FAMILIES]
     rows = []
     with tempfile.TemporaryDirectory(prefix="kernel_probe_") as workdir:
         start_extra_build("noise_floor", NOISE_FLOOR_CU, workdir)

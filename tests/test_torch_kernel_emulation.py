@@ -15,8 +15,10 @@ lanes' registers through a per-block buffer between two block barriers: safe
 because every thread of a block reaches each ``mma.sync`` and shuffle in these
 kernels, which each call asserts. The kernels are called through ctypes with
 the launch plans of ``ops/sampled_dense.fwd_plan``, ``dx_plan``,
-``dparams_plan`` and ``xs_bf16_plan`` (the bf16 per-sample kernels, held
-further in ``tests/test_torch_xs_bf16.py``). This checks the kernels' indexing, masking, work split,
+``dparams_plan`` (and ``dparams_bf16_plan``: the bf16 parameter-gradient
+kernels also at every split, their bias bit-equal to the f32 kernel's) and
+``xs_bf16_plan`` (the bf16 forwards and per-sample dx, held further in
+``tests/test_torch_xs_bf16.py``). This checks the kernels' indexing, masking, work split,
 fixed-order sum of partials, MMA fragment layout and noise-quad ownership at
 ragged shapes on a machine without a card; the card itself is checked by
 ``tests/test_torch_kernels.py`` and ``chip_smoke.py``. Same gates as there:
@@ -70,13 +72,16 @@ def emulated_source(source: str) -> str:
 
 
 def emulated_header(source: str) -> str:
-    """The shared header with each cp.async helper replaced by a plain copy."""
+    """The shared header with each cp.async helper replaced by a plain copy
+    (and ``cp.async.wait_group`` by nothing)."""
     out = source
     for name, body in CP_ASYNC.items():
         one_line = rf"__device__ __forceinline__ void {name}\(\) \{{[^\n]*\}}\n"
         multi_line = rf"__device__ __forceinline__ void {name}\([^)]+\) \{{\n.*?\n\}}\n"
         out, n = re.subn(one_line if name != "cp_async16" else multi_line, body, out, count=1, flags=re.S)
         assert n == 1, name
+    out, n = CP_ASYNC_WAIT.subn(r"\1 {}\n", out)
+    assert n == 1
     return out
 
 
@@ -225,18 +230,19 @@ def dparams_library(tmp_path_factory):
     return build(tmp_path_factory, "sampled_dense_dparams.cu", DPARAMS)
 
 
-def run_dparams(dll, g, x, rho, brho, seed, sms, bf16=False):
-    """One dparams call (of the bf16 kernels with ``bf16``); NaN-filled
-    outputs and scratch, so a missed write shows."""
+def run_dparams(dll, g, x, rho, brho, seed, sms, bf16=False, n_split=None):
+    """One dparams call (of the bf16 kernels on dparams_bf16_plan with
+    ``bf16``; at ``n_split`` runs where given); NaN-filled outputs and
+    scratch, so a missed write shows."""
     (s, b, o), i = g.shape, rho.shape[0]
-    plan = sd.dparams_plan(s, i, o, sms)
+    plan = sd.dparams_bf16_plan(s, b, i, o, sms) if bf16 else sd.dparams_plan(s, i, o, sms)
     outs = [torch.full((i, o), float("nan")) for _ in range(2)] + [torch.full((o,), float("nan")) for _ in range(2)]
     partials = torch.full(plan.scratch, float("nan")) if plan.scratch else None
     name = ("sampled_dense_xs_dparams" if x.dim() == 3 else "sampled_dense_dparams") + ("_bf16" if bf16 else "")
     fn = getattr(dll, name)
     err = fn(g.data_ptr(), x.data_ptr(), rho.data_ptr(), brho.data_ptr(),
              partials.data_ptr() if partials is not None else None, *(t.data_ptr() for t in outs),
-             s, b, i, o, seed, plan.n_split, None)
+             s, b, i, o, seed, plan.n_split if n_split is None else n_split, None)
     assert err == 0
     return tuple(outs), plan
 
@@ -281,8 +287,8 @@ def test_dparams_kernels_match_twins_on_the_cpu(dparams_library, shape, sms, run
     assert all(torch.equal(a, c) for a, c in zip(broadcast, got))
 
 
-BF16 = ("sampled_dense_fwd_bf16", "sampled_dense_dx_bf16")
-XS_BF16 = ("sampled_dense_xs_fwd_bf16", "sampled_dense_xs_dx_bf16")
+BF16 = ("sampled_dense_dx_bf16",)
+XS_BF16 = ("sampled_dense_fwd_bf16", "sampled_dense_xs_fwd_bf16", "sampled_dense_xs_dx_bf16")
 DPARAMS_BF16 = ("sampled_dense_dparams_bf16", "sampled_dense_xs_dparams_bf16")
 
 
@@ -298,16 +304,16 @@ def xs_bf16_library(tmp_path_factory):
 
 def run_bf16(lib, name, a, params, out_shape, n_samples, sms, kind):
     """One bf16 forward (``params`` = loc, rho, bloc, brho) or input-gradient
-    (loc, rho) call on its plan: ``sampled_dense_bf16.cu``'s fwd_plan or
-    dx_plan with an (I, O) softplus scratch and the partials; the per-sample
-    kernels of ``sampled_dense_xs_bf16.cu`` on xs_bf16_plan (no partials).
+    (loc, rho) call on its plan: ``sampled_dense_bf16.cu``'s dx on dx_plan
+    with an (I, O) softplus scratch and the partials; the forwards and xs_dx
+    of ``sampled_dense_xs_bf16.cu`` on xs_bf16_plan (no partials).
     NaN-filled output and scratch, so a missed write shows."""
     b, i, o = a.shape[-2], *params[0].shape
-    if name.startswith("xs"):
+    if name != "dx":
         plan = sd.xs_bf16_plan(n_samples, b, i, o, sms, kind)
         scratch, sp_needed = (), plan.softplus_scratch
     else:
-        plan = sd.fwd_plan(n_samples, b, i, o, sms) if kind == "fwd" else sd.dx_plan(n_samples, b, i, o, sms, True)
+        plan = sd.dx_plan(n_samples, b, i, o, sms, True)
         scratch, sp_needed = plan.scratch, True
     out = torch.full(out_shape, float("nan"))
     sp = torch.full_like(params[1], float("nan")) if sp_needed else None
@@ -340,9 +346,10 @@ def assert_bf16_close(kind, got, twin, f32, a, loc, rho, s, seed):
     ((37, 70, 66, 2), 132),  # wide, O % 4 != 0 and I % 4 != 0: plain loads, two output tiles
     ((129, 24, 20, 2), 1),  # wide, two row tiles, a ragged 64-output tile, one run: no partials
 ], ids=lambda v: "B{}_I{}_O{}_S{}".format(*v) if isinstance(v, tuple) else f"{v}sm")
-def test_bf16_fwd_kernels_match_bf16_twins_on_the_cpu(bf16_library, xs_bf16_library, shape, sms):
+def test_bf16_fwd_kernels_match_bf16_twins_on_the_cpu(xs_bf16_library, shape, sms):
     """Both bf16 forwards against their bf16 twins through the m16n8k16 stand-in
-    (xs_fwd: the kernel of ``sampled_dense_xs_bf16.cu`` on xs_bf16_plan)."""
+    (the kernel of ``sampled_dense_xs_bf16.cu`` on xs_bf16_plan, fwd with x's
+    sample stride 0)."""
     b, i, o, s = shape
     rng = np.random.default_rng(b * 7919 + i * 31 + o)
 
@@ -351,8 +358,8 @@ def test_bf16_fwd_kernels_match_bf16_twins_on_the_cpu(bf16_library, xs_bf16_libr
 
     params = (normal(i, o, scale=0.1), normal(i, o, scale=0.5, shift=-3.0),
               normal(o, scale=0.1), normal(o, scale=0.5, shift=-3.0))
-    for x, name, lib in ((normal(b, i), "fwd", bf16_library), (normal(s, b, i), "xs_fwd", xs_bf16_library)):
-        out = run_bf16(lib, name, x, params, (s, b, o), s, sms, "fwd")
+    for x, name in ((normal(b, i), "fwd"), (normal(s, b, i), "xs_fwd")):
+        out = run_bf16(xs_bf16_library, name, x, params, (s, b, o), s, sms, "fwd")
         twin = getattr(sd, f"sampled_dense_{name}_bf16_plain")(x, *params, s, 2026)
         f32 = getattr(sd, f"sampled_dense_{name}_plain")(x, *params, s, 2026)
         assert_bf16_close(name, out, twin, f32, x, params[0], params[1], s, 2026)
@@ -407,3 +414,67 @@ def test_bf16_dparams_kernels_match_bf16_twins_on_the_cpu(dparams_bf16_library, 
             if k < 2:
                 assert float((got_t - want_t).abs().max()) < 0.1 * float((got_t - f32_t).abs().max()), k
     assert all(torch.equal(a, c) for a, c in zip(broadcast, got))
+
+
+def check_dparams_bf16(outs, g, inp, rho, brho, s):
+    """The gates of ``test_bf16_dparams_kernels_match_bf16_twins_on_the_cpu``."""
+    twin = sd.sampled_dense_dparams_bf16_plain(g, inp, rho, brho, s, 2026)
+    f32 = sd.sampled_dense_dparams_plain(g, inp, rho, brho, s, 2026)
+    for k, (got_t, want_t, f32_t) in enumerate(zip(outs, twin, f32)):
+        assert not got_t.isnan().any(), k
+        torch.testing.assert_close(got_t, want_t, rtol=1e-4, atol=1e-4 * float(want_t.abs().max()))
+        if k < 2:
+            assert float((got_t - want_t).abs().max()) < 0.1 * float((got_t - f32_t).abs().max()), k
+
+
+@pytest.mark.parametrize("shape", [
+    (45, 130, 20, 9),  # two ragged chunks, two input tiles (the second of 2 rows), I % 4 != 0: plain loads of x
+    (129, 68, 72, 8),  # five chunks (the last of one row): eps quads 1, 2, 1, 2, 2 a chunk; cp.async for both
+    (300, 24, 20, 8),  # ten chunks: some draw no eps quad; O = 20 a ragged output tile
+    (1, 40, 130, 8),  # one row, one chunk draws all eight quads; three output tiles, O % 4 != 0: plain loads of g
+], ids=lambda s: "B{}_I{}_O{}_S{}".format(*s))
+def test_bf16_dparams_wide_kernel_at_every_split(dparams_bf16_library, dparams_library, shape):
+    """The wide bf16 kernel at every run count a cluster takes (1 .. 8 runs of
+    the S samples) against the bf16 twins, both variants; the splits differ
+    from one another only in the order of their f32 sums; the bias
+    cotangents bit-equal to the f32 kernel's at the same split (the same
+    sums of the unrounded g in the same order)."""
+    b, i, o, s = shape
+    g, x, xs, rho, brho = dparams_case(shape)
+    first = None
+    for n_split in range(1, min(s, sd.DP_MAX_RUNS) + 1):
+        got, _ = run_dparams(dparams_bf16_library, g, x, rho, brho, 2026, 132, bf16=True, n_split=n_split)
+        got_xs, _ = run_dparams(dparams_bf16_library, g, xs, rho, brho, 2026, 132, bf16=True, n_split=n_split)
+        check_dparams_bf16(got, g, x, rho, brho, s)
+        check_dparams_bf16(got_xs, g, xs, rho, brho, s)
+        f32, _ = run_dparams(dparams_library, g, x, rho, brho, 2026, 132, n_split=n_split)
+        assert torch.equal(got[2], f32[2]) and torch.equal(got[3], f32[3]), n_split
+        if first is None:
+            first = got
+        for got_t, first_t in zip(got, first):
+            torch.testing.assert_close(got_t, first_t, rtol=1e-5, atol=1e-5 * float(first_t.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(128, 784, 1024, 10), (128, 1024, 1024, 10), (128, 1024, 10, 10), (1, 2, 32, 1),
+                                   (2048, 784, 1024, 10), (128, 784, 1024, 100), (64, 256, 4000, 2), (45, 130, 66, 9)],
+                         ids=lambda s: "B{}_I{}_O{}_S{}".format(*s))
+@pytest.mark.parametrize("sms", [1, 8, 132])
+def test_dparams_bf16_plan_walks_every_unit_and_quad_once(shape, sms):
+    """``dparams_bf16_plan``: the f32 kernel's split and grid (so both sum the
+    bias over the same runs of samples); on the wide path one cluster of at
+    most 8 runs, every (sample, 32-row chunk) unit walked once, in order, by
+    the run of its sample, and each warp's 8 eps items a lane drawn once a
+    sample, a share with each chunk."""
+    b, i, o, s = shape
+    plan, f32 = sd.dparams_bf16_plan(s, b, i, o, sms), sd.dparams_plan(s, i, o, sms)
+    assert (plan.narrow, plan.n_split, plan.grid, plan.scratch) == (f32.narrow, f32.n_split, f32.grid, f32.scratch)
+    assert plan.chunks == -(-b // 32) and 1 <= plan.n_split <= s
+    if plan.narrow:
+        return
+    assert plan.n_split <= sd.DP_MAX_RUNS and plan.grid == (-(-o // sd.DP_COLS), -(-i // sd.DP_ROWS), plan.n_split)
+    units = sd.dparams_bf16_units(plan, s)
+    assert len(units) == plan.n_split and all(units)
+    assert [(u[0], u[1]) for run in units for u in run] == [(si, c) for si in range(s) for c in range(plan.chunks)]
+    for si in range(s):
+        items = [k for run in units for (us, _, ks) in run if us == si for k in ks]
+        assert items == list(range(sd.DP_BF16_EPS_ITEMS))

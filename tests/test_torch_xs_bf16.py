@@ -1,4 +1,5 @@
-"""The bf16 per-sample kernels of ``csrc/sampled_dense_xs_bf16.cu`` on the CPU.
+"""The bf16 kernels of ``csrc/sampled_dense_xs_bf16.cu`` on the CPU: the
+per-sample forward and input gradient, and the shared-input forward.
 
 The source runs through the g++ emulation of ``tests/test_torch_kernel_emulation.py``
 (``tests/cuda_emulation/``: one std::thread per CUDA thread, the blocks of a
@@ -11,6 +12,9 @@ Held here:
   distance from the f32 twin), at ragged shapes on ``xs_bf16_plan``'s
   geometry, at every split of the runs (1 .. 8, one cluster), on the heads'
   tiles and at S = 1; the outputs NaN-filled first, so a missed store shows;
+* ``sampled_dense_fwd_bf16`` (the forward with x's sample stride 0) against
+  its bf16 twin at ragged shapes and every split, and bit-equal to xs_fwd on
+  x broadcast over the samples (one kernel, one order of sums);
 * the same kernels against JAX's Pallas kernels (interpret mode) on bf16
   values at zero scale, where both form the same exact products (1e-5 of
   their O(1) sums);
@@ -34,12 +38,13 @@ import pytest
 import torch
 import test_torch_kernel_emulation as emulation
 
+from robustbnns_tpu.ops import sampled_dense as jax_sampled_dense
 from robustbnns_tpu.ops import sampled_dense_xs as jax_sampled_dense_xs
 from robustbnns_tpu_torch.ops.build import CSRC
 
 sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
 
-XS_BF16 = ("sampled_dense_xs_fwd_bf16", "sampled_dense_xs_dx_bf16")
+XS_BF16 = ("sampled_dense_xs_fwd_bf16", "sampled_dense_xs_dx_bf16", "sampled_dense_fwd_bf16")
 SEED = 2026
 
 
@@ -65,13 +70,15 @@ def layer(shape, kind):
 
 def run_xs(dll, kind, a, params, n_samples, n_split):
     """One call (NaN-filled output and softplus scratch), as the wrapper
-    makes it: the scratch only where the plan asks for it, no partials."""
-    b_dim = a.shape[1]
+    makes it: the scratch only where the plan asks for it, no partials. A
+    forward of a shared x (B, I) calls sampled_dense_fwd_bf16."""
+    b_dim = a.shape[-2]
     i_dim, o_dim = params[0].shape
     plan = sd.xs_bf16_plan(n_samples, b_dim, i_dim, o_dim, 132, kind)
     out = torch.full((n_samples, b_dim, o_dim if kind == "fwd" else i_dim), float("nan"))
     sp = torch.full_like(params[1], float("nan")) if plan.softplus_scratch else None
-    err = getattr(dll, f"sampled_dense_xs_{kind}_bf16")(
+    name = "sampled_dense_fwd_bf16" if a.dim() == 2 else f"sampled_dense_xs_{kind}_bf16"
+    err = getattr(dll, name)(
         a.data_ptr(), *(t.data_ptr() for t in params), sp.data_ptr() if sp is not None else None, None,
         out.data_ptr(), n_samples, b_dim, i_dim, o_dim, SEED, n_split, None)
     assert err == 0
@@ -125,6 +132,61 @@ def test_xs_bf16_kernels_at_every_split(xs_library, kind, shape):
         check_against_twins(kind, got, a, params, s)
     for got in outs[1:]:
         torch.testing.assert_close(got, outs[0], rtol=1e-5, atol=1e-5 * float(outs[0].abs().max()))
+
+
+def shared_layer(shape):
+    """Seeded inputs of the shared-input forward: x (B, I) and the params."""
+    b, i, o, s = shape
+    xs, params = layer(shape, "fwd")
+    return xs[0].clone(), params
+
+
+@pytest.mark.parametrize("shape,sms,runs", [
+    ((37, 70, 66, 2), 132, 5),  # wide, O % 4 != 0 and I % 4 != 0: plain loads, two column tiles
+    ((129, 64, 20, 1), 1, 1),  # wide, two row tiles, a ragged 64-column tile, S = 1: one run
+    ((9, 256, 40, 3), 132, 8),  # wide, sixteen chunks in eight runs: the largest cluster
+    ((37, 70, 10, 3), 132, 2),  # the head's tiles, softplus inline, I ragged over two 64-deep chunks
+    ((1, 200, 13, 2), 132, 4),  # the head, one row, O % 4 != 0 in the bias quad
+], ids=lambda v: "B{}_I{}_O{}_S{}".format(*v) if isinstance(v, tuple) else str(v))
+def test_shared_fwd_bf16_kernel_matches_bf16_twin_and_xs_fwd_on_the_cpu(xs_library, shape, sms, runs):
+    """The shared-input forward on the plan's geometry against its bf16 twin,
+    and bit-equal to xs_fwd on x broadcast over the samples."""
+    b, i, o, s = shape
+    plan = sd.xs_bf16_plan(s, b, i, o, sms, "fwd")
+    assert plan.n_split == runs
+    x, params = shared_layer(shape)
+    got = run_xs(xs_library, "fwd", x, params, s, plan.n_split)
+    check_against_twins("fwd", got, x, params, s)
+    assert torch.equal(got, run_xs(xs_library, "fwd", x.expand(s, b, i).contiguous(), params, s, plan.n_split))
+
+
+@pytest.mark.parametrize("shape", [(20, 128, 36, 2), (20, 512, 10, 2)], ids=lambda s: "B{}_I{}_O{}_S{}".format(*s))
+def test_shared_fwd_bf16_kernel_at_every_split(xs_library, shape):
+    """The shared-input forward at every run count a cluster takes, 1 .. 8,
+    wide and head, against the twins and the one-run result."""
+    b, i, o, s = shape
+    x, params = shared_layer(shape)
+    outs = [run_xs(xs_library, "fwd", x, params, s, n) for n in range(1, sd.XS_MAX_RUNS + 1)]
+    for got in outs:
+        check_against_twins("fwd", got, x, params, s)
+    for got in outs[1:]:
+        torch.testing.assert_close(got, outs[0], rtol=1e-5, atol=1e-5 * float(outs[0].abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(37, 70, 66, 2), (37, 70, 10, 3)], ids=lambda s: "B{}_I{}_O{}_S{}".format(*s))
+def test_shared_fwd_bf16_kernel_matches_jax_at_zero_scale(xs_library, shape, monkeypatch):
+    """bf16-valued x, loc and bloc, rho = -30: the kernel against JAX's
+    interpret-mode ``sampled_dense`` under ROBUSTBNNS_KERNEL_PRECISION=default."""
+    monkeypatch.setenv("ROBUSTBNNS_KERNEL_PRECISION", "default")
+    b, i, o, s = shape
+    rng = np.random.default_rng(12)
+    x = bf16_values(rng.normal(size=(b, i)))
+    loc, bloc = bf16_values(rng.normal(size=(i, o)) * 0.1), bf16_values(rng.normal(size=(o,)) * 0.1)
+    rho, brho = torch.full((i, o), -30.0), torch.full((o,), -30.0)
+    want = jax_sampled_dense(x.numpy(), loc.numpy(), rho.numpy(), bloc.numpy(), brho.numpy(), s, SEED)
+    plan = sd.xs_bf16_plan(s, b, i, o, 132, "fwd")
+    got = run_xs(xs_library, "fwd", x, (loc, rho, bloc, brho), s, plan.n_split)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
 
 def bf16_values(a):
