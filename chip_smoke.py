@@ -46,18 +46,22 @@ Phases, each fatal on failure:
    distance from the f32 kernel, at model_7's shapes and the edge shapes,
    bit-identical across calls, timed beside the f32 kernels (the three
    forward and per-sample ones of ``csrc/sampled_dense_xs_bf16.cu``, on
-   ``xs_bf16_plan``'s geometry, also beside their earlier design, the
-   partials one, rebuilt from ``csrc/sampled_dense_bf16.cu`` with
+   ``xs_bf16_plan``'s geometry, and the warp-specialised dx of
+   ``csrc/sampled_dense_dx_bf16.cu``, on ``dx_bf16_plan``'s, also beside
+   their earlier design, the partials one, rebuilt from
+   ``scripts/comparison_kernels/sampled_dense_bf16_partials.cu`` with
    :data:`PARTIALS_BF16`, and beside the noise floor of their normals,
-   :data:`NOISE_FLOOR_CU`), and the
+   :data:`NOISE_FLOOR_CU`; each plan printed), and the
    finite-difference adjoint of both precisions; the two bf16 parameter-
    gradient kernels through the public wrappers under the variable (counted
    under their bf16 names only) against their bf16 twins at the f32 gate,
    within the bf16 rounding bound of the f32 kernels and nearer the twin than
    a tenth of that distance, dbloc and dbrho bit-equal to the f32 kernel's,
-   at model_7's three shapes (timed; the wide ones also beside the earlier
-   shared-sums design, rebuilt from :data:`SHARED_SUMS_DPARAMS_BF16`, and the
-   noise floor) and the dparams edge shapes, bit-identical across calls;
+   at model_7's three shapes (timed beside the earlier design, rebuilt: the
+   wide ones the shared-sums design, :data:`SHARED_SUMS_DPARAMS_BF16`, the
+   1024→10 head the partials design, :data:`NARROW_PARTIALS_DPARAMS_BF16`;
+   and the noise floor; each plan printed) and the dparams edge shapes,
+   bit-identical across calls;
    model_7's posterior
    gradient (``[param-grad]``'s setup) under the variable: exactly 1 fwd, 2
    xs_fwd, 2 xs_dx, 1 dparams and 2 xs_dparams bf16 launches and no f32
@@ -355,11 +359,12 @@ def phase_device(torch) -> str:
     return smi
 
 
-# The earlier (partials) design of the bf16 forward kernels and the per-sample
-# dx, rebuilt beside the port's to time both in one process:
-# csrc/sampled_dense_bf16.cu keeps the templates (launch_fwd, launch_dx) and
-# exports only the shared-input dx; these entry points, appended to a copy of
-# it, export the forward and the per-sample dx as that design ran them (a
+# The earlier (partials) design of the bf16 forward and input-gradient
+# kernels, rebuilt beside the port's to time both in one process:
+# scripts/comparison_kernels/sampled_dense_bf16_partials.cu keeps the
+# templates (launch_fwd, launch_dx) and exports the summed dx
+# (sampled_dense_dx_bf16_partials); these entry points, appended to a copy of
+# it, export the forwards and the per-sample dx as that design ran them (a
 # softplus pass, the runs' partial tiles and a second pass that sums them).
 PARTIALS_BF16 = """
 extern "C" int sampled_dense_fwd_bf16_partials(const float* x, const float* loc, const float* rho, const float* bloc,
@@ -440,20 +445,25 @@ def extra_library(name: str):
     return _extra_builds[name][1]
 
 
-# The earlier design of the wide bf16 parameter-gradient kernel (running sums
-# in shared memory), rebuilt beside the port's to time both in one process.
-SHARED_SUMS_DPARAMS_BF16 = os.path.join(REPO, "scripts", "comparison_kernels",
-                                        "sampled_dense_dparams_bf16_shared_sums.cu")
+# The earlier designs, rebuilt beside the port's to time both in one process:
+# the partials design of the bf16 forwards and dx, the wide bf16
+# parameter-gradient kernel with running sums in shared memory, and the narrow
+# (O <= 16) one with partial planes.
+COMPARISON_KERNELS = os.path.join(REPO, "scripts", "comparison_kernels")
+PARTIALS_BF16_CU = os.path.join(COMPARISON_KERNELS, "sampled_dense_bf16_partials.cu")
+SHARED_SUMS_DPARAMS_BF16 = os.path.join(COMPARISON_KERNELS, "sampled_dense_dparams_bf16_shared_sums.cu")
+NARROW_PARTIALS_DPARAMS_BF16 = os.path.join(COMPARISON_KERNELS, "sampled_dense_dparams_bf16_narrow_partials.cu")
 
 
 def start_comparison_builds(workdir: str) -> None:
-    """The partials design's forwards and per-sample dx, the shared-sums
-    design's wide dparams and the noise floor, for ``[precision]``."""
-    from robustbnns_tpu_torch.ops import build
-
-    start_extra_build("partials_bf16", (build.CSRC / "sampled_dense_bf16.cu").read_text() + PARTIALS_BF16, workdir)
-    with open(SHARED_SUMS_DPARAMS_BF16) as f:
-        start_extra_build("shared_sums_dparams_bf16", f.read(), workdir)
+    """The partials design's forwards and dx, the shared-sums design's wide
+    dparams, the partials design's narrow dparams and the noise floor, for
+    ``[precision]``."""
+    for name, path, extra in (("partials_bf16", PARTIALS_BF16_CU, PARTIALS_BF16),
+                              ("shared_sums_dparams_bf16", SHARED_SUMS_DPARAMS_BF16, ""),
+                              ("narrow_partials_dparams_bf16", NARROW_PARTIALS_DPARAMS_BF16, "")):
+        with open(path) as f:
+            start_extra_build(name, f.read() + extra, workdir)
     start_extra_build("noise_floor", NOISE_FLOOR_CU, workdir)
 
 
@@ -471,17 +481,18 @@ def earlier_bf16(library: str, name: str):
 
 def partials_bf16_call(torch, kind: str, a, params, n_samples: int, seed: int):
     """One call of the partials design's kernel of ``kind`` (``fwd``,
-    ``xs_fwd``, ``xs_dx``) on its own plan (fwd_plan, dx_plan) and scratch, as
-    its wrapper made it; ``params``: loc, rho and (the forwards) bloc, brho.
-    Returns the output."""
+    ``xs_fwd``, ``dx``, ``xs_dx``) on its own plan (fwd_plan, dx_plan) and
+    scratch, as its wrapper made it; ``params``: loc, rho and (the forwards)
+    bloc, brho. Returns the output."""
     sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     b_dim = a.shape[-2]
     i_dim, o_dim = params[0].shape
     fwd = kind.endswith("fwd")
     plan = (sd.fwd_plan(n_samples, b_dim, i_dim, o_dim, sms) if fwd
-            else sd.dx_plan(n_samples, b_dim, i_dim, o_dim, sms, False))
-    out = torch.empty((n_samples, b_dim, o_dim if fwd else i_dim), device=a.device)
+            else sd.dx_plan(n_samples, b_dim, i_dim, o_dim, sms, kind == "dx"))
+    out = torch.empty((n_samples, b_dim, o_dim) if fwd else (b_dim, i_dim) if kind == "dx"
+                      else (n_samples, b_dim, i_dim), device=a.device)
     sp = torch.empty_like(params[1])
     partials = torch.empty(plan.scratch, device=a.device) if plan.scratch else None
     err = earlier_bf16("partials_bf16", f"sampled_dense_{kind}_bf16_partials")(
@@ -493,21 +504,27 @@ def partials_bf16_call(torch, kind: str, a, params, n_samples: int, seed: int):
     return out
 
 
-def shared_sums_dparams_bf16_call(torch, kind: str, g, x, rho, brho, n_samples: int, seed: int):
-    """One call of the shared-sums design's wide kernel of ``kind``
-    (``dparams``, ``xs_dparams``) on the wide plan it ran on. Returns
-    (dloc, drho, dbloc, dbrho)."""
+def earlier_dparams_bf16_call(torch, kind: str, g, x, rho, brho, n_samples: int, seed: int):
+    """One call of the earlier design of the bf16 dparams kernel of ``kind``
+    (``dparams``, ``xs_dparams``) on dparams_plan, the plan it ran on: the
+    shared-sums design where O > 16, the partials design of the narrow path
+    (its partial planes and their pass) where O <= 16. Returns (dloc, drho,
+    dbloc, dbrho)."""
     sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
     sms = torch.cuda.get_device_properties(g.device).multi_processor_count
     (_, b_dim, o_dim), i_dim = g.shape, rho.shape[0]
     plan = sd.dparams_plan(n_samples, i_dim, o_dim, sms)
     outs = [torch.empty((i_dim, o_dim), device=g.device) for _ in range(2)] + \
         [torch.empty((o_dim,), device=g.device) for _ in range(2)]
-    err = earlier_bf16("shared_sums_dparams_bf16", f"sampled_dense_{kind}_bf16_shared_sums")(
-        g.data_ptr(), x.data_ptr(), rho.data_ptr(), brho.data_ptr(), None, *(t.data_ptr() for t in outs), n_samples,
+    partials = torch.empty(plan.scratch, device=g.device) if plan.scratch else None
+    library, suffix = ("narrow_partials_dparams_bf16", "partials") if plan.narrow else \
+        ("shared_sums_dparams_bf16", "shared_sums")
+    err = earlier_bf16(library, f"sampled_dense_{kind}_bf16_{suffix}")(
+        g.data_ptr(), x.data_ptr(), rho.data_ptr(), brho.data_ptr(),
+        partials.data_ptr() if partials is not None else None, *(t.data_ptr() for t in outs), n_samples,
         b_dim, i_dim, o_dim, seed, plan.n_split, torch.cuda.current_stream().cuda_stream)
     if err:
-        fail(f"the shared-sums design's {kind}_bf16 kernel failed to launch: cudaError {err}")
+        fail(f"the earlier design's {kind}_bf16 kernel failed to launch: cudaError {err}")
     return tuple(outs)
 
 
@@ -1057,7 +1074,7 @@ def phase_precision_kernels(torch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1235)
     seed = 20261017
     pallas = "robustbnns_tpu/ops/sampled_dense.py"
-    sources = {kind: f"robustbnns_tpu_torch/csrc/sampled_dense_{'' if kind == 'dx' else 'xs_'}bf16.cu"
+    sources = {kind: f"robustbnns_tpu_torch/csrc/sampled_dense_{'dx_' if kind == 'dx' else 'xs_'}bf16.cu"
                for kind in ("fwd", "dx", "xs_fwd", "xs_dx")}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     kinds = {  # kind: (bf16 wrapper, bf16 twin, f32 wrapper, Pallas line, shared input)
@@ -1137,19 +1154,25 @@ def phase_precision_kernels(torch) -> dict:
             nbytes = 4.0 * (a.numel() + 2 * i_dim * o_dim + (2 * o_dim if kind.endswith("fwd") else 0) + out_numel)
             b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
             name = f"sampled_dense_{kind}_bf16"
-            extra = {}
-            if kind != "dx":  # the redesigned kernels: the partials design and the noise floor beside them
-                before = lambda: partials_bf16_call(torch, kind, a, rest, S, seed)  # noqa: E731
-                before_err = float((before() - got_ref[kind][1]).abs().max())
-                extra = {"before_ms": device_ms(torch, before), "before_call_ms": call_ms(torch, before),
-                         "noise_floor_ms": noise_floor_ms(torch, S, i_dim, o_dim)}
+            # the redesigned kernels: the partials design and the noise floor beside them
+            before = lambda: partials_bf16_call(torch, kind, a, rest, S, seed)  # noqa: E731
+            before_err = float((before() - got_ref[kind][1]).abs().max())
+            extra = {"before_ms": device_ms(torch, before), "before_call_ms": call_ms(torch, before),
+                     "noise_floor_ms": noise_floor_ms(torch, S, i_dim, o_dim)}
+            if kind == "dx":
+                plan = sd.dx_bf16_plan(S, B, i_dim, o_dim, sms)
+                plan_text = (f"dx_bf16_plan on {sms} SMs: n_split {plan.n_split} in clusters of {plan.cluster} "
+                             f"({plan.n_split // plan.cluster} a tile, partials {plan.scratch or 'none'}), grid "
+                             f"{plan.grid}, {plan.depth}-deep units x {plan.units} a tile")
+            else:
                 plan = sd.xs_bf16_plan(S, B, i_dim, o_dim, sms, kind.removeprefix("xs_"))
-                print(f"[precision] {name} {shape}: xs_bf16_plan on {sms} SMs: n_split {plan.n_split}, grid "
-                      f"{plan.grid}, {plan.cols}-column tiles, {plan.depth}-deep chunks x {plan.chunks}, "
-                      f"softplus scratch {plan.softplus_scratch}; the partials design (rebuilt) "
-                      f"{extra['before_ms']:.4f} ms (call {extra['before_call_ms']:.4f} ms; max|err| from the bf16 "
-                      f"twin {before_err:.3e}; x{extra['before_ms'] / ms:.2f} the kernel's time), the noise floor "
-                      f"of its {S * i_dim * o_dim} normals {extra['noise_floor_ms']:.4f} ms")
+                plan_text = (f"xs_bf16_plan on {sms} SMs: n_split {plan.n_split}, grid {plan.grid}, {plan.cols}-column "
+                             f"tiles, {plan.depth}-deep chunks x {plan.chunks}, softplus scratch "
+                             f"{plan.softplus_scratch}")
+            print(f"[precision] {name} {shape}: {plan_text}; the partials design (rebuilt) "
+                  f"{extra['before_ms']:.4f} ms (call {extra['before_call_ms']:.4f} ms; max|err| from the bf16 "
+                  f"twin {before_err:.3e}; x{extra['before_ms'] / ms:.2f} the kernel's time), the noise floor "
+                  f"of its {S * i_dim * o_dim} normals {extra['noise_floor_ms']:.4f} ms")
             print(f"[precision] {name} {shape}: max|err| {err:.3e} from its bf16 twin ({nearer:.2e} of its max "
                   f"distance from the f32 kernel, gate {BF16_NEARER}); from the f32 kernel at most {share:.3f} of "
                   f"2^-8 sum|x||W| (gate 2); kernel {ms:.4f} ms (call {c_ms:.4f} ms), f32 kernel "
@@ -1290,19 +1313,20 @@ def phase_precision_dparams(torch) -> dict:
         nbytes = 4.0 * (S * B * o_dim + x.numel() + 3 * i_dim * o_dim + 3 * o_dim)
         b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
         name = kernel.__name__
-        extra = {}
-        if o_dim > 16:  # the redesigned wide kernel: the shared-sums design and the noise floor beside it
-            before = lambda: shared_sums_dparams_bf16_call(torch, kind, *args)  # noqa: E731
-            ref = sd.sampled_dense_dparams_bf16_plain(*args)
-            before_err = max(float((a - c).abs().max()) for a, c in zip(before(), ref))
-            extra = {"before_ms": device_ms(torch, before), "before_call_ms": call_ms(torch, before),
-                     "noise_floor_ms": noise_floor_ms(torch, S, i_dim, o_dim)}
-            plan = sd.dparams_bf16_plan(S, B, i_dim, o_dim, sms)
-            print(f"[precision] {name} {shape}: dparams_bf16_plan on {sms} SMs: n_split {plan.n_split}, grid "
-                  f"{plan.grid}, {plan.chunks} chunks a sample; the shared-sums design (rebuilt) "
-                  f"{extra['before_ms']:.4f} ms (call {extra['before_call_ms']:.4f} ms; max|err| from the bf16 "
-                  f"twin {before_err:.3e}; x{extra['before_ms'] / ms:.2f} the kernel's time), the noise floor of "
-                  f"its {S * i_dim * o_dim} normals {extra['noise_floor_ms']:.4f} ms")
+        # the redesigned kernels: the earlier design (shared sums; the head's partial
+        # planes) and the noise floor beside them
+        before = lambda: earlier_dparams_bf16_call(torch, kind, *args)  # noqa: E731
+        ref = sd.sampled_dense_dparams_bf16_plain(*args)
+        before_err = max(float((a - c).abs().max()) for a, c in zip(before(), ref))
+        extra = {"before_ms": device_ms(torch, before), "before_call_ms": call_ms(torch, before),
+                 "noise_floor_ms": noise_floor_ms(torch, S, i_dim, o_dim)}
+        plan = sd.dparams_bf16_plan(S, B, i_dim, o_dim, sms)
+        print(f"[precision] {name} {shape}: dparams_bf16_plan on {sms} SMs: {'head, ' if plan.narrow else ''}"
+              f"n_split {plan.n_split} in clusters of {plan.ranks}, grid {plan.grid}, {plan.chunks} chunks a "
+              f"sample; the {'partials' if plan.narrow else 'shared-sums'} design (rebuilt) "
+              f"{extra['before_ms']:.4f} ms (call {extra['before_call_ms']:.4f} ms; max|err| from the bf16 "
+              f"twin {before_err:.3e}; x{extra['before_ms'] / ms:.2f} the kernel's time), the noise floor of "
+              f"its {S * i_dim * o_dim} normals {extra['noise_floor_ms']:.4f} ms")
         print(f"[precision] {name} {shape}: max|err| {err:.3e} from its bf16 twin ({nearer:.2e} of the max "
               f"distance of dloc or drho from the f32 kernel, gate {BF16_NEARER}); from the f32 kernel at most "
               f"{share:.3f} of 2^-8 sum|x||g| (gate 2); dbloc and dbrho bit-equal to the f32 kernel's: "

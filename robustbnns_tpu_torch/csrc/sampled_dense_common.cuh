@@ -98,6 +98,18 @@ __device__ __forceinline__ void cp_async_wait_pending() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+// Named barriers 1 .. 15 (0 is __syncthreads), count threads a multiple of
+// 32: bar.sync waits until count threads have arrived; bar.arrive counts this
+// thread's arrival and goes on. Memory accesses before either are performed
+// for every participant once the barrier completes (a producer's writes, then
+// bar.arrive; a consumer's bar.sync, then its reads).
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // Rows b .. b+7, columns c .. c+3 of a row-major (., n) matrix from the
 // register tile's columns c0 .. c0+3, masked at B and n.
 __device__ __forceinline__ void store_tile(float* __restrict__ dst, const float (&acc)[8][8], int c0,

@@ -66,34 +66,66 @@
 //   0 .. n_split-1 through distributed shared memory, applies sigmoid(rho)
 //   and stores whole float4s: no atomics, bit-identical from call to call.
 //   One run launches without the cluster attribute.
-// Narrow path (O <= 16, the 10-class head). A block of 64 threads (2 warps)
-// owns 32 inputs and a run of samples; warp w the m16 tile of inputs
-// 16w .. 16w+15 against the two n8 tiles of outputs 0 .. 15. Per 32-row
-// chunk it rounds x_s and g_s to bf16 and transposes them into shared memory
-// (batch-contiguous rows of 40 bf16) with plain loads; after each sample a
-// lane pair shares each Philox quad through __shfl_xor_sync; running sums in
-// registers. Its runs write partial planes (bias in row I) that the f32
-// kernel's second pass sums in the order 0 .. n_split-1
-// (sampled_dense_passes.cuh); with one run a block writes the outputs itself.
-// The bias: input block 0 also stages g in f32, and thread q < ceil(O / 4)
-// sums outputs 4q .. 4q+3 in row order and draws their quad once.
+// Narrow path (O <= 16, the 10-class head; dparams_bf16_plan). It reads xs
+// (5.2 MB at model_7) and draws 0.1 M normals: bound by the bytes (1.6 us)
+// and by latency. The earlier design
+// (scripts/comparison_kernels/sampled_dense_dparams_bf16_narrow_partials.cu)
+// staged each chunk by plain loads with a transpose through registers, two
+// barriers a chunk, and wrote partial planes that a second launch summed.
+// This one:
+// - A block of 64 threads (2 warps) owns 32 inputs against the O <= 16
+//   outputs and walks a run of samples, 64 batch rows a chunk; warp w keeps
+//   the m16 tile of inputs 16w .. 16w+15 as two n8 tiles. Each chunk's x_s and
+//   g_s rows go by cp.async, as they lie, into three stages, two chunks ahead
+//   (a model_7 sample's two chunks at once); one barrier a chunk. The wide
+//   kernel's fragment order (below) makes each pair of fragment registers one
+//   float2 of a staged row and a lane's accumulators two whole Philox quads:
+//   each lane draws its own eps.
+// - Runs: the n_split runs of dparams_plan (the bias's, for bit-equality
+//   with the f32 kernel) are grouped into min(n_split, kHeadMaxRanks) ranks
+//   of one cluster along z (non-portable above 8), rank k holding runs
+//   [n_split k / ranks, n_split (k + 1) / ranks) and their samples; ranks sum
+//   dloc and drho on chip in the order 0 .. ranks-1, sigmoid applied at the
+//   store. One launch a call.
+// - Bias: one more block x (its own cluster of ranks) stages each of its
+//   samples' g rows and thread o < O sums column o in row order, a sample at
+//   a time, into the subtotals of its run (the f32 kernel's sums); rank 0 adds
+//   the runs' subtotals in run order from the ranks' shared memory, so dbloc
+//   and dbrho equal the f32 kernel's bit for bit at every split. Off the input
+//   blocks' path (in input block 0 it cost 2.1 us of 12.4 at model_7). Each
+//   sample's noise is drawn before its first chunk is waited for, and the rho
+//   of the epilogue is read before the loop.
 // Any B, I, O and S: ragged edges are zero-filled in shared memory and masked
 // at the store; cp.async and vector loads only where the row length is a
-// multiple of 4. All shared memory of the wide kernel is dynamic.
+// multiple of 4. All shared memory is dynamic.
 #include <cooperative_groups.h>
 
+#include "sampled_dense_common.cuh"
 #include "sampled_dense_mma.cuh"
-#include "sampled_dense_passes.cuh"
 
 namespace sampled_dense {
 namespace {
 
-constexpr int kDepth = 32;            // batch rows a chunk
-constexpr int kStride = kDepth + 8;   // bf16 a staged row of the narrow path
+constexpr int kDepth = 32;            // batch rows a chunk of the wide path
 constexpr int kMaxRuns = 8;           // runs of a tile, one cluster: the portable cluster size
 constexpr int kNarrowO = 16;          // the narrow path takes O <= kNarrowO
-constexpr int kNarrowThreads = 64;    // 2 warps of 16 inputs each
-constexpr int kNarrowCols = 32;       // inputs i of a narrow block
+
+// The head's (narrow path's) geometry and shared memory, in floats:
+// kHeadStages stages of a chunk (x rows, then g rows, f32 as copied), reused
+// after the last chunk for the two parked planes of running sums; then each
+// rank's bias subtotals, two floats a run and output.
+constexpr int kHeadWarps = 2;                      // warps of 16 inputs each
+constexpr int kHeadThreads = 32 * kHeadWarps;
+constexpr int kHeadCols = 16 * kHeadWarps;         // inputs i of a head block (dparams_plan's 32)
+constexpr int kHeadDepth = 64;                     // batch rows a chunk
+constexpr int kHeadStages = 3;                     // the chunk in use and two in flight
+constexpr int kHeadMaxRanks = 16;                  // blocks of a cluster: the non-portable maximum
+constexpr int kHeadXStride = kHeadCols + 4;        // floats a staged x row
+constexpr int kHeadGStride = kNarrowO + 4;         // floats a staged g row
+constexpr int kHeadStage = kHeadDepth * (kHeadXStride + kHeadGStride);
+constexpr int kHeadRegion = kHeadStages * kHeadStage;
+constexpr int kHeadParkStride = kNarrowO + 4;      // floats a parked row
+static_assert(2 * kHeadCols * kHeadParkStride <= kHeadRegion, "the parked sums fit over the stages");
 
 // The wide kernel's shared memory, in floats: kWideStages stages of a chunk
 // (x rows, then g rows, f32 as copied), reused after the last chunk for the
@@ -116,54 +148,6 @@ static_assert(2 * kWideRows * kParkStride <= kRegionFloats, "the parked sums fit
 __device__ __forceinline__ void run_samples(int S, int run, int n_split, int& s_begin, int& s_end) {
   s_begin = (int)((long long)S * run / n_split);
   s_end = (int)((long long)S * (run + 1) / n_split);
-}
-
-// Rows b0 .. b0+kDepth-1, columns c0 .. c0+kCols-1 of a row-major (B, n)
-// matrix, rounded to bf16 and transposed into dst[column][row - b0] (stride
-// kStride), zero past B and n; where f32_rows is given, also unrounded into
-// f32_rows[row - b0][column] (stride kCols + 4). Item f: the rows 2p, 2p + 1
-// of column quad q.
-template <int kCols, int kThreadsHere>
-__device__ __forceinline__ void stage_t(uint16_t* __restrict__ dst, float* __restrict__ f32_rows,
-                                        const float* __restrict__ src, int B, int n, int b0, int c0) {
-  constexpr int kRowPairs = kDepth / 2, kQuads = kCols / 4;
-  const bool vec = (n & 3) == 0;
-  for (int f = threadIdx.x; f < kRowPairs * kQuads; f += kThreadsHere) {
-    const int p = f % kRowPairs, q = f / kRowPairs, b = b0 + 2 * p, c = c0 + 4 * q;
-    float4 v[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (b + h >= B) continue;
-      const float* row = src + (size_t)(b + h) * n;
-      if (vec) {
-        if (c < n) v[h] = *reinterpret_cast<const float4*>(row + c);
-      } else {
-        v[h] = load4(row, c, n);
-      }
-    }
-    uint32_t* out = reinterpret_cast<uint32_t*>(dst + 4 * q * kStride + 2 * p);
-    out[0] = pack_bf16(v[0].x, v[1].x);
-    out[kStride / 2] = pack_bf16(v[0].y, v[1].y);
-    out[kStride] = pack_bf16(v[0].z, v[1].z);
-    out[3 * kStride / 2] = pack_bf16(v[0].w, v[1].w);
-    if (f32_rows) {
-      *reinterpret_cast<float4*>(f32_rows + 2 * p * (kCols + 4) + 4 * q) = v[0];
-      *reinterpret_cast<float4*>(f32_rows + (2 * p + 1) * (kCols + 4) + 4 * q) = v[1];
-    }
-  }
-}
-
-// eps for the accumulator pair of n8 tiles (2m, 2m + 1) of one row i, for a
-// lane whose tile columns start at o_base + 2tq: e[t] holds the two normals of
-// tile 2m + t. Lane tq draws the quad of tile 2m + (tq & 1) and trades halves
-// with lane tq ^ 1, so each quad is drawn once. Every lane of the warp calls it.
-__device__ __forceinline__ void noise_pair(uint32_t seed, int s, int i, int q_base, int m, int tq, float2 (&e)[2]) {
-  const bool odd = tq & 1;
-  const float4 z = normal4(seed, s, i, q_base + 2 * (2 * m + odd) + (tq >> 1));
-  const float r0 = __shfl_xor_sync(0xffffffffu, odd ? z.x : z.z, 1);
-  const float r1 = __shfl_xor_sync(0xffffffffu, odd ? z.y : z.w, 1);
-  e[0] = odd ? make_float2(r0, r1) : make_float2(z.x, z.y);
-  e[1] = odd ? make_float2(z.z, z.w) : make_float2(r0, r1);
 }
 
 // Unit u of a run (sample s_begin + u / C, batch rows (u % C) * 32 ..) into a
@@ -403,136 +387,308 @@ __global__ void __launch_bounds__(kWideThreads, 2) dparams_bf16_wide_kernel(
   cluster.sync();
 }
 
-// O <= 16: a block owns 32 inputs and a run of samples; warp w the inputs
-// 16w .. 16w+15 of dW_s against outputs 0 .. 15 (two n8 tiles). Block x is the
-// input block, y the run.
+// Rank k of n_ranks holds the bias runs [n_split k / n_ranks, n_split (k + 1)
+// / n_ranks) of dparams_plan and their samples.
+__device__ __forceinline__ void rank_runs(int n_split, int n_ranks, int rank, int& r_begin, int& r_end) {
+  r_begin = n_split * rank / n_ranks;  // n_split <= S < 2^16 and rank < 16: no overflow
+  r_end = n_split * (rank + 1) / n_ranks;
+}
+
+// Chunk u of a head block's run (sample s_begin + u / C, batch rows (u % C) *
+// kHeadDepth ..) into a stage: x_s rows x columns i0 .. i0+kHeadCols-1, then
+// g_s rows x outputs 0 .. 15, as they lie, zero past B, I and O. cp.async
+// where the row length is a multiple of 4, else plain loads. Commits no group.
 template <bool kPerSampleX>
-__global__ void __launch_bounds__(kNarrowThreads) dparams_bf16_narrow_kernel(
-    const float* __restrict__ g, const float* __restrict__ x, const float* __restrict__ rho,
-    const float* __restrict__ brho, float* __restrict__ partials, float* __restrict__ dloc,
-    float* __restrict__ drho, float* __restrict__ dbloc, float* __restrict__ dbrho, int S, int B,
-    int I, int O, uint32_t seed, int n_split) {
-  __shared__ __align__(16) uint16_t as[kNarrowCols * kStride];  // xs[s] rows, k = b
-  __shared__ __align__(16) uint16_t bs[kNarrowO * kStride];     // g[s] rows, k = b
-  __shared__ __align__(16) float gf_rows[kDepth * (kNarrowO + 4)];  // g[s] in f32, input block 0
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, gq = lane / 4, tq = lane % 4;
-  const int i0 = blockIdx.x * kNarrowCols, run = blockIdx.y;
-  int s_begin, s_end;
-  run_samples(S, run, n_split, s_begin, s_end);
-  const int C = (B + kDepth - 1) / kDepth;
-  const bool bias = blockIdx.x == 0 && 4 * tid < O;  // outputs 4 tid .. 4 tid + 3 of the bias row
-
-  // sum_loc[t][2h + j]: input 16 warp + 8h + gq, output 8t + 2tq + j
-  float sum_loc[2][4] = {}, sum_rho[2][4] = {}, bias_loc[4] = {}, bias_rho[4] = {};
-  for (int s = s_begin; s < s_end; ++s) {
-    const float* xs = kPerSampleX ? x + (size_t)s * B * I : x;
-    const float* gs = g + (size_t)s * B * O;
-    float acc[2][4] = {}, db[4] = {};
-    for (int c = 0; c < C; ++c) {
-      const int b0 = c * kDepth;
-      __syncthreads();  // the previous chunk is consumed
-      stage_t<kNarrowCols, kNarrowThreads>(as, nullptr, xs, B, I, b0, i0);
-      stage_t<kNarrowO, kNarrowThreads>(bs, blockIdx.x == 0 ? gf_rows : nullptr, gs, B, O, b0, 0);
-      __syncthreads();
-#pragma unroll
-      for (int k0 = 0; k0 < kDepth; k0 += 16) {
-        const uint16_t* pa = as + (16 * warp + gq) * kStride + k0 + 2 * tq;
-        const uint32_t a[4] = {smem_word(pa), smem_word(pa + 8 * kStride), smem_word(pa + 8),
-                               smem_word(pa + 8 * kStride + 8)};
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const uint16_t* pb = bs + (8 * nt + gq) * kStride + k0 + 2 * tq;
-          const uint32_t b[2] = {smem_word(pb), smem_word(pb + 8)};
-          mma_bf16_16816(acc[nt], a, b);
-        }
-      }
-      if (bias) {
-        const int rows = min(kDepth, B - b0);
-        for (int k = 0; k < rows; ++k) {
-          const float* row = gf_rows + k * (kNarrowO + 4);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (4 * tid + j < O) db[j] += row[4 * tid + j];
-        }
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float2 e[2];
-      noise_pair(seed, s, i0 + 16 * warp + 8 * h + gq, 0, 0, tq, e);
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const float d0 = acc[t][2 * h], d1 = acc[t][2 * h + 1];
-        sum_loc[t][2 * h] += d0, sum_loc[t][2 * h + 1] += d1;
-        sum_rho[t][2 * h] += d0 * e[t].x, sum_rho[t][2 * h + 1] += d1 * e[t].y;
-      }
-    }
-    if (bias) {
-      const float4 z = normal4(seed, s, I, tid);
-      const float e[4] = {z.x, z.y, z.z, z.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bias_loc[j] += db[j];
-        bias_rho[j] += db[j] * e[j];
-      }
+__device__ __forceinline__ void fetch_head(float* __restrict__ stage, const float* __restrict__ g,
+                                           const float* __restrict__ x, int B, int I, int O, int s, int b0, int i0) {
+  const float* xs = kPerSampleX ? x + (size_t)s * B * I : x;
+  const float* gs = g + (size_t)s * B * O;
+  const bool vec_x = (I & 3) == 0, vec_g = (O & 3) == 0;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  constexpr int kXQuads = kHeadCols / 4, kGQuads = kNarrowO / 4;
+  for (int f = threadIdx.x; f < kHeadDepth * kXQuads; f += kHeadThreads) {
+    const int r = f / kXQuads, i = i0 + 4 * (f % kXQuads), b = b0 + r;
+    float* dst = stage + r * kHeadXStride + 4 * (f % kXQuads);
+    if (vec_x) {
+      const bool valid = b < B && i < I;
+      cp_async16(dst, valid ? xs + (size_t)b * I + i : xs, valid);
+    } else {
+      *reinterpret_cast<float4*>(dst) = b < B ? load4(xs + (size_t)b * I, i, I) : zero;
     }
   }
-
-  const bool split = n_split > 1;
-  const size_t plane = (size_t)(I + 1) * O;
-  float* out_loc = split ? partials + 2 * run * plane : dloc;
-  float* out_rho = split ? out_loc + plane : drho;
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int i = i0 + 16 * warp + 8 * (k / 2) + gq, o = 8 * t + 2 * tq + k % 2;
-      if (i >= I || o >= O) continue;
-      const size_t at = (size_t)i * O + o;
-      out_loc[at] = sum_loc[t][k];
-      out_rho[at] = split ? sum_rho[t][k] : sum_rho[t][k] * sigmoid(rho[at]);
-    }
-  if (bias) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = 4 * tid + j;
-      if (o >= O) continue;
-      if (split) {
-        out_loc[(size_t)I * O + o] = bias_loc[j];
-        out_rho[(size_t)I * O + o] = bias_rho[j];
-      } else {
-        dbloc[o] = bias_loc[j];
-        dbrho[o] = bias_rho[j] * sigmoid(brho[o]);
-      }
+  for (int f = threadIdx.x; f < kHeadDepth * kGQuads; f += kHeadThreads) {
+    const int r = f / kGQuads, o = 4 * (f % kGQuads), b = b0 + r;
+    float* dst = stage + kHeadDepth * kHeadXStride + r * kHeadGStride + o;
+    if (vec_g) {
+      const bool valid = b < B && o < O;
+      cp_async16(dst, valid ? gs + (size_t)b * O + o : gs, valid);
+    } else {
+      *reinterpret_cast<float4*>(dst) = b < B ? load4(gs + (size_t)b * O, o, O) : zero;
     }
   }
 }
 
-// O <= kNarrowO: the narrow kernel with n_split runs of samples per input
-// block and, when n_split > 1, the fixed-order sum of its partials into the
-// four outputs. Else the wide kernel, its n_split runs of a tile one cluster
-// that sums them on chip.
+// One staged chunk of a head warp's products, in the wide kernel's fragment
+// order: fragment row gq is input 16w + 2gq, row gq + 8 input 16w + 2gq + 1;
+// column gq of n8 tile t is output 2gq + t. acc[t][2h + j'] then holds output
+// 4tq + t + 2j' of input 16w + 2gq + h.
+__device__ __forceinline__ void mma_head(const float* __restrict__ stage, int warp, float (&acc)[2][4]) {
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int k0 = 0; k0 < kHeadDepth; k0 += 16) {
+    const float* pa = stage + (k0 + 2 * tq) * kHeadXStride + 16 * warp + 2 * gq;
+    const float2 v0 = *reinterpret_cast<const float2*>(pa), v1 = *reinterpret_cast<const float2*>(pa + kHeadXStride);
+    const float2 v2 = *reinterpret_cast<const float2*>(pa + 8 * kHeadXStride);
+    const float2 v3 = *reinterpret_cast<const float2*>(pa + 9 * kHeadXStride);
+    const uint32_t a[4] = {pack_bf16(v0.x, v1.x), pack_bf16(v0.y, v1.y), pack_bf16(v2.x, v3.x),
+                           pack_bf16(v2.y, v3.y)};
+    const float* pb = stage + kHeadDepth * kHeadXStride + (k0 + 2 * tq) * kHeadGStride + 2 * gq;
+    const float2 w0 = *reinterpret_cast<const float2*>(pb), w1 = *reinterpret_cast<const float2*>(pb + kHeadGStride);
+    const float2 w2 = *reinterpret_cast<const float2*>(pb + 8 * kHeadGStride);
+    const float2 w3 = *reinterpret_cast<const float2*>(pb + 9 * kHeadGStride);
+    const uint32_t b0[2] = {pack_bf16(w0.x, w1.x), pack_bf16(w2.x, w3.x)};
+    const uint32_t b1[2] = {pack_bf16(w0.y, w1.y), pack_bf16(w2.y, w3.y)};
+    mma_bf16_16816(acc[0], a, b0);
+    mma_bf16_16816(acc[1], a, b1);
+  }
+}
+
+// The bias row of the head: for each sample of the rank, its g rows staged
+// (flat, as they lie) by all threads, then thread o < O sums column o in row
+// order, as the f32 kernel does; the subtotals of each run into the rank's
+// slots. Every thread of the block calls it.
+__device__ __forceinline__ void head_bias(float* __restrict__ rows_smem, float* __restrict__ subtotals,
+                                          const float* __restrict__ g, int S, int B, int I, int O, uint32_t seed,
+                                          int n_split, int r_begin, int s_begin, int s_end) {
+  constexpr int kRows = kHeadRegion / kNarrowO;  // rows of g a pass stages
+  const int tid = threadIdx.x;
+  float bias_loc = 0.f, bias_rho = 0.f;
+  int run = r_begin, run_end = (int)((long long)S * (r_begin + 1) / n_split);
+  for (int s = s_begin; s < s_end; ++s) {
+    const float* gs = g + (size_t)s * B * O;
+    float db = 0.f;
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      __syncthreads();  // the previous rows are summed
+      for (int k = tid; k < rows * O; k += kHeadThreads) rows_smem[k] = gs[(size_t)b0 * O + k];
+      __syncthreads();
+      if (tid < O) {
+#pragma unroll 8
+        for (int k = 0; k < rows; ++k) db += rows_smem[k * O + tid];
+      }
+    }
+    if (tid < O) {
+      bias_loc += db;
+      bias_rho += db * component(normal4(seed, s, I, tid >> 2), tid & 3);
+      if (s + 1 == run_end) {  // the run's last sample: its subtotals, in the rank's slot of the run
+        subtotals[(run - r_begin) * 2 * kNarrowO + tid] = bias_loc;
+        subtotals[(run - r_begin) * 2 * kNarrowO + kNarrowO + tid] = bias_rho;
+        bias_loc = bias_rho = 0.f;
+      }
+    }
+    if (s + 1 == run_end) {
+      ++run;
+      run_end = (int)((long long)S * (run + 1) / n_split);
+    }
+  }
+}
+
+// O <= 16: block x < gridDim.x - 1 owns kHeadCols inputs, the last block x
+// the bias row; each over the samples of its rank's runs. z is the rank; the
+// n_ranks ranks of an input block (or of the bias) are one cluster along z.
 template <bool kPerSampleX>
-int launch(const float* g, const float* x, const float* rho, const float* brho, float* partials,
-           float* dloc, float* drho, float* dbloc, float* dbrho, int S, int B, int I, int O,
-           uint32_t seed, int n_split, cudaStream_t stream) {
+__global__ void __launch_bounds__(kHeadThreads) dparams_bf16_head_kernel(
+    const float* __restrict__ g, const float* __restrict__ x, const float* __restrict__ rho,
+    const float* __restrict__ brho, float* __restrict__ dloc, float* __restrict__ drho, float* __restrict__ dbloc,
+    float* __restrict__ dbrho, int S, int B, int I, int O, uint32_t seed, int n_split, int n_ranks) {
+  extern __shared__ __align__(16) float dyn[];
+  float* const stages = dyn;                      // [kHeadStages][kHeadStage]; then the parked sums
+  float* const subtotals = dyn + kHeadRegion;     // [run - r_begin][2][kNarrowO], the bias block's
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, gq = lane / 4, tq = lane % 4;
+  const int i0 = blockIdx.x * kHeadCols, rank = blockIdx.z;
+  const bool bias_block = blockIdx.x == gridDim.x - 1;
+  int r_begin, r_end;
+  rank_runs(n_split, n_ranks, rank, r_begin, r_end);
+  const int s_begin = (int)((long long)S * r_begin / n_split), s_end = (int)((long long)S * r_end / n_split);
+
+  // rho of this thread's items of the epilogue (rows [kHeadCols r / n_ranks, ..) of
+  // the rank, a quad of outputs each), read now: their latency hides behind the loop.
+  constexpr int kQuads = kNarrowO / 4, kItems = (kHeadCols * kQuads + kHeadThreads - 1) / kHeadThreads;
+  const int row_begin = kHeadCols * rank / n_ranks, row_end = kHeadCols * (rank + 1) / n_ranks;
+  float4 rho_q[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int f = tid + j * kHeadThreads, r = row_begin + f / kQuads, i = i0 + r, o = 4 * (f % kQuads);
+    rho_q[j] = !bias_block && f < (row_end - row_begin) * kQuads && i < I && o < O
+                   ? load4(rho + (size_t)i * O, o, O) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  float sum_loc[2][4] = {}, sum_rho[2][4] = {};
+  if (bias_block) {
+    head_bias(stages, subtotals, g, S, B, I, O, seed, n_split, r_begin, s_begin, s_end);
+  } else {
+    const int C = (B + kHeadDepth - 1) / kHeadDepth;  // chunks of one sample
+    const int U = (s_end - s_begin) * C;              // units of the rank
+    // Unit u's chunk goes to stage u % 3, copied two units ahead; an
+    // iteration waits for its own unit and, after one barrier (unit u - 1
+    // consumed by all), copies unit u + 2 and multiplies unit u.
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j < U)
+        fetch_head<kPerSampleX>(stages + j * kHeadStage, g, x, B, I, O, s_begin + j / C, (j % C) * kHeadDepth, i0);
+      cp_async_commit();
+    }
+    float acc[2][4] = {};
+    float4 eps[2];  // the lane's Philox quads of the current sample: inputs 16w + 2gq + h, outputs 4tq ..
+    for (int u = 0; u < U; ++u) {
+      const int s = s_begin + u / C, c = u % C;
+      if (c == 0) {  // the sample's noise, drawn while its first chunk may still be in flight
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = i0 + 16 * warp + 2 * gq + h;
+          eps[h] = i < I && 4 * tq < O ? normal4(seed, s, i, tq) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+      cp_async_wait_pending<1>();
+      __syncthreads();  // unit u landed for all; unit u - 1 consumed
+      if (u + 2 < U)
+        fetch_head<kPerSampleX>(stages + (u + 2) % kHeadStages * kHeadStage, g, x, B, I, O, s_begin + (u + 2) / C,
+                                (u + 2) % C * kHeadDepth, i0);
+      cp_async_commit();
+      mma_head(stages + u % kHeadStages * kHeadStage, warp, acc);
+      if (c == C - 1) {  // the sample's last chunk: dW_s and dW_s * eps_s into the running sums
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float e[4] = {eps[h].x, eps[h].y, eps[h].z, eps[h].w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float& d = acc[j & 1][2 * h + (j >> 1)];
+            sum_loc[h][j] += d;
+            sum_rho[h][j] += d * e[j];
+            d = 0.f;
+          }
+        }
+      }
+    }
+    cp_async_wait_pending<0>();
+  }
+  __syncthreads();  // every product done: the stages take the parked sums
+
+  // Park the sums (plane 0 dloc's, plane 1 drho's), a quad a store: row 16w + 2gq + h, outputs 4tq ..
+  float* const park = stages;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int at = (16 * warp + 2 * gq + h) * kHeadParkStride + 4 * tq;
+    *reinterpret_cast<float4*>(park + at) = make_float4(sum_loc[h][0], sum_loc[h][1], sum_loc[h][2], sum_loc[h][3]);
+    *reinterpret_cast<float4*>(park + kHeadCols * kHeadParkStride + at) =
+        make_float4(sum_rho[h][0], sum_rho[h][1], sum_rho[h][2], sum_rho[h][3]);
+  }
+
+  // The ranks are one cluster (one block when n_ranks = 1): after they all
+  // park, rank k sums its inputs over ranks 0 .. n_ranks-1 in that order,
+  // scales drho by sigmoid(rho) and stores; rank 0 of the bias block adds the
+  // runs' subtotals in run order. The second cluster barrier keeps each
+  // block's shared memory alive until the others have read it.
+  const cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  cluster.sync();
+  if (!bias_block) {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int f = tid + j * kHeadThreads, r = row_begin + f / kQuads, i = i0 + r, o = 4 * (f % kQuads);
+      if (f >= (row_end - row_begin) * kQuads || i >= I || o >= O) continue;
+      const int at = r * kHeadParkStride + o;
+      float4 l = *reinterpret_cast<const float4*>(cluster.map_shared_rank(park, 0) + at);
+      float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(park, 0) + kHeadCols * kHeadParkStride + at);
+#pragma unroll 4
+      for (int k = 1; k < n_ranks; ++k) {  // unrolled: the peers' reads overlap
+        const float* peer = cluster.map_shared_rank(park, k);
+        const float4 lp = *reinterpret_cast<const float4*>(peer + at);
+        const float4 vp = *reinterpret_cast<const float4*>(peer + kHeadCols * kHeadParkStride + at);
+        l.x += lp.x, l.y += lp.y, l.z += lp.z, l.w += lp.w;
+        v.x += vp.x, v.y += vp.y, v.z += vp.z, v.w += vp.w;
+      }
+      const size_t row = (size_t)i * O;
+      const float ls[4] = {l.x, l.y, l.z, l.w}, vs[4] = {v.x, v.y, v.z, v.w};
+      const float rs[4] = {rho_q[j].x, rho_q[j].y, rho_q[j].z, rho_q[j].w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (o + t < O) dloc[row + o + t] = ls[t], drho[row + o + t] = vs[t] * sigmoid(rs[t]);
+    }
+  } else if (rank == 0 && tid < O) {
+    // Each rank's first run's subtotals read at once, then all runs added in
+    // run order: rank k's runs follow rank k - 1's.
+    float first_l[kHeadMaxRanks], first_v[kHeadMaxRanks];
+#pragma unroll
+    for (int k = 0; k < kHeadMaxRanks; ++k) {
+      const float* peer = cluster.map_shared_rank(subtotals, k < n_ranks ? k : 0);
+      first_l[k] = peer[tid], first_v[k] = peer[kNarrowO + tid];
+    }
+    float l = first_l[0], v = first_v[0];
+#pragma unroll
+    for (int k = 0; k < kHeadMaxRanks; ++k) {
+      if (k >= n_ranks) break;
+      if (k > 0) l += first_l[k], v += first_v[k];
+      int kb, ke;
+      rank_runs(n_split, n_ranks, k, kb, ke);
+      const float* peer = cluster.map_shared_rank(subtotals, k);
+      for (int r = kb + 1; r < ke; ++r)
+        l += peer[(r - kb) * 2 * kNarrowO + tid], v += peer[(r - kb) * 2 * kNarrowO + kNarrowO + tid];
+    }
+    dbloc[tid] = l;
+    dbrho[tid] = v * sigmoid(brho[tid]);
+  }
+  cluster.sync();
+}
+
+// The ranks of the head's bias runs: at most kHeadMaxRanks, one cluster.
+int head_ranks(int n_split) { return n_split < kHeadMaxRanks ? n_split : kHeadMaxRanks; }
+
+// O <= kNarrowO: the head kernel, dparams_plan's n_split runs in
+// head_ranks(n_split) ranks of one cluster an input block; one launch. Else
+// the wide kernel, its n_split runs of a tile one cluster that sums them on
+// chip.
+template <bool kPerSampleX>
+int launch(const float* g, const float* x, const float* rho, const float* brho, float* dloc, float* drho,
+           float* dbloc, float* dbrho, int S, int B, int I, int O, uint32_t seed, int n_split, cudaStream_t stream) {
   const bool narrow = O <= kNarrowO;
-  const int tiles_x = narrow ? (I + kNarrowCols - 1) / kNarrowCols : (O + kWideCols - 1) / kWideCols;
-  const int tiles_y = narrow ? n_split : (I + kWideRows - 1) / kWideRows;
+  // the head's input blocks and its bias block; the wide kernel's output tiles
+  const int tiles_x = narrow ? (I + kHeadCols - 1) / kHeadCols + 1 : (O + kWideCols - 1) / kWideCols;
+  const int tiles_y = narrow ? 1 : (I + kWideRows - 1) / kWideRows;
   if (S < 1 || B < 1 || I < 1 || O < 1 || n_split < 1 || n_split > S || tiles_y > 65535 ||
-      (narrow && n_split > 1 && !partials) || (!narrow && n_split > kMaxRuns))
+      (!narrow && n_split > kMaxRuns))
     return (int)cudaErrorInvalidValue;
   if (narrow) {
-    const dim3 grid(tiles_x, tiles_y);
-    dparams_bf16_narrow_kernel<kPerSampleX><<<grid, kNarrowThreads, 0, stream>>>(
-        g, x, rho, brho, partials, dloc, drho, dbloc, dbrho, S, B, I, O, seed, n_split);
-    if (n_split > 1) {
-      const long long n = (long long)(I + 1) * O;
-      sum_dparams_kernel<<<elementwise_blocks(n), 256, 0, stream>>>(partials, rho, brho, dloc, drho, dbloc,
-                                                                    dbrho, I, O, n_split);
+    const int n_ranks = head_ranks(n_split);
+    const int slots = (n_split + n_ranks - 1) / n_ranks;  // bias runs a rank holds, at most
+    const int bytes = (kHeadRegion + slots * 2 * kNarrowO) * (int)sizeof(float);
+    // clusters above the portable 8 blocks and shared memory above 48 KB; set once, before any graph capture
+    constexpr int kMaxBytes = 227 * 1024;
+    static const cudaError_t portable = cudaFuncSetAttribute(dparams_bf16_head_kernel<kPerSampleX>,
+                                                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    static const cudaError_t large = cudaFuncSetAttribute(dparams_bf16_head_kernel<kPerSampleX>,
+                                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxBytes);
+    if (portable != cudaSuccess) return (int)portable;
+    if (large != cudaSuccess) return (int)large;
+    if (bytes > kMaxBytes) return (int)cudaErrorInvalidValue;
+    const dim3 grid(tiles_x, 1, n_ranks);
+    if (n_ranks == 1) {  // no cluster attribute: a block is its own cluster, and launches sooner
+      dparams_bf16_head_kernel<kPerSampleX><<<grid, kHeadThreads, bytes, stream>>>(
+          g, x, rho, brho, dloc, drho, dbloc, dbrho, S, B, I, O, seed, n_split, n_ranks);
+      return (int)cudaGetLastError();
     }
-    return (int)cudaGetLastError();
+    cudaLaunchAttribute cluster_dims;
+    cluster_dims.id = cudaLaunchAttributeClusterDimension;
+    cluster_dims.val.clusterDim.x = 1, cluster_dims.val.clusterDim.y = 1, cluster_dims.val.clusterDim.z = n_ranks;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = grid;
+    config.blockDim = dim3(kHeadThreads);
+    config.dynamicSmemBytes = bytes;
+    config.stream = stream;
+    config.attrs = &cluster_dims;
+    config.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&config, dparams_bf16_head_kernel<kPerSampleX>, g, x, rho, brho, dloc,
+                                               drho, dbloc, dbrho, S, B, I, O, seed, n_split, n_ranks);
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
   }
   // above the 48 KB a block gets without asking; set once, before any graph capture
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -562,13 +718,13 @@ int launch(const float* g, const float* x, const float* rho, const float* brho, 
 }  // namespace
 }  // namespace sampled_dense
 
-// Shared input x (B, I). partials: an (n_split, 2, I + 1, O) scratch when
-// O <= 16 and n_split > 1, else unused.
+// Shared input x (B, I). partials: unused (the runs sum in their cluster).
 extern "C" int sampled_dense_dparams_bf16(const float* g, const float* x, const float* rho, const float* brho,
                                           float* partials, float* dloc, float* drho, float* dbloc, float* dbrho,
                                           int S, int B, int I, int O, uint32_t seed, int n_split, void* stream) {
-  return sampled_dense::launch<false>(g, x, rho, brho, partials, dloc, drho, dbloc, dbrho, S, B, I, O, seed,
-                                      n_split, static_cast<cudaStream_t>(stream));
+  (void)partials;
+  return sampled_dense::launch<false>(g, x, rho, brho, dloc, drho, dbloc, dbrho, S, B, I, O, seed, n_split,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 // Per-sample input xs (S, B, I). As sampled_dense_dparams_bf16.
@@ -576,6 +732,7 @@ extern "C" int sampled_dense_xs_dparams_bf16(const float* g, const float* xs, co
                                              float* partials, float* dloc, float* drho, float* dbloc,
                                              float* dbrho, int S, int B, int I, int O, uint32_t seed, int n_split,
                                              void* stream) {
-  return sampled_dense::launch<true>(g, xs, rho, brho, partials, dloc, drho, dbloc, dbrho, S, B, I, O, seed,
-                                     n_split, static_cast<cudaStream_t>(stream));
+  (void)partials;
+  return sampled_dense::launch<true>(g, xs, rho, brho, dloc, drho, dbloc, dbrho, S, B, I, O, seed, n_split,
+                                     static_cast<cudaStream_t>(stream));
 }

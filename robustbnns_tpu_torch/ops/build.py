@@ -23,7 +23,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("sampled_dense_fwd.cu", "sampled_dense_dx.cu", "sampled_dense_dparams.cu", "sampled_dense_bf16.cu",
+SOURCES = ("sampled_dense_fwd.cu", "sampled_dense_dx.cu", "sampled_dense_dparams.cu", "sampled_dense_dx_bf16.cu",
            "sampled_dense_xs_bf16.cu", "sampled_dense_dparams_bf16.cu")
 
 _libraries: dict[str, ctypes.CDLL] = {}

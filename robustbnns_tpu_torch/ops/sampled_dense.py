@@ -35,7 +35,7 @@ reads it (``_dot_precision``, ``sampled_dense.py:44-65``), routes every wrapper
 to its bf16 variant (counted as ``<wrapper>_bf16``): the forward kernels of
 ``csrc/sampled_dense_xs_bf16.cu`` (shared and per-sample input,
 :func:`xs_bf16_plan`), the input-gradient kernels of
-``csrc/sampled_dense_bf16.cu`` (summed over samples) and
+``csrc/sampled_dense_dx_bf16.cu`` (summed over samples, :func:`dx_bf16_plan`) and
 ``csrc/sampled_dense_xs_bf16.cu`` (per sample) round x (or g) and W_s to
 bf16, the parameter-gradient kernels of ``csrc/sampled_dense_dparams_bf16.cu``
 (:func:`dparams_bf16_plan`)
@@ -264,7 +264,7 @@ _SIGNATURES = {
     "sampled_dense_xs_dparams": ("sampled_dense_dparams.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_fwd_bf16": ("sampled_dense_xs_bf16.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_xs_fwd_bf16": ("sampled_dense_xs_bf16.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_dx_bf16": ("sampled_dense_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
+    "sampled_dense_dx_bf16": ("sampled_dense_dx_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_xs_dx_bf16": ("sampled_dense_xs_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_dparams_bf16": ("sampled_dense_dparams_bf16.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
     "sampled_dense_xs_dparams_bf16": ("sampled_dense_dparams_bf16.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
@@ -512,32 +512,60 @@ def dparams_sample_runs(plan, n_samples: int) -> list[range]:
 
 
 # The bf16 dparams kernels (csrc/sampled_dense_dparams_bf16.cu) take
-# dparams_plan's geometry: the wide kernel's block of 256 threads owns the same
+# dparams_plan's split: the wide kernel's block of 256 threads owns the same
 # 128 x 64 tile, two blocks an SM (at most 128 registers a thread, 107.5 KB of
-# shared memory), and walks the 32-row chunks of a run of samples.
+# shared memory), and walks the 32-row chunks of a run of samples; the head
+# (O <= 16) gives a block of 64 threads 32 inputs and the samples of a rank,
+# 64 rows a chunk, the ranks of an input block one cluster of at most
+# DP_HEAD_MAX_RANKS (non-portable above 8).
 DP_BF16_DEPTH, DP_BF16_EPS_ITEMS = 32, 8
+DP_HEAD_COLS, DP_HEAD_DEPTH, DP_HEAD_MAX_RANKS = 32, 64, 16
 
 
 @dataclass(frozen=True)
 class DparamsBf16Plan:
-    """Launch geometry of one call of a bf16 dparams kernel: as
-    :class:`DparamsPlan`, and ``chunks``, the 32-row chunks of the batch that
-    each sample takes on the wide path (the units of a run)."""
+    """Launch geometry of one call of a bf16 dparams kernel.
+
+    ``n_split``: :func:`dparams_plan`'s runs of samples (the bias sums over
+    them, so dbloc and dbrho stay bit-equal to the f32 kernel's). Wide path:
+    ``grid`` (output tiles, input tiles, runs), the runs of a tile one cluster
+    (``ranks`` = n_split), ``chunks`` the 32-row chunks of a sample. Head
+    (``narrow``): ``grid`` (input blocks + 1, 1, ranks), the last block x
+    the bias row's, the ``ranks`` = min(n_split, :data:`DP_HEAD_MAX_RANKS`)
+    blocks of an input block (or of the bias) one cluster, rank k holding
+    runs ``dparams_bf16_head_runs(plan)[k]``; ``chunks`` the 64-row chunks
+    of a sample. No partials on either path.
+    """
 
     narrow: bool
     n_split: int
     grid: tuple[int, int, int]
     scratch: tuple[int, ...]
     chunks: int
+    ranks: int
 
 
 def dparams_bf16_plan(n_samples: int, b_dim: int, i_dim: int, o_dim: int, sms: int) -> DparamsBf16Plan:
     """Where each sample and chunk of the bf16 dparams kernels runs, for a card
-    with ``sms`` SMs: :func:`dparams_plan`'s tiles, blocks an SM and split, so
-    the bf16 and the f32 kernels sum the bias over the same runs of samples
-    and dbloc and dbrho stay bit-equal; and the chunks of a sample."""
+    with ``sms`` SMs: :func:`dparams_plan`'s runs of samples, so the bf16 and
+    the f32 kernels sum the bias over the same runs and dbloc and dbrho stay
+    bit-equal; its wide tiles and grid; on the head, its runs grouped into at
+    most :data:`DP_HEAD_MAX_RANKS` ranks of one cluster (model_7's 1024 -> 10
+    on 132 SMs: 10 runs of one sample, 32 input clusters of 10 and the
+    bias's)."""
     plan = dparams_plan(n_samples, i_dim, o_dim, sms)
-    return DparamsBf16Plan(plan.narrow, plan.n_split, plan.grid, plan.scratch, _cdiv(b_dim, DP_BF16_DEPTH))
+    if not plan.narrow:
+        return DparamsBf16Plan(False, plan.n_split, plan.grid, (), _cdiv(b_dim, DP_BF16_DEPTH), plan.n_split)
+    ranks = min(plan.n_split, DP_HEAD_MAX_RANKS)
+    return DparamsBf16Plan(True, plan.n_split, (_cdiv(i_dim, DP_HEAD_COLS) + 1, 1, ranks), (),
+                           _cdiv(b_dim, DP_HEAD_DEPTH), ranks)
+
+
+def dparams_bf16_head_runs(plan: DparamsBf16Plan) -> list[range]:
+    """The runs of samples (of :func:`dparams_sample_runs`) that each rank of
+    a head cluster holds, in order, as the kernel computes them."""
+    n, k = plan.n_split, plan.ranks
+    return [range(n * r // k, n * (r + 1) // k) for r in range(k)]
 
 
 def dparams_bf16_units(plan: DparamsBf16Plan, n_samples: int) -> list[list[tuple[int, int, range]]]:
@@ -617,6 +645,103 @@ def xs_bf16_chunk_runs(plan: XsBf16Plan) -> list[range]:
     return [range(c * r // n, c * (r + 1) // n) for r in range(n)]
 
 
+# Geometry of the bf16 dx kernel (csrc/sampled_dense_dx_bf16.cu): a block of 4
+# MMA warps and 16 draw warps (640 threads, one an SM: 184 KB of shared
+# memory) owns 128 batch rows x 64 inputs of dx and walks a run of units
+# (64-deep chunk c of O, 16-deep when O <= 16; sample s) in the order
+# c * S + s; the runs of a tile form clusters of at most DXB_MAX_CLUSTER
+# blocks (pairs: at one block an SM the H100 holds 66 pairs at once, but 22
+# clusters of 5 and 15 of 8), whose sums a short pass adds when a tile has
+# more than one.
+DXB_ROWS, DXB_COLS, DXB_DEPTH, DXB_NARROW_DEPTH = 128, 64, 64, 16
+DXB_BLOCKS_PER_SM, DXB_MAX_CLUSTER, DXB_MAX_SPLIT = 1, 2, 32
+DXB_RUN_OVERHEAD = 4  # units' worth of a run's pipeline fill and its cluster sum
+DXB_PASS_OVERHEAD = 1  # units' worth of the pass over the clusters' partial tiles, a partial tile
+
+
+@dataclass(frozen=True)
+class DxBf16Plan:
+    """Launch geometry of one call of the bf16 dx kernel.
+
+    ``grid``: (input tiles, row tiles, n_split); run ``r`` of a tile walks the
+    units ``dx_bf16_unit_runs(plan)[r]`` (unit ``c * S + s``: chunk c of O,
+    ``depth`` deep, sample s). The runs form ``n_split // cluster`` clusters
+    of ``cluster`` blocks along z; each sums its runs on chip in the order
+    0 .. cluster-1 and, when a tile has more than one cluster, writes one
+    partial tile of ``scratch`` that a pass sums in the order of the
+    clusters. softplus(rho) is computed in the kernel, once a run's chunk.
+    """
+
+    narrow: bool
+    n_split: int
+    cluster: int
+    grid: tuple[int, int, int]
+    depth: int
+    chunks: int
+    units: int  # S * chunks, the units of one tile
+    scratch: tuple[int, ...]
+
+
+def dx_bf16_cluster(n_split: int) -> int:
+    """The largest divisor of ``n_split`` up to :data:`DXB_MAX_CLUSTER`: the
+    blocks of one cluster, as the kernel's launcher computes it."""
+    return max(c for c in range(1, min(n_split, DXB_MAX_CLUSTER) + 1) if n_split % c == 0)
+
+
+def dx_bf16_plan(n_samples: int, b_dim: int, i_dim: int, o_dim: int, sms: int) -> DxBf16Plan:
+    """Where each unit (chunk of O, sample) of the bf16 dx kernel runs, for a
+    card with ``sms`` SMs.
+
+    A tile is (input tile, row tile), one block a run, one block an SM. Each
+    tile's units are split into the n <= :data:`DXB_MAX_SPLIT` runs that
+    minimise the blocks' share of the SMs (at least one wave) times a run's
+    length (its units plus :data:`DXB_RUN_OVERHEAD`), plus
+    :data:`DXB_PASS_OVERHEAD` a partial tile where the runs form more than
+    one cluster, the smallest n on a tie. At model_7's first layer (784 ->
+    1024, B = 128, S = 10, 132 SMs): 10 runs of 16 units, five pairs a tile.
+    """
+    narrow = o_dim <= NARROW_MAX_O
+    depth = DXB_NARROW_DEPTH if narrow else DXB_DEPTH
+    chunks = _cdiv(o_dim, depth)
+    units = n_samples * chunks
+    col_tiles, b_tiles = _cdiv(i_dim, DXB_COLS), _cdiv(b_dim, DXB_ROWS)
+    tiles, slots = col_tiles * b_tiles, DXB_BLOCKS_PER_SM * sms
+
+    def cost(n):
+        clusters = n // dx_bf16_cluster(n)
+        passes = DXB_PASS_OVERHEAD * clusters if clusters > 1 else 0
+        return max(1.0, tiles * n / slots) * (_cdiv(units, n) + DXB_RUN_OVERHEAD) + passes
+
+    n_split = min(range(1, min(DXB_MAX_SPLIT, units) + 1), key=lambda n: (cost(n), n))
+    cluster = dx_bf16_cluster(n_split)
+    scratch = (n_split // cluster, b_dim, i_dim) if n_split > cluster else ()
+    return DxBf16Plan(narrow, n_split, cluster, (col_tiles, b_tiles, n_split), depth, chunks, units, scratch)
+
+
+def dx_bf16_unit_runs(plan: DxBf16Plan) -> list[range]:
+    """The units ``c * S + s`` that each run of a tile walks, in order, as
+    the kernel computes them."""
+    u, n = plan.units, plan.n_split
+    return [range(u * r // n, u * (r + 1) // n) for r in range(n)]
+
+
+def _dx_bf16_launch(wrapper, plain, g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
+    """``plain`` on CPU tensors; else the kernel of ``sampled_dense_dx_bf16.cu``
+    on :func:`dx_bf16_plan`'s geometry, counted on ``wrapper``."""
+    if _on_cpu(g, loc, rho):
+        return plain(g, loc, rho, n_samples, seed)
+    _check_cuda(g, loc, rho)
+    (_, b_dim, o_dim), i_dim = g.shape, loc.shape[0]
+    plan = dx_bf16_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(g.device))
+    out = torch.empty((b_dim, i_dim), device=g.device)
+    partials = torch.empty(plan.scratch, device=g.device) if plan.scratch else None
+    _launch(wrapper.__name__, g.device, g.data_ptr(), loc.data_ptr(), rho.data_ptr(), None,
+            partials.data_ptr() if partials is not None else None, out.data_ptr(),
+            n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
+    wrapper.launches += 1
+    return out
+
+
 def _xs_bf16_launch(wrapper, plain, a, params, n_samples: int, seed: int, kind: str) -> torch.Tensor:
     """``plain`` on CPU tensors; else the kernel of ``sampled_dense_xs_bf16.cu``
     named as ``wrapper`` on :func:`xs_bf16_plan`'s geometry, counted on it.
@@ -656,8 +781,7 @@ def _fwd_launch(wrapper, plain, x, loc, rho, bloc, brho, n_samples: int, seed: i
     return out
 
 
-def _dx_launch(wrapper, plain, g, loc, rho, n_samples: int, seed: int, sum_samples: bool,
-               narrow_softplus: bool = False) -> torch.Tensor:
+def _dx_launch(wrapper, plain, g, loc, rho, n_samples: int, seed: int, sum_samples: bool) -> torch.Tensor:
     """As :func:`_fwd_launch` for the input-gradient kernels; ``sum_samples``
     gives dx (B, I), else dxs (S, B, I)."""
     if _on_cpu(g, loc, rho):
@@ -666,7 +790,7 @@ def _dx_launch(wrapper, plain, g, loc, rho, n_samples: int, seed: int, sum_sampl
     (_, b_dim, o_dim), i_dim = g.shape, loc.shape[0]
     plan = dx_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(g.device), sum_samples)
     out = torch.empty((b_dim, i_dim) if sum_samples else (n_samples, b_dim, i_dim), device=g.device)
-    sp = torch.empty_like(rho) if narrow_softplus or not plan.narrow else None
+    sp = None if plan.narrow else torch.empty_like(rho)
     partials = torch.empty(plan.scratch, device=g.device) if plan.scratch else None
     _launch(wrapper.__name__, g.device, g.data_ptr(), loc.data_ptr(), rho.data_ptr(),
             *(t.data_ptr() if t is not None else None for t in (sp, partials)), out.data_ptr(),
@@ -772,14 +896,25 @@ def sampled_dense_fwd_bf16(x, loc, rho, bloc, brho, n_samples: int, seed: int) -
 
 def sampled_dense_dx_bf16(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
     """Pallas ``_bwd_dx_kernel`` under ``Precision.DEFAULT`` -> the tensor-core
-    kernel of ``csrc/sampled_dense_bf16.cu``. g (S, B, O) -> dx (B, I) =
-    Σ_s bf16(g_s) bf16(W_s)ᵀ with f32 sums. Bound and design as
-    :func:`sampled_dense_fwd_bf16`, on :func:`dx_plan`'s tiles and runs (the
-    fixed-order sum of partials kept: bit-identical from call to call).
+    kernel of ``csrc/sampled_dense_dx_bf16.cu``. g (S, B, O) -> dx (B, I) =
+    Σ_s bf16(g_s) bf16(W_s)ᵀ with f32 sums; reached through
+    :func:`sampled_dense_dx` under ``ROBUSTBNNS_KERNEL_PRECISION=default``.
+
+    Bound on the H100: the S·I·O normals drawn on the FP32 pipe (8.0 M at the
+    first layer of fc2-1024, B=128, S=10: 0.0203 ms for a kernel that only
+    draws them), far above the products (2.1 µs at the bf16 peak) and the
+    bytes (3.6 µs). Design (:func:`dx_bf16_plan`): warp-specialised 128 x 64
+    tiles, one block an SM; 16 draw warps copy g by ``cp.async`` two units
+    ahead into a ring of four stages and draw W_s into it without waiting on
+    the products, each holding its loc and softplus(rho) quads across the S
+    samples of a chunk of O (the units run chunk-major); 4 MMA warps run
+    ``mma.sync.m16n8k16`` on each stage they are handed (named barriers, no
+    ``__syncthreads`` in the loop); each tile's runs sum on chip in pairs, and
+    a short pass adds the pairs' partial tiles in a fixed order when there
+    are several (bit-identical from call to call). One launch counted.
     """
     _check_cotangent(g, loc, rho, n_samples)
-    return _dx_launch(sampled_dense_dx_bf16, sampled_dense_dx_bf16_plain, g, loc, rho, n_samples, seed,
-                      sum_samples=True, narrow_softplus=True)
+    return _dx_bf16_launch(sampled_dense_dx_bf16, sampled_dense_dx_bf16_plain, g, loc, rho, n_samples, seed)
 
 
 def sampled_dense_xs_fwd_bf16(xs, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
@@ -834,12 +969,15 @@ def _check_dparams(g, x, rho, brho, n_samples: int, x_lead: tuple) -> None:
 
 def _dparams_launch(wrapper, plain, g, x, rho, brho, n_samples: int, seed: int):
     """``plain`` on CPU tensors; else the kernel named as ``wrapper`` on
-    :func:`dparams_plan`'s geometry, counted on it."""
+    :func:`dparams_plan`'s geometry (:func:`dparams_bf16_plan`'s for the bf16
+    kernels), counted on it."""
     if _on_cpu(g, x, rho, brho):
         return plain(g, x, rho, brho, n_samples, seed)
     _check_cuda(g, x, rho, brho)
     (_, b_dim, o_dim), i_dim = g.shape, rho.shape[0]
-    plan = dparams_plan(n_samples, i_dim, o_dim, _sm_count(g.device))
+    sms = _sm_count(g.device)
+    plan = (dparams_bf16_plan(n_samples, b_dim, i_dim, o_dim, sms) if wrapper.__name__.endswith("_bf16")
+            else dparams_plan(n_samples, i_dim, o_dim, sms))
     dloc, drho = (torch.empty((i_dim, o_dim), device=g.device) for _ in range(2))
     dbloc, dbrho = (torch.empty((o_dim,), device=g.device) for _ in range(2))
     partials = torch.empty(plan.scratch, device=g.device) if plan.scratch else None
@@ -914,7 +1052,11 @@ def sampled_dense_dparams_bf16(g, x, rho, brho, n_samples: int, seed: int):
     the running sums of dW_s and dW_s ⊙ eps_s, in registers; each tile's
     runs one cluster that
     sums them on chip in a fixed order. The bias as the f32 kernel's, on the
-    unrounded g. O <= 16 takes a narrow path (32 inputs a block). One launch
+    unrounded g. O <= 16 takes the head: 64 threads and 32 inputs a block,
+    64-row chunks of x_s and g_s copied as they lie by ``cp.async`` two
+    chunks ahead, the same fragment order, the runs of samples grouped into
+    the ranks of one cluster an input block that sums them on chip (the bias
+    subtotals of the runs added in run order); one kernel. One launch
     counted.
     """
     _check_dparams(g, x, rho, brho, n_samples, ())

@@ -1,21 +1,26 @@
-// bf16 tensor-core variants of the shared-input forward and input-gradient
-// sampled-dense kernels, for ROBUSTBNNS_KERNEL_PRECISION=default: out[s] =
-// x W_s + b_s and dx = sum_s g_s W_s^T, where every
-// product takes operands rounded to bf16 (x or g, and W_s) and sums in f32
-// into an f32 result. W_s = loc + softplus(rho) * eps_s is drawn in f32 from the
-// f32 kernels' noise (sampled_dense_common.cuh) and rounded to bf16 only as it
-// enters shared memory; the bias row and its noise stay f32 and are added in
-// f32, as in the f32 kernels.
+// The earlier (partials) design of the bf16 sampled-dense forward and
+// input-gradient kernels, kept only to time the current ones
+// (robustbnns_tpu_torch/csrc/sampled_dense_dx_bf16.cu and
+// sampled_dense_xs_bf16.cu) against it in one process: chip_smoke.py's
+// [precision] and scripts/torch_dx_probe.py build it with the port's nvcc
+// flags and -I robustbnns_tpu_torch/csrc, with chip_smoke.PARTIALS_BF16
+// appended for the forwards and the per-sample dx. No entry point of the
+// port calls it. It computes out[s] = x W_s + b_s and dx = sum_s g_s W_s^T,
+// where every product takes operands rounded to bf16 (x or g, and W_s) and
+// sums in f32 into an f32 result. W_s = loc + softplus(rho) * eps_s is drawn
+// in f32 from the f32 kernels' noise (sampled_dense_common.cuh) and rounded
+// to bf16 only as it enters shared memory; the bias row and its noise stay
+// f32 and are added in f32, as in the f32 kernels.
 //
 // Replaces the Pallas kernel _bwd_dx_kernel
 // (robustbnns_tpu/ops/sampled_dense.py:114) under Precision.DEFAULT (_dot,
-// :61-65): single-pass bf16 MXU products there; this source exports only
-// sampled_dense_dx_bf16. The forward template is the earlier (partials)
-// design of _fwd_kernel and, in its per-sample instances, of _fwd_kernel_xs,
-// and the dx template's per-sample instances that of _bwd_xs_dx_kernel:
-// sampled_dense_xs_bf16.cu has replaced all three, and this source exports
-// none of them (chip_smoke.PARTIALS_BF16 rebuilds them to time the two
-// designs side by side).
+// :61-65): single-pass bf16 MXU products there. It was the port's design of
+// _bwd_dx_kernel until sampled_dense_dx_bf16.cu replaced it; its forward
+// template was that of _fwd_kernel and, in its per-sample instances, of
+// _fwd_kernel_xs, and the dx template's per-sample instances that of
+// _bwd_xs_dx_kernel, all three replaced by sampled_dense_xs_bf16.cu. This
+// source exports sampled_dense_dx_bf16_partials; chip_smoke.PARTIALS_BF16
+// adds the other three.
 //
 // What bounds them on the H100. At the main path's shapes (B = 128, S = 10)
 // the wide layers do 2*S*B*I*O = 2.06 and 2.68 GFLOP, 2.1 and 2.7 us at the
@@ -282,11 +287,12 @@ int launch_dx(const float* g, const float* loc, const float* rho, float* sp, flo
 }  // namespace
 }  // namespace sampled_dense
 
-// dx = sum_s bf16(g_s) bf16(W_s)^T, f32 sums. sp: an (I, O) scratch for
-// softplus(rho); partials: an (n_split, B, I) scratch when n_split > 1.
-extern "C" int sampled_dense_dx_bf16(const float* g, const float* loc, const float* rho, float* sp,
-                                     float* partials, float* dx, int S, int B, int I, int O, uint32_t seed,
-                                     int n_split, void* stream) {
+// dx = sum_s bf16(g_s) bf16(W_s)^T, f32 sums, on dx_plan's geometry. sp: an
+// (I, O) scratch for softplus(rho); partials: an (n_split, B, I) scratch when
+// n_split > 1.
+extern "C" int sampled_dense_dx_bf16_partials(const float* g, const float* loc, const float* rho, float* sp,
+                                              float* partials, float* dx, int S, int B, int I, int O,
+                                              uint32_t seed, int n_split, void* stream) {
   return sampled_dense::launch_dx<true>(g, loc, rho, sp, partials, dx, S, B, I, O, seed, n_split,
                                         static_cast<cudaStream_t>(stream));
 }

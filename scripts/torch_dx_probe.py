@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where the time of the dx kernels, or with ``--fwd`` of the forward kernels,
 ``--dparams`` of the parameter-gradient kernels, ``--dparams-bf16`` of their
-bf16 variants, ``--xs-bf16`` of the bf16 per-sample kernels or ``--fwd-bf16``
-of the bf16 shared-input forward, goes on the card: the kernels of
+bf16 variants, ``--xs-bf16`` of the bf16 per-sample kernels, ``--fwd-bf16``
+of the bf16 shared-input forward, ``--dx-bf16`` of the bf16 dx or
+``--dparams-bf16-head`` of the bf16 dparams head, goes on the card: the kernels of
 ``csrc/sampled_dense_dx.cu`` (``sampled_dense_fwd.cu``,
 ``sampled_dense_dparams.cu``, ``sampled_dense_dparams_bf16.cu``,
-``sampled_dense_xs_bf16.cu``) rebuilt with one part cut out at a time, timed
+``sampled_dense_xs_bf16.cu``, ``sampled_dense_dx_bf16.cu``, and the earlier
+designs under ``scripts/comparison_kernels/``) rebuilt with one part cut out
+at a time, timed
 with ``chip_smoke.py``'s device-time yardstick at the main path's shapes.
 
-    python3 scripts/torch_dx_probe.py [--fwd | --dparams | --dparams-bf16 | --xs-bf16 | --fwd-bf16]
-                                      [--diagnose] [SASS_DIR]
+    python3 scripts/torch_dx_probe.py [--fwd | --dparams | --dparams-bf16 | --xs-bf16 | --fwd-bf16 | --dx-bf16
+                                       | --dparams-bf16-head] [--diagnose] [SASS_DIR]
     python3 scripts/torch_dx_probe.py --family=xs_bf16 --diagnose [--every-split]
 
 ``--family=NAME`` probes one entry of ``FAMILIES``; ``--every-split`` runs the
@@ -50,10 +53,27 @@ the shared-input forward (``fwd_bf16_partials``) and the committed one
 (``fwd_bf16``, ``sampled_dense_xs_bf16.cu`` with x's sample stride 0), with
 the ``--xs-bf16`` families' diagnostics.
 
+``--dx-bf16`` probes two designs of the bf16 dx at 784→1024: the partials
+design (``dx_bf16_partials``:
+``scripts/comparison_kernels/sampled_dense_bf16_partials.cu`` on ``dx_plan``,
+with the partials diagnostics below) and the warp-specialised one
+(``dx_bf16``, ``sampled_dense_dx_bf16.cu`` on ``dx_bf16_plan``, at splits of
+8 .. 20 runs): ``no-noise``; diagnostics described at ``DXB_NOISE`` (no
+products, no cluster sum, empty, no pass over the partial tiles, the stage count, the copy
+lookahead, the draw warps a block, 128-input tiles, smaller clusters, two
+blocks an SM), with blocks an SM and active clusters, and the noise floor.
+``--dparams-bf16-head`` probes two designs of the bf16 dparams head at
+1024→10: the partials design (``dparams_bf16_head_partials``,
+``scripts/comparison_kernels/sampled_dense_dparams_bf16_narrow_partials.cu``)
+and the current one (``dparams_bf16_head``): ``no-noise``; diagnostics
+described at ``HEAD_NOISE`` (no products, no bias, no cluster sum, empty, the
+chunk depth, the warps a block, the ranks a cluster), with blocks an SM and
+active clusters.
+
 ``--xs-bf16`` probes two designs of xs_fwd and xs_dx, each at 1024→1024 and
 the 1024→10 head (every variant at the heads too). The partials design
-(``xs_bf16_partials``: ``sampled_dense_bf16.cu`` with
-``chip_smoke.PARTIALS_XS_BF16`` appended, on ``fwd_plan`` and ``dx_plan``):
+(``xs_bf16_partials``: ``scripts/comparison_kernels/sampled_dense_bf16_partials.cu``
+with ``chip_smoke.PARTIALS_BF16`` appended, on ``fwd_plan`` and ``dx_plan``):
 ``no-noise``; diagnostics ``one-stage`` (the first chunk or unit alone staged
 and drawn), ``no-sum-pass`` (the partials' sum kernel removed),
 ``no-softplus-pass`` and ``no-sum-no-softplus-pass``; with the noise floor of
@@ -167,9 +187,10 @@ FAMILIES = {
         },
     },
 }
-# The partials design of the bf16 forwards and per-sample dx (sampled_dense_bf16.cu
-# with chip_smoke.PARTIALS_BF16 appended): as committed, without the noise, with
-# one staged chunk, without the partials' sum pass or the softplus pass
+# The partials design of the bf16 forwards and dx
+# (scripts/comparison_kernels/sampled_dense_bf16_partials.cu with
+# chip_smoke.PARTIALS_BF16 appended): as committed, without the noise, with one
+# staged chunk, without the partials' sum pass or the softplus pass
 PARTIALS_ONE_STAGE = [("    stage_a<kDepth>(as, xs, B, I, b0, i0);", "    if (c == c_begin) stage_a<kDepth>(as, xs, B, I, b0, i0);"),
                   ("    for (int f = tid; f < kDepth * kQuads; f += kThreads) {",
                    "    for (int f = tid; c == c_begin && f < kDepth * kQuads; f += kThreads) {"),
@@ -188,13 +209,15 @@ PARTIALS_DIAGNOSTICS = {
     "no-sum-no-softplus-pass": (PARTIALS_NO_SUM_PASS, PARTIALS_NO_SOFTPLUS_PASS),
 }
 FAMILIES["xs_bf16_partials"] = {
-    "source": "sampled_dense_bf16.cu", "append": "PARTIALS_BF16", "suffix": "_partials",
+    "source": "sampled_dense_bf16_partials.cu", "dir": "scripts/comparison_kernels", "append": "PARTIALS_BF16",
+    "suffix": "_partials",
     "shapes": tuple((f"sampled_dense_{k}_bf16_partials", i, o, splits) for k, i, o, splits in XS_SHAPES),
     "variants": {"full": (), "no-noise": (NOISE,)},
     "diagnostics": PARTIALS_DIAGNOSTICS,
 }
 FAMILIES["fwd_bf16_partials"] = {
-    "source": "sampled_dense_bf16.cu", "append": "PARTIALS_BF16", "suffix": "_partials",
+    "source": "sampled_dense_bf16_partials.cu", "dir": "scripts/comparison_kernels", "append": "PARTIALS_BF16",
+    "suffix": "_partials",
     "shapes": (("sampled_dense_fwd_bf16_partials", 784, 1024, (2, 3, 4)),),
     "variants": {"full": (), "no-noise": (NOISE,)},
     "diagnostics": PARTIALS_DIAGNOSTICS,
@@ -334,6 +357,137 @@ FAMILIES["dparams_bf16"] = {
     },
     "append_full": "DP_OCCUPANCY",
 }
+FAMILIES["dx_bf16_partials"] = {
+    "source": "sampled_dense_bf16_partials.cu", "dir": "scripts/comparison_kernels", "suffix": "_partials",
+    "shapes": (("sampled_dense_dx_bf16_partials", 784, 1024, (20,)),),
+    "variants": {"full": (), "no-noise": (NOISE,)},
+    "diagnostics": PARTIALS_DIAGNOSTICS,
+}
+# The warp-specialised bf16 dx (sampled_dense_dx_bf16.cu): as committed, without
+# the noise; at the planned split also without the products, without both,
+# without the cluster sum, with nothing in the unit loop ("empty"), without the
+# pass over the pairs' partial tiles, with 3 stages, copies 1 or 3 units
+# ahead, 8 draw warps a block (four quads a thread),
+# 32-deep units, 128-input
+# tiles (8 MMA warps of 16 rows), clusters of at most 4 or 8 blocks (fewer
+# partial tiles a tile; the partials buffer is sized for any) and two blocks
+# an SM (at most 80 registers a thread, 51 with 16 draw warps); the stage,
+# ahead, warp, depth, tile and cluster swaps compute a right result.
+# Appended to the full build: blocks an SM and active clusters of 1, 2, 4, 5
+# and 8 blocks.
+DXB_NOISE = ("    z[j] = normal4(seed, s, i, o >> 2);", "    z[j] = make_float4(0.5f, -0.25f, 1.5f, -1.0f);")
+DXB_NO_MMA = ("      mma_unit_dx<kCols, kDepth>(stages + slot * L::kStage, mw, acc);\n", "")
+DXB_NO_CLUSTER_SUM = ("    for (int k = 1; k < cluster_size; ++k) {", "    for (int k = 1; k < 1; ++k) {")
+DXB_EMPTY = ("  const int U = (int)(total * (run + 1) / n_split - u_begin);",
+             "  const int U = 0 * (int)(total * (run + 1) / n_split - u_begin);")
+DXB_CONST = {name: f"constexpr int {name} = {value};" for name, value in (
+    ("kDxStages", 4), ("kDxAhead", 2), ("kDxDrawWarps", 16), ("kDxMaxCluster", 2))}
+DX_OCCUPANCY = """
+extern "C" int dx_occupancy(int cluster_size, int* blocks, int* clusters) {
+  using namespace sampled_dense;
+  using L = DxLayout<64, 32>;
+  auto* kernel = dx_bf16_ws_kernel<64, 32>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, L::kThreads, L::kBytes);
+  cudaLaunchAttribute cluster_dims;
+  cluster_dims.id = cudaLaunchAttributeClusterDimension;
+  cluster_dims.val.clusterDim.x = 1, cluster_dims.val.clusterDim.y = 1, cluster_dims.val.clusterDim.z = cluster_size;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(13, 1, 40);
+  config.blockDim = dim3(L::kThreads);
+  config.dynamicSmemBytes = L::kBytes;
+  config.attrs = &cluster_dims;
+  config.numAttrs = 1;
+  if (!err) err = cudaOccupancyMaxActiveClusters(clusters, kernel, &config);
+  return (int)err;
+}
+"""
+FAMILIES["dx_bf16"] = {
+    "source": "sampled_dense_dx_bf16.cu",
+    "shapes": (("sampled_dense_dx_bf16", 784, 1024, (8, 10, 12, 13, 16, 20)),),
+    "variants": {"full": (), "no-noise": (DXB_NOISE,)},
+    "diagnostics": {
+        "no-mma": (DXB_NO_MMA,),
+        "no-noise-no-mma": (DXB_NOISE, DXB_NO_MMA),
+        "no-cluster-sum": (DXB_NO_CLUSTER_SUM,),
+        "empty": (DXB_EMPTY,),
+        "no-pass": (("  sum_partials_kernel<<<elementwise_blocks(n), 256, 0, stream>>>(partials, dx, n, clusters);\n", ""),),
+        "stages-3": ((DXB_CONST["kDxStages"], "constexpr int kDxStages = 3;"),),
+        "ahead-1": ((DXB_CONST["kDxAhead"], "constexpr int kDxAhead = 1;"),),
+        "ahead-3": ((DXB_CONST["kDxAhead"], "constexpr int kDxAhead = 3;"),),
+        "draw-warps-8": ((DXB_CONST["kDxDrawWarps"], "constexpr int kDxDrawWarps = 8;"),),
+        "depth-32": (("launch_dx_tiles<kCols, 64>(", "launch_dx_tiles<kCols, 32>("),),
+        "cols-128": (("return sampled_dense::launch_dx_bf16<64>(", "return sampled_dense::launch_dx_bf16<128>("),),
+        "max-cluster-4": ((DXB_CONST["kDxMaxCluster"], "constexpr int kDxMaxCluster = 4;"),),
+        "max-cluster-8": ((DXB_CONST["kDxMaxCluster"], "constexpr int kDxMaxCluster = 8;"),),
+
+        "two-blocks-an-sm": (("__launch_bounds__(DxLayout<kCols, kDepth>::kThreads, 1)",
+                              "__launch_bounds__(DxLayout<kCols, kDepth>::kThreads, 2)"),),
+    },
+    "append_full": "DX_OCCUPANCY",
+}
+# The bf16 dparams head (O <= 16) of sampled_dense_dparams_bf16.cu, and its
+# earlier design (scripts/comparison_kernels/sampled_dense_dparams_bf16_narrow_partials.cu:
+# as committed, without the noise): as committed, without the noise; at the
+# planned split also without the products, without both, without the bias,
+# without the cluster sum, with nothing in the chunk loop ("empty"), 32-row
+# chunks, 4 warps (64 inputs) a block, and ranks of at most 8 or 5
+# blocks (ranks that hold two runs' bias subtotals); the chunk, warp and rank
+# swaps compute a right result. Appended to the full build: blocks an SM and
+# active clusters of 2, 5, 8, 10 and 16 ranks.
+HEAD_NOISE = ("eps[h] = i < I && 4 * tq < O ? normal4(seed, s, i, tq) : make_float4(0.f, 0.f, 0.f, 0.f);",
+              "eps[h] = make_float4(0.5f, -0.25f, 1.5f, -1.0f);")
+HEAD_NO_MMA = ("      mma_head(stages + u % kHeadStages * kHeadStage, warp, acc);\n", "")
+HEAD_NO_BIAS = ("    head_bias(stages, subtotals, g, S, B, I, O, seed, n_split, r_begin, s_begin, s_end);\n", "")
+HEAD_NO_CLUSTER_SUM = ("for (int k = 1; k < n_ranks; ++k) {  // unrolled", "for (int k = 1; k < 1; ++k) {  // unrolled")
+HEAD_EMPTY = ("  const int U = (s_end - s_begin) * C;", "  const int U = 0 * (s_end - s_begin) * C;")
+HEAD_CONST = {name: f"constexpr int {name} = {value};" for name, value in (
+    ("kHeadDepth", 64), ("kHeadWarps", 2), ("kHeadMaxRanks", 16))}
+HEAD_OCCUPANCY = """
+extern "C" int head_occupancy(int ranks, int* blocks, int* clusters) {
+  using namespace sampled_dense;
+  auto* kernel = dparams_bf16_head_kernel<true>;
+  const int bytes = (kHeadRegion + 2 * 2 * kNarrowO) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kHeadThreads, bytes);
+  cudaLaunchAttribute cluster_dims;
+  cluster_dims.id = cudaLaunchAttributeClusterDimension;
+  cluster_dims.val.clusterDim.x = 1, cluster_dims.val.clusterDim.y = 1, cluster_dims.val.clusterDim.z = ranks;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(32, 1, ranks);
+  config.blockDim = dim3(kHeadThreads);
+  config.dynamicSmemBytes = bytes;
+  config.attrs = &cluster_dims;
+  config.numAttrs = 1;
+  if (!err) err = cudaOccupancyMaxActiveClusters(clusters, kernel, &config);
+  return (int)err;
+}
+"""
+FAMILIES["dparams_bf16_head_partials"] = {
+    "source": "sampled_dense_dparams_bf16_narrow_partials.cu", "dir": "scripts/comparison_kernels",
+    "suffix": "_partials", "head": True,
+    "shapes": (("sampled_dense_xs_dparams_bf16_partials", 1024, 10, (1, 5)),),
+    "variants": {"full": (), "no-noise": (BF_NOISE,)},
+    "diagnostics": {},
+}
+FAMILIES["dparams_bf16_head"] = {
+    "source": "sampled_dense_dparams_bf16.cu", "head": True,
+    "shapes": (("sampled_dense_xs_dparams_bf16", 1024, 10, (1, 2, 5)),
+               ("sampled_dense_dparams_bf16", 1024, 10, ())),
+    "variants": {"full": (), "no-noise": (HEAD_NOISE,)},
+    "diagnostics": {
+        "no-mma": (HEAD_NO_MMA,),
+        "no-noise-no-mma": (HEAD_NOISE, HEAD_NO_MMA),
+        "no-bias": (HEAD_NO_BIAS,),
+        "no-cluster-sum": (HEAD_NO_CLUSTER_SUM,),
+        "empty": (HEAD_EMPTY,),
+        "depth-32": ((HEAD_CONST["kHeadDepth"], "constexpr int kHeadDepth = 32;"),),
+        "warps-4": ((HEAD_CONST["kHeadWarps"], "constexpr int kHeadWarps = 4;"),),
+        "max-ranks-8": ((HEAD_CONST["kHeadMaxRanks"], "constexpr int kHeadMaxRanks = 8;"),),
+        "max-ranks-5": ((HEAD_CONST["kHeadMaxRanks"], "constexpr int kHeadMaxRanks = 5;"),),
+    },
+    "append_full": "HEAD_OCCUPANCY",
+}
 NOISE_PROBE = """#include "sampled_dense_common.cuh"
 extern "C" __global__ void noise_probe(float4* out, uint32_t seed) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = sampled_dense::normal4(seed, blockIdx.x, threadIdx.x, 7u);
@@ -428,6 +582,8 @@ def planned_split(sd, fam: dict, name: str, i_dim: int, o_dim: int, sms: int) ->
     """The split the port's plan picks for ``name`` of ``fam`` at B, S."""
     if fam["source"] == "sampled_dense_xs_bf16.cu":
         return sd.xs_bf16_plan(S, B, i_dim, o_dim, sms, "fwd" if "fwd" in name else "dx").n_split
+    if fam["source"] == "sampled_dense_dx_bf16.cu":
+        return sd.dx_bf16_plan(S, B, i_dim, o_dim, sms).n_split
     if "dparams_bf16" in name:
         return sd.dparams_bf16_plan(S, B, i_dim, o_dim, sms).n_split
     if "dparams" in name:
@@ -467,7 +623,7 @@ def probe_family(torch, build, sd, kind: str, diagnose: bool, workdir: str, sms:
             outs = [torch.empty((B, i_dim) if summed else (S, B, i_dim), device="cuda")]
             lead = (S,) if not summed else ()
             head = (g.data_ptr(), loc.data_ptr(), rho.data_ptr(), sp.data_ptr())
-            scratch = lambda n: (n, *lead, B, i_dim)  # noqa: E731
+            scratch = lambda n: (n, *lead, B, i_dim)  # noqa: E731  (dx_bf16: room for any cluster count)
         else:
             x = torch.rand((S, B, i_dim) if "xs_fwd" in name else (B, i_dim), generator=gen, device="cuda")
             outs = [torch.empty((S, B, o_dim), device="cuda")]
@@ -495,14 +651,23 @@ def probe_family(torch, build, sd, kind: str, diagnose: bool, workdir: str, sms:
                         continue
                 elif tag in fam["diagnostics"] and n_split != planned and not every_split:
                     continue
-                if o_dim <= 16 and tag != "full" and not xs_family:
+                if o_dim <= 16 and tag != "full" and not xs_family and not fam.get("head"):
                     continue
                 ms = device_ms(torch, lambda dll=dll: call(dll))
                 rows.append({"kernel": name, "shape": f"I={i_dim} O={o_dim}", "n_split": n_split,
                              "planned": n_split == planned, "variant": tag, "ms": ms})
                 print(f"{tag_line} {name} B={B} S={S} I={i_dim} O={o_dim} n_split {n_split}"
                       f"{' (planned)' if n_split == planned else ''}: {tag} {ms:.4f} ms")
-        if "append_full" in fam and o_dim > 16:
+        if fam.get("append_full") in ("DX_OCCUPANCY", "HEAD_OCCUPANCY"):
+            dx = fam["append_full"] == "DX_OCCUPANCY"
+            occ = libs["full"].dx_occupancy if dx else libs["full"].head_occupancy
+            occ.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            for size in ((1, 2, 4, 5, 8) if dx else (2, 5, 8, 10, 16)):
+                blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+                err = occ(size, ctypes.byref(blocks), ctypes.byref(clusters))
+                print(f"{tag_line} {name} I={i_dim} O={o_dim}: {blocks.value} blocks an SM, "
+                      f"{clusters.value} active clusters of {size} (cudaError {err})")
+        elif "append_full" in fam and o_dim > 16:
             dparams = fam["append_full"] == "DP_OCCUPANCY"
             occ = libs["full"].dparams_occupancy if dparams else libs["full"].xs_occupancy
             occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -512,7 +677,8 @@ def probe_family(torch, build, sd, kind: str, diagnose: bool, workdir: str, sms:
                 err = occ(first, n_split, ctypes.byref(blocks), ctypes.byref(clusters))
                 print(f"{tag_line} {name} I={i_dim} O={o_dim}: {blocks.value} blocks an SM, "
                       f"{clusters.value} active clusters of {n_split} (cudaError {err})")
-        if kind.endswith("_partials") or (kind == "dparams_bf16" and o_dim > 16):
+        if kind.endswith("_partials") or kind in ("dx_bf16", "dparams_bf16_head") or \
+                (kind == "dparams_bf16" and o_dim > 16):
             from chip_smoke import noise_floor_ms
 
             floor = noise_floor_ms(torch, S, i_dim, o_dim)
@@ -527,7 +693,9 @@ def main() -> None:
     kinds = ([family] if family else ["fwd"] if "--fwd" in args else ["dparams"] if "--dparams" in args else
              ["dparams_bf16_shared_sums", "dparams_bf16"] if "--dparams-bf16" in args else
              ["xs_bf16_partials", "xs_bf16"] if "--xs-bf16" in args else
-             ["fwd_bf16_partials", "fwd_bf16"] if "--fwd-bf16" in args else ["dx"])
+             ["fwd_bf16_partials", "fwd_bf16"] if "--fwd-bf16" in args else
+             ["dx_bf16_partials", "dx_bf16"] if "--dx-bf16" in args else
+             ["dparams_bf16_head_partials", "dparams_bf16_head"] if "--dparams-bf16-head" in args else ["dx"])
     diagnose = "--diagnose" in args
     sass_dir = next((a for a in args if not a.startswith("--")), None)
     sys.path.insert(0, REPO)

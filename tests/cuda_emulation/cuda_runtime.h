@@ -9,11 +9,14 @@
 // so a kernel launched in clusters keeps all its shared memory dynamic. The
 // warp-wide instructions (__shfl_xor_sync here, mma.sync and ldmatrix through
 // emulated_mma_m16n8k16_bf16 and emulated_ldmatrix_x4_trans) exchange the
-// lanes' registers through a per-block buffer between two block barriers,
-// which stand in for the warp's
-// convergence: the kernels reach each of them with every thread of the block,
-// and each call asserts that all threads are at the same such call. Build
-// with -std=c++20 -ffp-contract=off so that nothing is fused that the card
+// lanes' registers through a per-block buffer between two barriers of the
+// warp's 32 threads, which stand in for the warp's convergence: a kernel
+// reaches each of them with every lane of the warp (a warp-specialised kernel
+// with some warps only), and each call asserts that all 32 lanes are at the
+// same such call. Named barriers (bar.sync and bar.arrive with an id and a
+// thread count, emulated_named_barrier) count arrivals per block and assert
+// that no thread arrives twice at one instance of a barrier. Build with
+// -std=c++20 -ffp-contract=off so that nothing is fused that the card
 // computes unfused.
 #pragma once
 #include <barrier>
@@ -21,11 +24,14 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <condition_variable>
 #include <cstring>
 #include <deque>
 #include <functional>
 #include <limits>
 #include <math.h>
+#include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -50,11 +56,24 @@ inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 
 constexpr unsigned kEmulatedLaneWords = 10;  // the registers a lane gives a warp-wide instruction
 
+// A named barrier (bar.sync / bar.arrive id, count): the arrivals of its
+// current instance, its instances so far, and the instance each thread last
+// arrived at.
+struct EmulatedNamedBarrier {
+  std::mutex mutex;
+  std::condition_variable done;
+  int count = 0, arrived = 0;
+  long long instance = 0;
+  std::vector<long long> last;  // by thread, -1 before its first arrival
+};
+
 struct EmulatedBlock {
   std::barrier<>* barrier;
   std::vector<float> smem;  // dynamic shared memory
   std::vector<std::uint32_t> lanes;  // kEmulatedLaneWords a thread
   std::vector<unsigned long long> warp_calls;  // the warp-wide calls each thread has made
+  std::shared_ptr<std::deque<std::barrier<>>> warp_barriers;  // one of 32 threads a warp
+  std::shared_ptr<std::deque<EmulatedNamedBarrier>> named;  // ids 0 .. 15
 };
 struct EmulatedCluster {
   std::barrier<>* barrier;
@@ -80,7 +99,10 @@ inline void __syncthreads() { current_block->barrier->arrive_and_wait(); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 10
+};
 enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class Kernel>
@@ -102,10 +124,14 @@ inline void run_grid(dim3 grid, unsigned threads, std::size_t smem, unsigned clu
         std::deque<EmulatedBlock> blocks;
         for (unsigned k = 0; k < cluster_z; ++k) {
           barriers.emplace_back(threads);
+          auto warps = std::make_shared<std::deque<std::barrier<>>>();
+          for (unsigned w = 0; w < (threads + 31) / 32; ++w) warps->emplace_back(32);
+          auto named = std::make_shared<std::deque<EmulatedNamedBarrier>>(16);
+          for (auto& b : *named) b.last.assign(threads, -1);
           blocks.push_back({&barriers.back(),
                             std::vector<float>(smem / sizeof(float), std::numeric_limits<float>::quiet_NaN()),
                             std::vector<std::uint32_t>(threads * kEmulatedLaneWords),
-                            std::vector<unsigned long long>(threads)});
+                            std::vector<unsigned long long>(threads), warps, named});
         }
         std::barrier<> cluster_barrier(threads * cluster_z);
         EmulatedCluster cluster{&cluster_barrier, &blocks};
@@ -124,22 +150,44 @@ inline void run_grid(dim3 grid, unsigned threads, std::size_t smem, unsigned clu
 }
 
 // The first half of a warp-wide instruction: this thread's registers are in
-// its lanes slot; after the block barrier every thread may read every slot.
-// Asserts that every thread of the block is at the same warp-wide call: a
-// thread that skipped one would have met the barrier at a __syncthreads or
-// another call.
+// its lanes slot; after the warp's barrier every lane may read every slot of
+// its warp. Asserts that every lane of the warp is at the same warp-wide
+// call: a lane that skipped one would have met the barrier at another call.
 inline std::uint32_t* emulated_warp_gather() {
   EmulatedBlock& block = *current_block;
-  const unsigned t = threadIdx.x;
+  const unsigned t = threadIdx.x, warp = t / 32;
   const unsigned long long call = ++block.warp_calls[t];
-  block.barrier->arrive_and_wait();
-  for (unsigned u = 0; u < blockDim.x; ++u)
-    assert(block.warp_calls[u] == call && "a warp-wide instruction not reached by every thread of the block");
-  return block.lanes.data() + (t / 32) * 32 * kEmulatedLaneWords;  // lane 0 of this thread's warp
+  (*block.warp_barriers)[warp].arrive_and_wait();
+  for (unsigned u = 32 * warp; u < 32 * warp + 32; ++u)
+    assert(block.warp_calls[u] == call && "a warp-wide instruction not reached by every lane of the warp");
+  return block.lanes.data() + warp * 32 * kEmulatedLaneWords;  // lane 0 of this thread's warp
 }
 
-// The second half: every thread has read what it needs.
-inline void emulated_warp_release() { current_block->barrier->arrive_and_wait(); }
+// The second half: every lane of the warp has read what it needs.
+inline void emulated_warp_release() { (*current_block->warp_barriers)[threadIdx.x / 32].arrive_and_wait(); }
+
+// bar.sync (wait) or bar.arrive (no wait) on named barrier id with count
+// threads: the instance completes when count threads have arrived. Asserts a
+// count that is a multiple of 32 within the block, one count an instance,
+// and that no thread arrives twice at one instance (an arrival the card would
+// count into the wrong instance).
+inline void emulated_named_barrier(int id, int count, bool wait) {
+  assert(id > 0 && id < 16 && count > 0 && count % 32 == 0 && (unsigned)count <= blockDim.x);
+  EmulatedNamedBarrier& b = (*current_block->named)[id];
+  std::unique_lock<std::mutex> lock(b.mutex);
+  assert((b.arrived == 0 || b.count == count) && "one thread count an instance of a named barrier");
+  assert(b.last[threadIdx.x] != b.instance && "a thread arrived twice at one instance of a named barrier");
+  b.count = count;
+  b.last[threadIdx.x] = b.instance;
+  const long long instance = b.instance;
+  if (++b.arrived == count) {
+    b.arrived = 0;
+    ++b.instance;
+    b.done.notify_all();
+    return;
+  }
+  if (wait) b.done.wait(lock, [&] { return b.instance != instance; });
+}
 
 inline std::uint32_t* emulated_lane_slot() { return current_block->lanes.data() + threadIdx.x * kEmulatedLaneWords; }
 

@@ -7,13 +7,17 @@ buffer for ``extern __shared__``, ``__shfl_xor_sync``; ``cuda_bf16.h``: the
 round-to-nearest-even bf16 conversions), with two headers of ``csrc/``
 rewritten on their way next to the source: ``cp.async`` of
 ``sampled_dense_common.cuh`` becomes a plain copy (and ``cp.async.wait_group``
-of a source nothing), and the inline PTX of ``mma_bf16_16816`` and
-``ldmatrix_x4_trans`` (``sampled_dense_mma.cuh``) calls of
-``emulated_mma_m16n8k16_bf16`` and ``emulated_ldmatrix_x4_trans``. Those
-stand-ins and the shuffle exchange the 32
-lanes' registers through a per-block buffer between two block barriers: safe
-because every thread of a block reaches each ``mma.sync`` and shuffle in these
-kernels, which each call asserts. The kernels are called through ctypes with
+of a source nothing), its named barriers (``bar.sync`` and ``bar.arrive``
+with an id and a thread count) calls of ``emulated_named_barrier``, and the
+inline PTX of ``mma_bf16_16816`` and ``ldmatrix_x4_trans``
+(``sampled_dense_mma.cuh``) calls of ``emulated_mma_m16n8k16_bf16`` and
+``emulated_ldmatrix_x4_trans``. Those stand-ins and the shuffle exchange the
+32 lanes' registers through a per-block buffer between two barriers of the
+warp's 32 threads: safe because every lane of a warp reaches each
+``mma.sync`` and shuffle in these kernels (in the warp-specialised dx of
+``sampled_dense_dx_bf16.cu`` the MMA warps only), which each call asserts;
+the named-barrier stand-in asserts that no thread arrives twice at one
+instance of a barrier. The kernels are called through ctypes with
 the launch plans of ``ops/sampled_dense.fwd_plan``, ``dx_plan``,
 ``dparams_plan`` (and ``dparams_bf16_plan``: the bf16 parameter-gradient
 kernels also at every split, their bias bit-equal to the f32 kernel's) and
@@ -56,6 +60,7 @@ CP_ASYNC = {  # the PTX helpers of the source, as plain copies
     "cp_async_commit": "__device__ __forceinline__ void cp_async_commit() {}\n",
     "cp_async_wait_all": "__device__ __forceinline__ void cp_async_wait_all() {}\n",
 }
+NAMED_BARRIERS = {"named_barrier_sync": "true", "named_barrier_arrive": "false"}  # bar.sync waits, bar.arrive not
 
 
 def emulated_source(source: str) -> str:
@@ -82,6 +87,10 @@ def emulated_header(source: str) -> str:
         assert n == 1, name
     out, n = CP_ASYNC_WAIT.subn(r"\1 {}\n", out)
     assert n == 1
+    for name, wait in NAMED_BARRIERS.items():
+        out, n = re.subn(rf"(void {name}\(int id, int count\)) \{{\n  asm volatile\(.*?\n\}}\n",
+                         rf"\1 {{\n  emulated_named_barrier(id, count, {wait});\n}}\n", out, flags=re.S)
+        assert n == 1, name
     return out
 
 
@@ -98,9 +107,11 @@ def emulated_mma_header(source: str) -> str:
 EMULATED_HEADERS = {"sampled_dense_common.cuh": emulated_header, "sampled_dense_mma.cuh": emulated_mma_header}
 
 
-def build(tmp_path_factory, source: str, names) -> ctypes.CDLL:
-    """``csrc/<source>`` built with g++ next to copies of the headers, those
-    with PTX emulated (a quoted include finds them there before ``CSRC``)."""
+def build(tmp_path_factory, source: str, names, directory: Path = CSRC) -> ctypes.CDLL:
+    """``<directory>/<source>`` (``csrc/`` unless given) built with g++ next to
+    copies of the headers, those with PTX emulated (a quoted include finds
+    them there before ``CSRC``). An entry point ``<port name>_partials`` of a
+    comparison source is typed as the port's entry point it stands beside."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel source for the CPU")
@@ -109,7 +120,7 @@ def build(tmp_path_factory, source: str, names) -> ctypes.CDLL:
         text = header.read_text()
         (work / header.name).write_text(EMULATED_HEADERS.get(header.name, str)(text))
     src = work / f"{Path(source).stem}.cpp"
-    src.write_text(emulated_source((CSRC / source).read_text()))
+    src.write_text(emulated_source((directory / source).read_text()))
     lib = work / f"lib{Path(source).stem}.so"
     done = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
                            "-I", str(EMULATION), "-I", str(CSRC), "-o", str(lib), str(src), "-lpthread"],
@@ -117,7 +128,7 @@ def build(tmp_path_factory, source: str, names) -> ctypes.CDLL:
     assert done.returncode == 0, done.stderr[-4000:]
     dll = ctypes.CDLL(str(lib))
     for name in names:
-        getattr(dll, name).argtypes = sd._SIGNATURES[name][1]
+        getattr(dll, name).argtypes = sd._SIGNATURES[name.removesuffix("_partials")][1]
         getattr(dll, name).restype = ctypes.c_int
     return dll
 
@@ -294,7 +305,7 @@ DPARAMS_BF16 = ("sampled_dense_dparams_bf16", "sampled_dense_xs_dparams_bf16")
 
 @pytest.fixture(scope="module")
 def bf16_library(tmp_path_factory):
-    return build(tmp_path_factory, "sampled_dense_bf16.cu", BF16)
+    return build(tmp_path_factory, "sampled_dense_dx_bf16.cu", BF16)
 
 
 @pytest.fixture(scope="module")
@@ -304,17 +315,18 @@ def xs_bf16_library(tmp_path_factory):
 
 def run_bf16(lib, name, a, params, out_shape, n_samples, sms, kind):
     """One bf16 forward (``params`` = loc, rho, bloc, brho) or input-gradient
-    (loc, rho) call on its plan: ``sampled_dense_bf16.cu``'s dx on dx_plan
-    with an (I, O) softplus scratch and the partials; the forwards and xs_dx
-    of ``sampled_dense_xs_bf16.cu`` on xs_bf16_plan (no partials).
-    NaN-filled output and scratch, so a missed write shows."""
+    (loc, rho) call on its plan: ``sampled_dense_dx_bf16.cu``'s dx on
+    dx_bf16_plan with its clusters' partials where the plan has them (no
+    softplus scratch); the forwards and xs_dx of ``sampled_dense_xs_bf16.cu``
+    on xs_bf16_plan (no partials). NaN-filled output and scratch, so a
+    missed write shows."""
     b, i, o = a.shape[-2], *params[0].shape
     if name != "dx":
         plan = sd.xs_bf16_plan(n_samples, b, i, o, sms, kind)
         scratch, sp_needed = (), plan.softplus_scratch
     else:
-        plan = sd.dx_plan(n_samples, b, i, o, sms, True)
-        scratch, sp_needed = plan.scratch, True
+        plan = sd.dx_bf16_plan(n_samples, b, i, o, sms)
+        scratch, sp_needed = plan.scratch, False
     out = torch.full(out_shape, float("nan"))
     sp = torch.full_like(params[1], float("nan")) if sp_needed else None
     partials = torch.full(scratch, float("nan")) if scratch else None
@@ -460,17 +472,24 @@ def test_bf16_dparams_wide_kernel_at_every_split(dparams_bf16_library, dparams_l
                          ids=lambda s: "B{}_I{}_O{}_S{}".format(*s))
 @pytest.mark.parametrize("sms", [1, 8, 132])
 def test_dparams_bf16_plan_walks_every_unit_and_quad_once(shape, sms):
-    """``dparams_bf16_plan``: the f32 kernel's split and grid (so both sum the
-    bias over the same runs of samples); on the wide path one cluster of at
-    most 8 runs, every (sample, 32-row chunk) unit walked once, in order, by
-    the run of its sample, and each warp's 8 eps items a lane drawn once a
-    sample, a share with each chunk."""
+    """``dparams_bf16_plan``: the f32 kernel's split (so both sum the bias
+    over the same runs of samples) and no partials; on the wide path the f32
+    kernel's grid, one cluster of at most 8 runs, every (sample, 32-row
+    chunk) unit walked once, in order, by the run of its sample, and each
+    warp's 8 eps items a lane drawn once a sample, a share with each chunk;
+    on the head (O <= 16) 32-input blocks whose ranks, one cluster of at most
+    16, hold every run once, in order, none empty."""
     b, i, o, s = shape
     plan, f32 = sd.dparams_bf16_plan(s, b, i, o, sms), sd.dparams_plan(s, i, o, sms)
-    assert (plan.narrow, plan.n_split, plan.grid, plan.scratch) == (f32.narrow, f32.n_split, f32.grid, f32.scratch)
-    assert plan.chunks == -(-b // 32) and 1 <= plan.n_split <= s
+    assert (plan.narrow, plan.n_split, plan.scratch) == (f32.narrow, f32.n_split, ())
+    assert 1 <= plan.n_split <= s
     if plan.narrow:
+        assert plan.chunks == -(-b // sd.DP_HEAD_DEPTH) and plan.ranks == min(plan.n_split, sd.DP_HEAD_MAX_RANKS)
+        assert plan.grid == (-(-i // sd.DP_HEAD_COLS) + 1, 1, plan.ranks)
+        runs = sd.dparams_bf16_head_runs(plan)
+        assert [r for rank in runs for r in rank] == list(range(plan.n_split)) and all(runs)
         return
+    assert plan.chunks == -(-b // 32) and plan.grid == f32.grid and plan.ranks == plan.n_split
     assert plan.n_split <= sd.DP_MAX_RUNS and plan.grid == (-(-o // sd.DP_COLS), -(-i // sd.DP_ROWS), plan.n_split)
     units = sd.dparams_bf16_units(plan, s)
     assert len(units) == plan.n_split and all(units)
