@@ -16,6 +16,13 @@ Phases, each fatal on failure:
    twin on the card, at the shapes ``model_7`` (fc2-1024) gives it, with
    times: device time (a CUDA graph of 20 calls) of the kernel, its twin and
    one library call, and ``call_ms``, one kernel call on an idle stream;
+   then ``[reference]``: the four forward kernels (f32 and bf16, shared and
+   per-sample input) against ``sampled_dense_reference`` (independent
+   ``torch.randn`` draws) at model_7's first layer, B = 128, S = 256: the
+   global mean within 0.05 and the mean per-entry std within 5% (the JAX
+   package's TPU gates), equal at zero scale, and for the f32 kernels their
+   33.5 M draws themselves (one-hot x) against N(0, 1) within 5 sigma in
+   mean, variance and the share beyond 3, the reference's as a control;
 4. edges: the two forward kernels at edge shapes (one row, O = 13, the head
    at S = 1, S = 100, B = 2048, I = 3072, the Half Moons widths) against their
    twins, bit-identical across calls, and xs_fwd on a broadcast x equal to
@@ -668,6 +675,146 @@ def phase_kernels(torch) -> dict:
                    flops, dp_bytes(S * B * i_dim, i_dim, o_dim))
     torch.cuda.synchronize()
     return results
+
+
+REF_B, REF_S = 128, 256  # [reference]: model_7's first layer (784 -> 1024) at the attack batch, 256 draws
+# The moment gates of the JAX package's TPU test (tests/test_ops.py:55-59)
+REF_MEAN_ABS, REF_STD_REL = 0.05, 0.05
+# f32 kernel at zero scale against the reference: both are the dense layer
+# x @ loc + bloc, f32 sums of 784 terms in orders that may differ, held to 1e-5 absolute on
+# O(1) values, so to 1e-5 of the largest |entry| (about 13 here)
+REF_ZERO_SCALE_OF_MAX = 1e-5
+
+
+def noise_gate(what: str, eps) -> str:
+    """N draws of eps against N(0, 1): the mean within 5/sqrt(N), the variance
+    within 1 +- 5 sqrt(2/N), the share of |eps| > 3 within 5 sigma of
+    P(|N(0, 1)| > 3); the numbers beside their limits."""
+    e = eps.double()
+    n = e.numel()
+    mean, var, tail = float(e.mean()), float(e.var()), float((e.abs() > 3).double().mean())
+    p = math.erfc(3 / math.sqrt(2))
+    lims = (5 / math.sqrt(n), 5 * math.sqrt(2 / n), 5 * math.sqrt(p * (1 - p) / n))
+    text = (f"{what}'s eps ({n} draws): mean {mean:.3e} (limit +-{lims[0]:.3e}), variance {var:.6f} "
+            f"(limit 1 +- {lims[1]:.3e}), share beyond 3 {tail:.6f} (limit {p:.6f} +- {lims[2]:.3e})")
+    if abs(mean) > lims[0] or abs(var - 1) > lims[1] or abs(tail - p) > lims[2]:
+        fail(f"[reference] {text}")
+    return text
+
+
+def phase_reference(torch) -> None:
+    """The four forward kernels (f32 and bf16 ``sampled_dense`` and
+    ``sampled_dense_xs``, the latter on x broadcast over the draws) against
+    ``sampled_dense_reference`` (``torch.randn`` draws from a CUDA generator)
+    at model_7's first layer, B = 128, S = 256, inputs built as
+    ``tests/test_ops.py:10-20`` builds them (rho, brho ~ N(0, 1) - 1):
+
+    * moments: the global mean within 0.05 and the mean per-entry std across
+      the draws within 5%, the JAX package's TPU gates;
+    * zero scale (rho = brho = -1e4, softplus 0): the f32 kernels equal the
+      reference within 1e-5 of the largest entry; the bf16 kernels equal the
+      reference on bf16-rounded x and loc (the kernels' own rounding) within
+      ``[precision]``'s gate for their twins;
+    * the draws themselves, f32 kernels only: x = the first 128 one-hot rows
+      and brho = -1e4 leave (out - loc[:128] - bloc) / softplus(rho[:128]) =
+      eps, 33.5 M draws held to N(0, 1) by :func:`noise_gate`, and the
+      reference's eps likewise as a control. The bf16 kernels round W_s to
+      bf16, which inflates that variance, so they take the moment and
+      zero-scale gates only.
+
+    Each kernel must launch once a call (the launch counts' difference).
+    """
+    sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
+    from robustbnns_tpu_torch.utils.prng import key_from_seed
+
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("[reference] TF32 is on: the reference's products would round W to TF32")
+    i_dim, o_dim = LAYERS[0]
+    gen = torch.Generator(device="cuda").manual_seed(1236)
+    normal = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    x, loc, rho = normal(REF_B, i_dim), normal(i_dim, o_dim) * 0.1, normal(i_dim, o_dim) - 1.0
+    bloc, brho = normal(o_dim) * 0.1, normal(o_dim) - 1.0
+    seed = 20261018
+
+    def shared(a, *params):
+        return sd.sampled_dense(a, *params, REF_S, seed)
+
+    def per_sample(a, *params):
+        return sd.sampled_dense_xs(a.expand(REF_S, *a.shape).contiguous(), *params, REF_S, seed)
+
+    kernels = {  # name: (ROBUSTBNNS_KERNEL_PRECISION, call)
+        "sampled_dense_fwd": (None, shared), "sampled_dense_xs_fwd": (None, per_sample),
+        "sampled_dense_fwd_bf16": ("default", shared), "sampled_dense_xs_fwd_bf16": ("default", per_sample),
+    }
+
+    def launch(name, a, *params):
+        precision, call = kernels[name]
+        before = sd.launch_counts()
+        with env_var("ROBUSTBNNS_KERNEL_PRECISION", precision):
+            out = call(a, *params)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in sd.launch_counts().items() if v != before[k]}
+        if moved != {name: 1}:
+            fail(f"[reference] {name}: the call launched {moved}, not {name} once")
+        if not bool(torch.isfinite(out).all()):
+            fail(f"[reference] {name}: non-finite values")
+        return out
+
+    def reference(a, *params, key=9):
+        return sd.sampled_dense_reference(a, *params, REF_S, key_from_seed(key, "cuda"))
+
+    ref = reference(x, loc, rho, bloc, brho)
+    ref_mean, ref_std = float(ref.mean()), float(ref.std(0).mean())
+    del ref
+    neg, negb = torch.full_like(rho, -1e4), torch.full_like(brho, -1e4)
+    dense = reference(x, loc, neg, bloc, negb)
+    x16, loc16 = sd._bf16(x), sd._bf16(loc)
+    dense16 = reference(x16, loc16, neg, bloc, negb)
+    # [precision]'s twin gate; at zero scale every W_s is loc, so one draw gives the largest term
+    term = sd.bf16_error_scale("fwd", x, loc, neg, 1, seed, largest=True)
+    gate16 = BF16_FLIP_OF_TERM * term + RTOL * dense16.abs() + ATOL_OF_MAX * float(dense16.abs().max())
+    atol = REF_ZERO_SCALE_OF_MAX * max(1.0, float(dense.abs().max()))
+    one_hot = torch.eye(i_dim, device="cuda")[:REF_B].contiguous()
+    sharp = (loc[:REF_B], sd.softplus(rho[:REF_B]))
+
+    def eps_of(out):
+        return (out - sharp[0] - bloc) / sharp[1]
+
+    control = eps_of(reference(one_hot, loc, rho, bloc, negb, key=10))
+    print(f"[reference] {noise_gate('sampled_dense_reference', control)}")
+    del control
+    for name, (precision, _) in kernels.items():
+        out = launch(name, x, loc, rho, bloc, brho)
+        mean, std = float(out.mean()), float(out.std(0).mean())
+        del out
+        if abs(mean - ref_mean) > REF_MEAN_ABS or abs(std - ref_std) > REF_STD_REL * ref_std:
+            fail(f"[reference] {name}: global mean {mean:.5f} against the reference's {ref_mean:.5f} (limit "
+                 f"{REF_MEAN_ABS}), mean per-entry std {std:.5f} against {ref_std:.5f} (limit {REF_STD_REL:.0%})")
+        text = (f"[reference] {name} B={REF_B} S={REF_S} I={i_dim} O={o_dim}: global mean {mean:.5f} against the "
+                f"reference's {ref_mean:.5f} (|diff| {abs(mean - ref_mean):.2e}, limit {REF_MEAN_ABS}); mean per-entry "
+                f"std {std:.5f} against {ref_std:.5f} (rel diff {abs(std - ref_std) / ref_std:.2e}, limit "
+                f"{REF_STD_REL})")
+        zero = launch(name, x, loc, neg, bloc, negb)
+        if precision is None:
+            err = float((zero - dense).abs().max())
+            if err > atol:
+                fail(f"[reference] {name} at zero scale: max|err| {err:.3e} from the reference, limit {atol:.3e}")
+            text += f"; zero scale max|err| {err:.3e} (limit {atol:.3e}); " + noise_gate(
+                name, eps_of(launch(name, one_hot, loc, rho, bloc, negb)))
+        else:
+            diff = (zero - dense16).abs()
+            share = float((diff / gate16).max())
+            if share > 1:
+                fail(f"[reference] {name} at zero scale: max|err| {float(diff.max()):.3e} from the reference on "
+                     f"bf16-rounded x and loc, {share:.3f} of [precision]'s twin gate")
+            text += (f"; zero scale max|err| {float(diff.max()):.3e} from the reference on bf16-rounded x and loc "
+                     f"(at most {share:.3f} of [precision]'s twin gate)")
+        del zero
+        print(text)
+    del dense, dense16
+    torch.cuda.empty_cache()
+    print(f"[reference] phase {time.perf_counter() - t0:.3f} s wall")
 
 
 # (B, I, O, S) beyond the main path: one row, the ragged narrow path, the head
@@ -3143,6 +3290,7 @@ def main() -> None:
         phase_device(torch)
         phase_build(workdir)
         kernels = phase_kernels(torch)
+        phase_reference(torch)
         phase_fwd_edges(torch)
         phase_dx_edges(torch)
         phase_dparams_edges(torch)

@@ -8,6 +8,7 @@ from robustbnns_tpu_torch.ops.sampled_dense import (
     reset_launch_counts,
     sampled_dense,
     sampled_dense_dparams,
+    sampled_dense_reference,
     sampled_dense_xs,
     sampled_dense_xs_dparams,
 )
@@ -15,6 +16,7 @@ from robustbnns_tpu_torch.ops.sampled_dense import (
 __all__ = [
     "sampled_dense",
     "sampled_dense_xs",
+    "sampled_dense_reference",
     "sampled_dense_dparams",
     "sampled_dense_xs_dparams",
     "svi_predict_fused",

@@ -44,6 +44,9 @@ in f32, f32 outputs; the noise, W_s in f32 and the bias as above (dbloc and
 dbrho from the unrounded g, as JAX's ``jnp.sum`` is no ``_dot``). Their twins
 round the same operands and multiply them in f32.
 
+:func:`sampled_dense_reference` is the op with independent ``torch.randn``
+draws, the yardstick for the kernels' noise statistics; it launches no kernel.
+
 Each wrapper launches its kernel for CUDA tensors (or raises), and runs its
 plain PyTorch twin for CPU tensors only. Each counts its kernel launches in
 ``<wrapper>.launches``. The autograd backward launches the dx kernel only when
@@ -1153,3 +1156,28 @@ def sampled_dense(x, loc, rho, bloc, brho, n_samples: int, seed: int = 0) -> tor
 def sampled_dense_xs(xs, loc, rho, bloc, brho, n_samples: int, seed: int = 0) -> torch.Tensor:
     """Per-sample-input sampled dense: ``y[s] = xs[s] @ W_s + b_s``; ``xs``: (S, B, I)."""
     return SampledDenseXs.apply(xs, loc, rho, bloc, brho, n_samples, int(seed))
+
+
+def sampled_dense_reference(x, loc, rho, bloc, brho, n_samples: int, generator, *, eps_w=None, eps_b=None):
+    """Plain reference of the same op with independent normal draws (port of
+    ``sampled_dense_reference``, ``sampled_dense.py:323-338``), ``(S, B, O)``:
+    ``out[s] = x @ (loc + softplus(rho)·eps_w[s]) + bloc + softplus(brho)·eps_b[s]``.
+
+    ``eps_w`` (S, I, O) and ``eps_b`` (S, O) default to ``torch.randn`` draws
+    from ``generator`` (:func:`.utils.prng.key_from_seed`), moved to ``x``'s
+    device; a test passes JAX's draws in their place. They are not the
+    kernels' Philox stream, so the kernels meet it in distribution (moments)
+    and exactly in the zero-scale limit, where the noise cancels. No path of
+    the port calls it.
+    """
+    shapes = ((n_samples, *loc.shape), (n_samples, *bloc.shape))
+    eps = []
+    for given, shape in zip((eps_w, eps_b), shapes):
+        if given is None:
+            given = torch.randn(shape, generator=generator, device=generator.device, dtype=loc.dtype)
+        elif tuple(given.shape) != shape:
+            raise ValueError(f"noise of shape {tuple(given.shape)}, expected {shape}")
+        eps.append(given.to(x.device))
+    w = loc + softplus(rho) * eps[0]
+    b = bloc + softplus(brho) * eps[1]
+    return torch.matmul(x, w) + b[:, None, :]

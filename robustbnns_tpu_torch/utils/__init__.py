@@ -1,4 +1,4 @@
-from robustbnns_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+from robustbnns_tpu_torch.utils.checkpoint import load_pytree, save_pytree, wait_for_checkpoints
 from robustbnns_tpu_torch.utils.prng import key_from_seed, keys_from_seeds
 from robustbnns_tpu_torch.utils.pytree import (
     flatten_tree_to_vector,
@@ -23,6 +23,7 @@ __all__ = [
     "tree_map_with_path_names",
     "save_pytree",
     "load_pytree",
+    "wait_for_checkpoints",
     "execution_time",
     "Timer",
     "maybe_profile",

@@ -7,8 +7,14 @@ plus a JSON meta blob under ``__robustbnns_meta__``. A mean-field posterior's
 leaves are ``loc/0/b``, ``loc/0/w``, ..., ``rho/2/w``. So a posterior saved by
 either package loads in the other unchanged.
 
-The JAX package's Orbax backend (``ROBUSTBNNS_CKPT_BACKEND=orbax``) is JAX-only
-and is left out: the port reads and writes npz only.
+The backend switch is the JAX package's (``_backend``, ``checkpoint.py:35-40``):
+``backend=`` first, then ``ROBUSTBNNS_CKPT_BACKEND``, then ``npz``; any other
+name than ``npz`` or ``orbax`` is a ``ValueError``. The Orbax backend is not
+ported: a save under ``orbax``, and a load of an Orbax directory
+(``<path>.orbax``, or a path ending in ``.orbax``) that has no npz beside it,
+raise ``NotImplementedError`` naming Orbax, before anything is written or
+read. The port's saves are synchronous, so :func:`wait_for_checkpoints` has
+nothing to wait for.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 from robustbnns_tpu_torch.parallel.mesh import write_on_rank_zero
 
 _META_KEY = "__robustbnns_meta__"
+_ORBAX_SUFFIX = ".orbax"
 
 
 def _flatten_with_names(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
@@ -83,13 +90,43 @@ def _npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def save_pytree(tree: Any, path: str, meta: Optional[dict] = None) -> str:
+def _backend(backend: Optional[str]) -> str:
+    backend = backend or os.environ.get("ROBUSTBNNS_CKPT_BACKEND", "npz")
+    if backend not in ("npz", "orbax"):
+        raise ValueError(f"unknown checkpoint backend {backend!r}")
+    return backend
+
+
+def _orbax_not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: the Orbax checkpoint backend (ROBUSTBNNS_CKPT_BACKEND=orbax) is not "
+        "ported; the port writes npz only, and npz checkpoints load in both packages "
+        "(save with backend='npz')"
+    )
+
+
+def _refuse_orbax(path: str) -> None:
+    """Raise when ``path`` names an Orbax checkpoint and no npz: the path ends
+    in ``.orbax`` (the one JAX's save returns) or ``<path>.orbax`` is a
+    directory (JAX ``load_pytree``'s detection, ``checkpoint.py:165-171``)."""
+    if os.path.exists(_npz_path(path)):
+        return
+    stem = path.removesuffix(".npz")
+    if stem.endswith(_ORBAX_SUFFIX) or os.path.isdir(stem + _ORBAX_SUFFIX):
+        raise _orbax_not_ported(f"checkpoint {path} is an Orbax directory")
+
+
+def save_pytree(tree: Any, path: str, meta: Optional[dict] = None, backend: Optional[str] = None) -> str:
     """Save a tree of tensors or arrays to ``path`` (``.npz`` appended if missing).
 
-    Saves from a process that served synthetic surrogate data are tagged with the
-    surrogate generator version. Under a default mesh (``--mesh``) rank 0
-    writes and every rank waits for it (:func:`.parallel.mesh.write_on_rank_zero`).
+    ``backend`` (or ``ROBUSTBNNS_CKPT_BACKEND``) ``orbax`` raises
+    ``NotImplementedError`` before anything is written. Saves from a process
+    that served synthetic surrogate data are tagged with the surrogate
+    generator version. Under a default mesh (``--mesh``) rank 0 writes and
+    every rank waits for it (:func:`.parallel.mesh.write_on_rank_zero`).
     """
+    if _backend(backend) == "orbax":
+        raise _orbax_not_ported(f"cannot save {path}")
     meta = {**_surrogate_meta(), **(meta or {})}
     path = _npz_path(path)
 
@@ -111,8 +148,9 @@ def load_pytree(template: Any, path: str, device="cpu") -> Any:
     structure of ``template``, as float tensors on ``device``.
 
     Warns when the checkpoint's synthetic-surrogate version differs from this
-    process's generator.
+    process's generator. A JAX Orbax checkpoint raises ``NotImplementedError``.
     """
+    _refuse_orbax(path)
     _warn_surrogate_mismatch(path)
     path = _npz_path(path)
     leaves = []
@@ -131,10 +169,17 @@ def load_pytree(template: Any, path: str, device="cpu") -> Any:
 
 
 def load_meta(path: str) -> dict:
+    _refuse_orbax(path)
     with np.load(_npz_path(path), allow_pickle=False) as data:
         if _META_KEY not in data:
             return {}
         return json.loads(bytes(data[_META_KEY]).decode("utf-8"))
+
+
+def wait_for_checkpoints() -> None:
+    """Return at once: the port's saves are synchronous npz writes, so none is
+    ever in flight (JAX's waits for its async Orbax saves and returns at once
+    when none is pending, ``checkpoint.py:149-152``)."""
 
 
 def params_from_numpy(tree, device="cpu"):

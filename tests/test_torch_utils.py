@@ -5,7 +5,10 @@
 The path names must equal JAX's string for string; the timer is checked
 against the host clock only (the CPU has no card to wait for).
 """
+import importlib
+import inspect
 import os
+import pkgutil
 import time
 
 import jax
@@ -76,10 +79,9 @@ def test_maybe_profile_traces_only_with_a_directory(tmp_path):
 
 def test_package_exports_cover_jaxs():
     """Every name the JAX package's ``utils`` and ``inference`` export exists
-    in the port's, but JAX machinery (``wait_for_checkpoints``: Orbax's async
-    saves); the port adds ``maybe_profile``, ``tree_map_with_path_names`` and
-    the info tuples."""
-    assert set(jax_utils.__all__) - set(utils.__all__) == {"wait_for_checkpoints"}
+    in the port's; the port adds ``maybe_profile``, ``tree_map_with_path_names``
+    and the info tuples."""
+    assert set(jax_utils.__all__) <= set(utils.__all__)
     assert set(jax_inference.__all__) <= set(inference.__all__)
     for module in (utils, inference):
         for name in module.__all__:
@@ -89,3 +91,39 @@ def test_package_exports_cover_jaxs():
     assert float(inference.gaussian_kl_to_std_normal(post)) > 0
     w = inference.sample_meanfield(post, torch.Generator().manual_seed(1))
     assert np.all([a.shape == b.shape for a, b in zip(jax.tree_util.tree_leaves(w), jax.tree_util.tree_leaves(post.loc))])
+
+
+SUBPACKAGES = ("analysis", "attacks", "data", "inference", "models", "ops", "parallel", "utils")
+# Public functions of the JAX package with no torch role: jit and PRNG-key
+# machinery (ROADMAP.md, "Modules"). Any other gap fails below.
+JAX_ONLY = {
+    "predict": {"attach_pure", "split_pure", "normalize_forward", "resolve_sample_keys"},
+    "utils.prng": {"make_key", "use_fast_prng"},
+}
+
+
+@pytest.mark.parametrize("name", SUBPACKAGES)
+def test_subpackage_exports_cover_jaxs(name):
+    """Every name in a JAX subpackage's ``__all__`` is in the port's ``__all__``."""
+    ours = importlib.import_module(f"robustbnns_tpu_torch.{name}")
+    theirs = importlib.import_module(f"robustbnns_tpu.{name}")
+    assert set(theirs.__all__) <= set(ours.__all__)
+    assert all(getattr(ours, n) is not None for n in ours.__all__)
+
+
+def test_every_module_covers_jaxs_but_the_pinned_machinery():
+    """For every module of the JAX package, the public functions and classes
+    it defines that the port's module of the same path lacks are exactly the
+    pinned jit/PRNG machinery."""
+    import robustbnns_tpu
+
+    gaps = {}
+    for info in pkgutil.walk_packages(robustbnns_tpu.__path__, "robustbnns_tpu."):
+        theirs = importlib.import_module(info.name)
+        ours = importlib.import_module("robustbnns_tpu_torch" + info.name.removeprefix("robustbnns_tpu"))
+        missing = {n for n, v in vars(theirs).items()
+                   if not n.startswith("_") and (inspect.isfunction(v) or inspect.isclass(v))
+                   and v.__module__ == info.name and not hasattr(ours, n)}
+        if missing:
+            gaps[info.name.removeprefix("robustbnns_tpu.")] = missing
+    assert gaps == JAX_ONLY
