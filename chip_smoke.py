@@ -1406,10 +1406,11 @@ def phase_precision_dparams(torch) -> dict:
         public, kernel, _ = kinds[kind]
         name = kernel.__name__
         with env_var("ROBUSTBNNS_KERNEL_PRECISION", "default"):
-            before = (kernel.launches, public.launches)
+            before = sd.launch_counts()
             got, again = public(*args), public(*args)
             torch.cuda.synchronize()
-            counted = (kernel.launches - before[0], public.launches - before[1])
+            after = sd.launch_counts()
+            counted = tuple(after[w.__name__] - before[w.__name__] for w in (kernel, public))
         if counted != (2, 0):
             fail(f"[precision] {name} {shape_text}: two calls under the variable counted {counted[0]} bf16 and "
                  f"{counted[1]} f32 launches")

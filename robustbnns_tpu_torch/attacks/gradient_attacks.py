@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from robustbnns_tpu_torch.attacks.measures import softmax_robustness
 from robustbnns_tpu_torch.config import TESTS
 from robustbnns_tpu_torch.parallel.mesh import resolve_mesh, run_on_rows, write_on_rank_zero
+from robustbnns_tpu_torch.utils.timing import count, span
 
 
 def ce_on_outputs(outputs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -54,8 +55,10 @@ def _input_gradients(forward_fn, x, labels, generator):
     """Per-image ∇ₓ CE — one batched forward/backward (summed CE)."""
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
-        loss = ce_on_outputs(forward_fn(x, generator), labels).sum()
-        (grad,) = torch.autograd.grad(loss, x)
+        with span("predictive.forward"):
+            loss = ce_on_outputs(forward_fn(x, generator), labels).sum()
+        with span("predictive.backward"):
+            (grad,) = torch.autograd.grad(loss, x)
     return grad
 
 
@@ -84,8 +87,10 @@ def fgsm_attack(
     mesh = resolve_mesh(mesh)
 
     def rows(x, labels):
-        grads = _input_gradients(forward_fn, x, labels, generator)
-        return torch.clamp(x + epsilon * _gradient_sign(grads), 0.0, 1.0)
+        count("attack.iterations")
+        with span("attack.iteration"):
+            grads = _input_gradients(forward_fn, x, labels, generator)
+            return torch.clamp(x + epsilon * _gradient_sign(grads), 0.0, 1.0)
 
     if mesh is None:
         return rows(x, _labels(y))
@@ -122,9 +127,11 @@ def pgd_attack(
     def rows(x, labels, alpha):
         x0 = x
         for _ in range(iters):
-            grads = _input_gradients(forward_fn, x, labels, generator)
-            eta = torch.clamp(x + alpha * _gradient_sign(grads) - x0, -epsilon, epsilon)
-            x = torch.clamp(x0 + eta, 0.0, 1.0)
+            count("attack.iterations")
+            with span("attack.iteration"):
+                grads = _input_gradients(forward_fn, x, labels, generator)
+                eta = torch.clamp(x + alpha * _gradient_sign(grads) - x0, -epsilon, epsilon)
+                x = torch.clamp(x0 + eta, 0.0, 1.0)
         return x
 
     if mesh is None:
@@ -174,11 +181,13 @@ def attack(
     kwargs = {"fused": True} if fused else {}
     forward_fn = model.predictive_fn(n_samples=n_samples, avg_posterior=avg_posterior, **kwargs)
     run = fgsm_attack if method == "fgsm" else pgd_attack
-    x_adv = torch.cat([
-        run(forward_fn, x[i : i + batch_size], y[i : i + batch_size],
-            epsilon=epsilon, generator=generator, mesh=mesh)
-        for i in range(0, x.shape[0], batch_size)
-    ])
+
+    def one_batch(i):
+        with span("attack.batch", count("attack.batches")):
+            return run(forward_fn, x[i : i + batch_size], y[i : i + batch_size],
+                       epsilon=epsilon, generator=generator, mesh=mesh)
+
+    x_adv = torch.cat([one_batch(i) for i in range(0, x.shape[0], batch_size)])
     if save and filename is not None:
         save_attack(
             x_adv, method=method, filename=filename, savedir=savedir,

@@ -37,7 +37,7 @@ from robustbnns_tpu_torch.data.loaders import batch_arrays
 from robustbnns_tpu_torch.parallel.mesh import reduce_sum, replicate, resolve_mesh, split_rows, sum_gradients
 from robustbnns_tpu_torch.utils.device import resolve_device
 from robustbnns_tpu_torch.utils.pytree import Params, map_params, normal_like_tree, tree_leaves
-from robustbnns_tpu_torch.utils.timing import execution_time
+from robustbnns_tpu_torch.utils.timing import count, execution_time, span
 
 
 class MeanFieldPosterior(NamedTuple):
@@ -121,18 +121,23 @@ def elbo_step(apply_fn, optimizer: torch.optim.Optimizer, posterior: MeanFieldPo
     """
     optimizer.zero_grad(set_to_none=True)
     if mesh is None:
-        loss = elbo_loss(apply_fn, posterior, eps, x, labels, mask)
-        loss.backward()
+        with span("svi.elbo.forward"):
+            loss = elbo_loss(apply_fn, posterior, eps, x, labels, mask)
+        with span("svi.elbo.backward"):
+            loss.backward()
         optimizer.step()
         return loss.detach()
 
     leaves = tree_leaves(posterior.loc) + tree_leaves(posterior.rho)
     rows, kl = split_rows(x.shape[0], mesh), mesh.index("data") == 0
-    if rows.stop > rows.start:
-        loss = elbo_loss(apply_fn, posterior, eps, x[rows], labels[rows], None if mask is None else mask[rows], kl)
-    else:  # this rank holds no row of the batch
-        loss = gaussian_kl_to_std_normal(posterior) if kl else x.new_zeros((), requires_grad=True)
-    loss.backward()
+    with span("svi.elbo.forward"):
+        if rows.stop > rows.start:
+            loss = elbo_loss(apply_fn, posterior, eps, x[rows], labels[rows], None if mask is None else mask[rows],
+                             kl)
+        else:  # this rank holds no row of the batch
+            loss = gaussian_kl_to_std_normal(posterior) if kl else x.new_zeros((), requires_grad=True)
+    with span("svi.elbo.backward"):
+        loss.backward()
     loss = sum_gradients(loss, leaves, mesh)
     optimizer.step()
     return loss
@@ -173,12 +178,13 @@ def generator_draws(
 
 def _train_correct(apply_fn, posterior, eps, bx, labels, mask, bf16: bool) -> torch.Tensor:
     """Correct rows of one batch under the averaged softmax of the stacked draws ``eps``."""
-    w = sample_meanfield_eps(posterior, eps)
-    if bf16:  # metric only: the ELBO step above stays f32
-        w = map_params(lambda a: a.to(torch.bfloat16), w)
-        bx = bx.to(torch.bfloat16)
-    probs = torch.softmax(apply_fn(w, bx).float(), dim=-1).mean(dim=0)
-    return ((probs.argmax(-1) == labels) * mask).sum()
+    with span("svi.accuracy"):
+        w = sample_meanfield_eps(posterior, eps)
+        if bf16:  # metric only: the ELBO step above stays f32
+            w = map_params(lambda a: a.to(torch.bfloat16), w)
+            bx = bx.to(torch.bfloat16)
+        probs = torch.softmax(apply_fn(w, bx).float(), dim=-1).mean(dim=0)
+        return ((probs.argmax(-1) == labels) * mask).sum()
 
 
 def svi_epoch(
@@ -207,13 +213,18 @@ def svi_epoch(
     rows = slice(None)
     if mesh is not None:
         rows = split_rows(batch_size, mesh)
-    for bx, by, mask, eps, acc_eps in zip(xb, yb, mb, draws.elbo_eps, draws.acc_eps, strict=True):
-        labels = by.argmax(-1)
-        loss_sum += elbo_step(apply_fn, optimizer, posterior, eps, bx, labels, mask, mesh)
-        if train_acc_samples > 0 and bx[rows].shape[0]:
-            with torch.no_grad():
-                correct += _train_correct(apply_fn, posterior, acc_eps, bx[rows], labels[rows], mask[rows],
-                                          train_acc_bf16)
+    steps = zip(xb, yb, mb, draws.elbo_eps, draws.acc_eps, strict=True)
+    for _ in range(xb.shape[0]):
+        with span("svi.step", count("svi.steps")):
+            with span("svi.draws"):
+                bx, by, mask, eps, acc_eps = next(steps)
+            labels = by.argmax(-1)
+            loss_sum += elbo_step(apply_fn, optimizer, posterior, eps, bx, labels, mask, mesh)
+            if train_acc_samples > 0 and bx[rows].shape[0]:
+                with torch.no_grad():
+                    correct += _train_correct(apply_fn, posterior, acc_eps, bx[rows], labels[rows], mask[rows],
+                                              train_acc_bf16)
+    next(steps, None)  # the strict zip raises here if draws are left over
     if mesh is not None:
         (correct,) = reduce_sum([correct], mesh)
     return loss_sum, correct

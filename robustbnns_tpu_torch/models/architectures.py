@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from robustbnns_tpu_torch.utils.device import bf16_products
 from robustbnns_tpu_torch.utils.pytree import Params, map_params
+from robustbnns_tpu_torch.utils.timing import span
 
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "relu": F.relu,
@@ -160,17 +161,18 @@ def _conv_trunk_apply(act, params: Params, x: torch.Tensor) -> torch.Tensor:
     channels.
     """
     n_draws = params[0]["w"].shape[0]
-    if x.dim() == 5:
-        h, groups = x.permute(1, 0, 4, 2, 3).reshape(x.shape[1], -1, x.shape[2], x.shape[3]), n_draws
-    else:
-        h, groups = x.permute(0, 3, 1, 2), 1  # NHWC -> NCHW
-    h = _conv2d(h, _oihw(params[0]["w"]), params[0]["b"].reshape(-1), groups)
-    h = F.max_pool2d(act(h), 2, 2)
-    h = _conv2d(h, _oihw(params[1]["w"]), params[1]["b"].reshape(-1), n_draws)
-    h = F.max_pool2d(act(h), 2, 1)  # (B, S·hidden, h4, w4)
-    batch, _, h4, w4 = h.shape
-    h = h.reshape(batch, n_draws, -1, h4, w4).permute(1, 0, 3, 4, 2).reshape(n_draws, batch, -1)
-    return _dense(h, params[2])
+    with span("conv_trunk"):
+        if x.dim() == 5:
+            h, groups = x.permute(1, 0, 4, 2, 3).reshape(x.shape[1], -1, x.shape[2], x.shape[3]), n_draws
+        else:
+            h, groups = x.permute(0, 3, 1, 2), 1  # NHWC -> NCHW
+        h = _conv2d(h, _oihw(params[0]["w"]), params[0]["b"].reshape(-1), groups)
+        h = F.max_pool2d(act(h), 2, 2)
+        h = _conv2d(h, _oihw(params[1]["w"]), params[1]["b"].reshape(-1), n_draws)
+        h = F.max_pool2d(act(h), 2, 1)  # (B, S·hidden, h4, w4)
+        batch, _, h4, w4 = h.shape
+        h = h.reshape(batch, n_draws, -1, h4, w4).permute(1, 0, 3, 4, 2).reshape(n_draws, batch, -1)
+        return _dense(h, params[2])
 
 
 def _normalize_input_shape(input_shape: Sequence[int]) -> tuple:

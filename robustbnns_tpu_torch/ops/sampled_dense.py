@@ -49,10 +49,11 @@ draws, the yardstick for the kernels' noise statistics; it launches no kernel.
 
 Each wrapper launches its kernel for CUDA tensors (or raises), and runs its
 plain PyTorch twin for CPU tensors only. Each counts its kernel launches in
-``<wrapper>.launches``. The autograd backward launches the dx kernel only when
-the input's gradient is asked for and the dparams kernel only when a
-parameter's is, as the JAX VJP splits them into two ``pallas_call``s that XLA
-can drop one by one (``sampled_dense.py:252-254``).
+the counter ``sampled_dense.<wrapper>`` (:func:`launch_counts`). The
+autograd backward launches the dx kernel only when the input's gradient is
+asked for and the dparams kernel only when a parameter's is, as the JAX VJP
+splits them into two ``pallas_call``s that XLA can drop one by one
+(``sampled_dense.py:252-254``).
 """
 from __future__ import annotations
 
@@ -64,6 +65,7 @@ import numpy as np
 import torch
 
 from robustbnns_tpu_torch.ops.build import library
+from robustbnns_tpu_torch.utils.timing import count, counters, reset_counters
 
 _MASK = 0xFFFFFFFF
 _TWO_PI_F32 = float(np.float32(6.283185307179586))
@@ -741,7 +743,7 @@ def _dx_bf16_launch(wrapper, plain, g, loc, rho, n_samples: int, seed: int) -> t
     _launch(wrapper.__name__, g.device, g.data_ptr(), loc.data_ptr(), rho.data_ptr(), None,
             partials.data_ptr() if partials is not None else None, out.data_ptr(),
             n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
-    wrapper.launches += 1
+    count("sampled_dense." + wrapper.__name__)
     return out
 
 
@@ -761,7 +763,7 @@ def _xs_bf16_launch(wrapper, plain, a, params, n_samples: int, seed: int, kind: 
     _launch(wrapper.__name__, a.device, a.data_ptr(), *(t.data_ptr() for t in params),
             sp.data_ptr() if sp is not None else None, None, out.data_ptr(),
             n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
-    wrapper.launches += 1
+    count("sampled_dense." + wrapper.__name__)
     return out
 
 
@@ -780,7 +782,7 @@ def _fwd_launch(wrapper, plain, x, loc, rho, bloc, brho, n_samples: int, seed: i
     _launch(wrapper.__name__, x.device, x.data_ptr(), loc.data_ptr(), rho.data_ptr(), bloc.data_ptr(),
             brho.data_ptr(), *(t.data_ptr() if t is not None else None for t in (sp, partials)), out.data_ptr(),
             n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
-    wrapper.launches += 1
+    count("sampled_dense." + wrapper.__name__)
     return out
 
 
@@ -798,7 +800,7 @@ def _dx_launch(wrapper, plain, g, loc, rho, n_samples: int, seed: int, sum_sampl
     _launch(wrapper.__name__, g.device, g.data_ptr(), loc.data_ptr(), rho.data_ptr(),
             *(t.data_ptr() if t is not None else None for t in (sp, partials)), out.data_ptr(),
             n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
-    wrapper.launches += 1
+    count("sampled_dense." + wrapper.__name__)
     return out
 
 
@@ -988,7 +990,7 @@ def _dparams_launch(wrapper, plain, g, x, rho, brho, n_samples: int, seed: int):
             partials.data_ptr() if partials is not None else None,
             dloc.data_ptr(), drho.data_ptr(), dbloc.data_ptr(), dbrho.data_ptr(),
             n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
-    wrapper.launches += 1
+    count("sampled_dense." + wrapper.__name__)
     return dloc, drho, dbloc, dbrho
 
 
@@ -1081,17 +1083,16 @@ KERNEL_WRAPPERS = (
     sampled_dense_fwd_bf16, sampled_dense_dx_bf16, sampled_dense_xs_fwd_bf16, sampled_dense_xs_dx_bf16,
     sampled_dense_dparams_bf16, sampled_dense_xs_dparams_bf16,
 )
-for _wrapper in KERNEL_WRAPPERS:
-    _wrapper.launches = 0
 
 
 def reset_launch_counts() -> None:
-    for wrapper in KERNEL_WRAPPERS:
-        wrapper.launches = 0
+    reset_counters("sampled_dense.")
 
 
 def launch_counts() -> dict[str, int]:
-    return {wrapper.__name__: wrapper.launches for wrapper in KERNEL_WRAPPERS}
+    """Each kernel wrapper's launches, by its name (the counters ``sampled_dense.<wrapper>``)."""
+    counted = counters()
+    return {wrapper.__name__: counted.get("sampled_dense." + wrapper.__name__, 0) for wrapper in KERNEL_WRAPPERS}
 
 
 # --------------------------------------------------------------------------- #
