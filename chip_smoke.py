@@ -106,6 +106,12 @@ Phases, each fatal on failure:
    ``apply``'s logits within 1e-5·max of a loop over the draws (both float64)
    and its f32 logits within 1e-4·max of float64, and the wall and device
    time of one forward plus input gradient;
+   then ``[grouped-conv]``: the trunk's second-conv kernel
+   (``csrc/grouped_conv.cu``) at model_0's attack shapes (B = 128, S = 100),
+   its input channels-last (the trunk's) and NCHW, against float64 within
+   (800 + 1)·2⁻²⁴ of each output's absolute sum of terms, bit-identical
+   across calls, and its device time beside its bound, the plain version's
+   and one ``F.conv2d`` call's;
 10. model_0 attack: Bayesian FGSM and 40-step PGD on a seeded random
    ``model_0`` posterior through the attack CLI (unfused: conv has no fused
    path), 256 images, S = 10: inside the ε-ball and [0, 1], at least 20% of
@@ -1999,39 +2005,79 @@ CONV_TOL_OF_MAX = 1e-4  # f32 against float64 through two convs, softmax and CE
 LOOP_TOL_OF_MAX = 1e-5  # stacked against one draw at a time, both float64
 
 
-def conv_reference(torch, arch, weights, x, pools=None):
+def conv_reference(torch, arch, weights, x, choices=None):
     """model_0's network written out one draw at a time: (S, B, classes)
-    logits and the max-pools' argmax indices. Given ``pools``, each max-pool
-    takes its value at those indices instead: float64 then follows the f32
-    run's choices, and a near-tie that rounds the other way in float64 does
-    not reroute a window's gradient."""
+    logits and, per draw and conv layer, its discrete choices: which leaky
+    units are on their positive branch, the slope, and the max-pool's argmax
+    indices. Given ``choices``, each leaky unit takes the given branch and
+    each max-pool its value at the given indices: float64 then follows the
+    f32 run's choices, and a unit or a near-tie that rounds the other way in
+    float64 does not reroute a gradient."""
     import torch.nn.functional as F
 
     from robustbnns_tpu_torch.models.architectures import ACTIVATIONS
 
     act, logits, chosen = ACTIVATIONS[arch.activation], [], []
 
-    def pool(h, stride, at):
-        if at is None:
-            h, at = F.max_pool2d(h, 2, stride, return_indices=True)
-            return h, at
-        return h.flatten(2).gather(2, at.flatten(2)).reshape(at.shape), at
+    def layer_out(v, stride, given):
+        if given is None:
+            h, at = F.max_pool2d(act(v), 2, stride, return_indices=True)
+            return h, (v > 0, 0.01, at)
+        positive, slope, at = given
+        h = torch.where(positive, v, slope * v)
+        return h.flatten(2).gather(2, at.flatten(2)).reshape(at.shape), given
 
     for s in range(weights[0]["w"].shape[0]):
-        (c1, c2, head), idx = ({k: v[s] for k, v in layer.items()} for layer in weights), []
+        (c1, c2, head), picks = ({k: v[s] for k, v in layer.items()} for layer in weights), []
         h = x.permute(0, 3, 1, 2)
         for layer, stride in ((c1, 2), (c2, 1)):
-            h = act(F.conv2d(h, layer["w"].permute(3, 2, 0, 1), layer["b"]))
-            h, at = pool(h, stride, None if pools is None else pools[s][len(idx)])
-            idx.append(at)
+            v = F.conv2d(h, layer["w"].permute(3, 2, 0, 1), layer["b"])
+            h, pick = layer_out(v, stride, None if choices is None else choices[s][len(picks)])
+            picks.append(pick)
         logits.append(h.permute(0, 2, 3, 1).reshape(h.shape[0], -1) @ head["w"] + head["b"])
-        chosen.append(idx)
+        chosen.append(picks)
     return torch.stack(logits), chosen
+
+
+def recorded_choices(torch, run, n_draws: int) -> list:
+    """The discrete choices of the program's own f32 forward ``run()`` (a
+    leaky conv model's), split by draw as :func:`conv_reference` takes them:
+    ``torch.nn.functional.leaky_relu`` records which units are positive and
+    its slope, ``max_pool2d`` its argmax indices, during the call. The
+    reference then follows the convolutions the program ran, not its own f32
+    pass, whose other order of sums can round a unit at its kink or a
+    near-tie the other way."""
+    import torch.nn.functional as F
+
+    original_pool, original_leaky, pools, branches = F.max_pool2d, F.leaky_relu, [], []
+
+    def pool(h, kernel_size, stride=None, *args, **kwargs):
+        out, at = original_pool(h, kernel_size, stride, *args, return_indices=True, **kwargs)
+        pools.append(at)
+        return out
+
+    def leaky(v, negative_slope=0.01, *args, **kwargs):
+        branches.append((v > 0, negative_slope))
+        return original_leaky(v, negative_slope, *args, **kwargs)
+
+    F.max_pool2d, F.leaky_relu = pool, leaky
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        F.max_pool2d, F.leaky_relu = original_pool, original_leaky
+
+    def of_draw(t, s):
+        return t.reshape(t.shape[0], n_draws, -1, *t.shape[2:])[:, s]
+
+    return [[(of_draw(positive, s), slope, of_draw(at, s)) for (positive, slope), at in zip(branches, pools)]
+            for s in range(n_draws)]
 
 
 def phase_conv(torch) -> None:
     """model_0's seeded 10-draw predictive on the card: against float64 (a
-    written-out reference that follows the f32 run's max-pool choices), the
+    written-out reference that follows the f32 run's leaky branches and
+    max-pool choices), the
     stacked apply against a loop over draws, and the time of one forward plus
     input gradient."""
     from robustbnns_tpu_torch.attacks.gradient_attacks import ce_on_outputs
@@ -2056,9 +2102,12 @@ def phase_conv(torch) -> None:
         return probs.detach(), grad
 
     p32, g32 = probs_and_grad(arch.apply, w, x)
+    choices = recorded_choices(torch, lambda: arch.apply(w, x), S)
     with torch.no_grad():
-        pools = conv_reference(torch, arch, w, x)[1]
-    p64, g64 = probs_and_grad(lambda ws, inp: conv_reference(torch, arch, ws, inp, pools)[0],
+        own = conv_reference(torch, arch, w, x)[1]
+    rerouted = [sum(int((run[k] != ref[k]).sum()) for draw, mine in zip(choices, own) for run, ref in zip(draw, mine))
+                for k in (0, 2)]  # leaky branches, pool indices
+    p64, g64 = probs_and_grad(lambda ws, inp: conv_reference(torch, arch, ws, inp, choices)[0],
                               map_params(torch.Tensor.double, w), x.double())
     if not (torch.isfinite(p32).all() and torch.isfinite(g32).all()):
         fail("[conv] the model_0 predictive gave non-finite values")
@@ -2090,11 +2139,122 @@ def phase_conv(torch) -> None:
     dev_ms, prof_ms = profiled_device_ms(torch, run, "conv")
     print(f"[conv] model_0 conv-512, {n_params} parameters ({2 * n_params} variational), B={B} S={S} "
           f"seeded: probabilities within {errs[0]:.3e} and input gradient within {errs[1]:.3e} of max|float64| "
-          f"(tol {CONV_TOL_OF_MAX:.0e}); float64 stacked logits within {loop_err:.3e} of a float64 loop over "
+          f"(tol {CONV_TOL_OF_MAX:.0e}; float64 on the run's leaky branches and pool choices, of which the "
+          f"reference's own f32 pass takes {rerouted[0]} and {rerouted[1]} elsewhere); float64 stacked logits "
+          f"within {loop_err:.3e} of a float64 loop over "
           f"draws (tol {LOOP_TOL_OF_MAX:.0e}); f32 logits from float64: stacked {f32_errs[0]:.3e}, looped "
           f"{f32_errs[1]:.3e} (tol {CONV_TOL_OF_MAX:.0e}); forward + input gradient "
           f"{1e3 * statistics.median(walls):.3f} ms wall (median of 5), {dev_ms:.3f} ms of device kernels "
           f"({prof_ms:.3f} ms wall under the profiler)")
+
+
+GROUPED_CONV_SHAPES = (  # (B, S, hidden, input layout, the callers of that shape)
+    (128, 100, 512, "channels_last", "model_0's attack at S = 100, the trunk's layout"),
+    (128, 100, 512, "nchw", "model_0's attack at S = 100 on per-draw inputs"),
+    (128, 10, 512, "channels_last", "model_0 at S = 10: the attack CLI, SVI's accuracy draws"),
+    (100, 10, 512, "channels_last", "the 10-member ensemble's batch of 100"),
+    (100, 10, 512, "nchw", "the 10-member ensemble on per-member inputs"),
+    (128, 1, 256, "channels_last", "the NN path at hidden 256 (model_6)"),
+    (128, 1, 512, "channels_last", "the NN path at hidden 512 (model_0)"),
+    (64, 1, 512, "channels_last", "NN training's batch of 64"),
+    (128, 1, 1024, "channels_last", "the NN path at hidden 1024 (model_2, 4, 8, 9)"),
+)
+
+
+def phase_grouped_conv(torch) -> dict:
+    """``csrc/grouped_conv.cu`` at the shapes its callers give it
+    (:data:`GROUPED_CONV_SHAPES`, model_0's attack first): against float64
+    ``F.conv2d`` within (K + 1)·2⁻²⁴ of each output's absolute sum of terms
+    (K = 800), bit-identical across calls, the output in the input's layout;
+    its device time beside its bound (2·B·S·64·hidden·800 FLOP at the FP32
+    peak), the plain version's (``F.conv2d`` with ``groups=S`` on the
+    permuted weights) and the library's (``F.conv2d`` on weights permuted
+    beforehand, what the trunk ran before the kernel). The result holds
+    model_0's attack shape in the trunk's layout, and every shape under
+    ``per_shape``."""
+    import torch.nn.functional as F
+
+    gc = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv")
+    r = None
+    for b_dim, n_draws, hidden, layout, callers in GROUPED_CONV_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(2026 + b_dim + n_draws + hidden)
+        x = torch.rand((b_dim, 32 * n_draws, 12, 12), generator=gen, device="cuda")
+        if layout == "channels_last":
+            x = x.contiguous(memory_format=torch.channels_last)
+        w = torch.randn((n_draws, 5, 5, 32, hidden), generator=gen, device="cuda") / 800**0.5
+        bias = 0.1 * torch.randn((n_draws, hidden), generator=gen, device="cuda")
+        w_oihw, b_flat = gc.oihw(w), bias.reshape(-1)
+        flops = 2.0 * b_dim * n_draws * 64 * hidden * 800
+        nbytes = 4.0 * (x.numel() + w.numel() + bias.numel() + b_dim * n_draws * hidden * 64)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        shape = f"B={b_dim} S={n_draws} hidden={hidden} {layout}"
+        got = gc.grouped_conv_fwd(x, w, bias)
+        with torch.no_grad():
+            exact = gc.grouped_conv_plain(x.double(), w.double(), bias.double())
+            terms = gc.grouped_conv_plain(x.double().abs(), w.double().abs(), bias.double().abs())
+            err = (got.double() - exact).abs()
+            share = float((err / (801 * 2.0**-24 * terms)).max())
+            rel = float(err.max() / exact.abs().max())
+            del exact, terms, err
+        if share > 1:
+            fail(f"[grouped-conv] {shape}: {share:.3f} of the f32 bound (K + 1)·2⁻²⁴·Σ|terms| from float64")
+        out_format = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+        if not torch.equal(got, gc.grouped_conv_fwd(x, w, bias)) or not got.is_contiguous(memory_format=out_format):
+            fail(f"[grouped-conv] {shape}: two calls differ, or the output left the input's layout")
+        same = torch.equal(got, F.conv2d(x, w_oihw, b_flat, groups=n_draws))
+        del got
+        calls = 4 if n_draws * b_dim > 2000 else 20
+        ms = device_ms(torch, lambda: gc.grouped_conv_fwd(x, w, bias), calls=calls)
+        c_ms = call_ms(torch, lambda: gc.grouped_conv_fwd(x, w, bias), reps=10)
+        plain_ms = device_ms(torch, lambda: gc.grouped_conv_plain(x, w, bias), calls=calls)
+        lib_ms = device_ms(torch, lambda: F.conv2d(x, w_oihw, b_flat, groups=n_draws), calls=calls)
+        print(f"[grouped-conv] {shape} ({callers}): max|err| {rel:.3e} of max|float64|, {share:.4f} of the f32 "
+              f"bound; kernel {ms:.4f} ms (call {c_ms:.4f}), bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% "
+              f"of it, {flops / ms * 1e-9:.2f} TFLOP/s; plain {plain_ms:.4f} ms, library F.conv2d {lib_ms:.4f} ms "
+              f"= {lib_ms / ms:.2f}x the kernel's time (bit-equal to the kernel: {same})")
+        row = {"shape": shape, "ms": ms, "call_ms": c_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": rel}
+        if r is None:
+            r = {"name": "grouped_conv_fwd", "route": "cuda", "source": "robustbnns_tpu_torch/csrc/grouped_conv.cu",
+                 "replaces": "no Pallas kernel (XLA's conv in the JAX package); cuDNN's grouped conv in the port",
+                 **row, "flops": flops, "bytes": nbytes, "per_shape": []}
+        r["max_abs_err"] = max(r["max_abs_err"], rel)
+        r["per_shape"].append(row)
+    return {r["name"]: r}
+
+
+@contextlib.contextmanager
+def grouped_conv_launches(torch, phase: str, launches: dict):
+    """Fail ``phase`` unless every forward of the conv trunk's second conv
+    inside the block ran the grouped-conv kernel, one launch a forward (these
+    phases run model_0 in f32 on the card, where the trunk routes every one to
+    it), and no sampled-dense kernel launched. Records the launches in
+    ``launches[phase]``."""
+    from robustbnns_tpu_torch import ops
+    from robustbnns_tpu_torch.models import architectures
+
+    forwards, routed = [], architectures._grouped_conv2d
+
+    def counted(*args):
+        forwards.append(1)
+        return routed(*args)
+
+    ops.reset_launch_counts()
+    architectures._grouped_conv2d = counted
+    try:
+        yield
+    finally:
+        architectures._grouped_conv2d = routed
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    fwd = counts.pop("grouped_conv.fwd")
+    if any(counts.values()):
+        fail(f"[{phase}] launched a sampled-dense kernel: {counts}")
+    if not fwd == len(forwards) > 0:
+        fail(f"[{phase}] {fwd} grouped-conv launches for the conv trunk's {len(forwards)} forwards of its second conv")
+    launches[phase] = fwd
+    print(f"[{phase}] grouped-conv launches {fwd}, one for each of the trunk's {len(forwards)} second-conv forwards; "
+          f"no sampled-dense launch")
 
 
 def phase_model0_attack(torch, workdir: str) -> None:
@@ -3306,9 +3466,14 @@ def main() -> None:
         phase_training(torch)
         phase_train_profile(torch)
         phase_conv(torch)
-        phase_model0_attack(torch, workdir)
-        trained = phase_northstar(torch)
-        phase_loss_gradients(torch, trained)
+        grouped = phase_grouped_conv(torch)
+        conv_launches = {}
+        with grouped_conv_launches(torch, "model0-attack", conv_launches):
+            phase_model0_attack(torch, workdir)
+        with grouped_conv_launches(torch, "northstar", conv_launches):
+            trained = phase_northstar(torch)
+        with grouped_conv_launches(torch, "loss-gradients", conv_launches):
+            phase_loss_gradients(torch, trained)
         del trained
         torch.cuda.empty_cache()
         with no_sampled_dense_launch(torch, "hmc-parity"):
@@ -3335,9 +3500,9 @@ def main() -> None:
             phase_nuts_profile(torch, nuts_bnn, nuts_data)
         del nuts_bnn, nuts_data
         torch.cuda.empty_cache()
-        with no_sampled_dense_launch(torch, "nn"):
+        with grouped_conv_launches(torch, "nn", conv_launches):
             phase_nn(torch)
-        with no_sampled_dense_launch(torch, "ensemble"):
+        with grouped_conv_launches(torch, "ensemble", conv_launches):
             phase_ensemble(torch)
         torch.cuda.empty_cache()
         grid = run_phase(torch, "grid", phase_grid)
@@ -3350,10 +3515,11 @@ def main() -> None:
         run_phase(torch, "multimodal", phase_multimodal)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     line = []
-    for name, r in {**kernels, **bf16_kernels}.items():
+    for name, r in {**kernels, **bf16_kernels, **grouped}.items():
         line.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
-            "launches": (grad_counts if name in DPARAMS else bf16_counts if name in bf16_kernels else counts)[name],
+            "launches": sum(conv_launches.values()) if name in grouped else
+            (grad_counts if name in DPARAMS else bf16_counts if name in bf16_kernels else counts)[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": bound_ms(r["flops"], r["bytes"], r.get("peak_flops", PEAK_FP32_FLOPS))[1],

@@ -37,6 +37,7 @@ from typing import Callable, NamedTuple, Sequence
 import torch
 import torch.nn.functional as F
 
+from robustbnns_tpu_torch.ops.grouped_conv import grouped_conv, oihw, takes
 from robustbnns_tpu_torch.utils.device import bf16_products
 from robustbnns_tpu_torch.utils.pytree import Params, map_params
 from robustbnns_tpu_torch.utils.timing import span
@@ -145,9 +146,16 @@ def _conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int) -> t
     return F.conv2d(h, w, b, groups=groups)
 
 
-def _oihw(w: torch.Tensor) -> torch.Tensor:
-    """Stacked HWIO conv weights (S, kh, kw, I, O) as ``F.conv2d``'s (S·O, I, kh, kw)."""
-    return w.permute(0, 4, 3, 1, 2).reshape(-1, w.shape[3], w.shape[1], w.shape[2])
+def _grouped_conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The trunk's second conv, grouped by draw: on the card in exact f32 at
+    the kernel's shapes (32 channels a group, 5×5 on 12×12, hidden a multiple
+    of its 128-channel tile) the hand-written kernel of
+    :mod:`.ops.grouped_conv`, on the stacked HWIO weights as they are and in
+    the input's layout; otherwise (the CPU, bf16 products, other widths,
+    ``torch.func`` transforms) :func:`_conv2d`."""
+    if not bf16_products() and takes(h, w, b):
+        return grouped_conv(h, w.contiguous(), b.contiguous())
+    return _conv2d(h, oihw(w), b.reshape(-1), w.shape[0])
 
 
 def _conv_trunk_apply(act, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -166,9 +174,9 @@ def _conv_trunk_apply(act, params: Params, x: torch.Tensor) -> torch.Tensor:
             h, groups = x.permute(1, 0, 4, 2, 3).reshape(x.shape[1], -1, x.shape[2], x.shape[3]), n_draws
         else:
             h, groups = x.permute(0, 3, 1, 2), 1  # NHWC -> NCHW
-        h = _conv2d(h, _oihw(params[0]["w"]), params[0]["b"].reshape(-1), groups)
+        h = _conv2d(h, oihw(params[0]["w"]), params[0]["b"].reshape(-1), groups)
         h = F.max_pool2d(act(h), 2, 2)
-        h = _conv2d(h, _oihw(params[1]["w"]), params[1]["b"].reshape(-1), n_draws)
+        h = _grouped_conv2d(h, params[1]["w"], params[1]["b"])
         h = F.max_pool2d(act(h), 2, 1)  # (B, S·hidden, h4, w4)
         batch, _, h4, w4 = h.shape
         h = h.reshape(batch, n_draws, -1, h4, w4).permute(1, 0, 3, 4, 2).reshape(n_draws, batch, -1)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from robustbnns_tpu_torch.models.architectures import ACTIVATIONS
+from robustbnns_tpu_torch.models import architectures  # a module: architectures imports this package
 from robustbnns_tpu_torch.ops.sampled_dense import sampled_dense, sampled_dense_xs
 from robustbnns_tpu_torch.utils.prng import draw_seed
 
@@ -39,7 +39,7 @@ def fused_logits(arch, posterior, x: torch.Tensor, n_samples: int, seed: int = 0
             f"fused predictive supports fc/fc2 (got {arch.name!r}); "
             "use the unfused path for conv architectures"
         )
-    act = ACTIVATIONS[arch.activation]
+    act = architectures.ACTIVATIONS[arch.activation]
     loc, rho = posterior.loc, posterior.rho
     h = sampled_dense(
         x.reshape(x.shape[0], -1), loc[0]["w"], rho[0]["w"], loc[0]["b"], rho[0]["b"],

@@ -31,8 +31,9 @@ Adam's own ranges (``Optimizer.zero_grad#Adam.zero_grad``,
 
 **Counters** are process-wide integers, always on (:func:`count`,
 :func:`counters`): ``attack.batches``, ``attack.iterations``, ``svi.steps``,
-and ``sampled_dense.<wrapper>``, each sampled-dense kernel wrapper's
-launches (:func:`.ops.launch_counts`).
+``sampled_dense.<wrapper>``, each sampled-dense kernel wrapper's launches,
+and ``grouped_conv.fwd``, the conv trunk's grouped-conv kernel's
+(:func:`.ops.launch_counts`).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""The CUDA sources of the sampled-dense kernels run on the CPU, against their plain twins.
+"""The CUDA sources of the port's kernels run on the CPU, against their plain twins.
 
 Every ``csrc/*.cu`` source is built with g++ against ``tests/cuda_emulation/``,
 a CPU stand-in for the few CUDA pieces they use (``cuda_runtime.h``: one
@@ -22,7 +22,8 @@ the launch plans of ``ops/sampled_dense.fwd_plan``, ``dx_plan``,
 ``dparams_plan`` (and ``dparams_bf16_plan``: the bf16 parameter-gradient
 kernels also at every split, their bias bit-equal to the f32 kernel's) and
 ``xs_bf16_plan`` (the bf16 forwards and per-sample dx, held further in
-``tests/test_torch_xs_bf16.py``). This checks the kernels' indexing, masking, work split,
+``tests/test_torch_xs_bf16.py``), and the grouped conv of ``grouped_conv.cu`` in both of its
+layouts against ``F.conv2d``. This checks the kernels' indexing, masking, work split,
 fixed-order sum of partials, MMA fragment layout and noise-quad ownership at
 ragged shapes on a machine without a card; the card itself is checked by
 ``tests/test_torch_kernels.py`` and ``chip_smoke.py``. Same gates as there:
@@ -497,3 +498,38 @@ def test_dparams_bf16_plan_walks_every_unit_and_quad_once(shape, sms):
     for si in range(s):
         items = [k for run in units for (us, _, ks) in run if us == si for k in ks]
         assert items == list(range(sd.DP_BF16_EPS_ITEMS))
+
+
+@pytest.fixture(scope="module")
+def grouped_conv_library(tmp_path_factory):
+    dll = build(tmp_path_factory, "grouped_conv.cu", ())
+    dll.grouped_conv_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    dll.grouped_conv_fwd.restype = ctypes.c_int
+    return dll
+
+
+@pytest.mark.parametrize("b_dim,n_draws,hidden", [
+    (3, 2, 128),  # an odd batch: the last block's second image is absent
+    (2, 1, 256),  # two output-channel tiles of one draw
+    (1, 3, 128),  # one image, three draws
+], ids=lambda v: str(v))
+@pytest.mark.parametrize("nhwc", [False, True], ids=["nchw", "channels_last"])
+def test_grouped_conv_kernel_matches_conv2d_on_the_cpu(grouped_conv_library, b_dim, n_draws, hidden, nhwc):
+    """``csrc/grouped_conv.cu`` against ``F.conv2d`` with ``groups=S`` (its
+    plain version), input and output in one layout: the same 800-term f32
+    sums in another order, held to 1e-5 of the largest output (about
+    2⁻²⁴·√800 of a sum, with room). The output starts as NaN, so a missed
+    store shows."""
+    gc = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv")
+    rng = np.random.default_rng(b_dim * 7919 + n_draws * 31 + hidden)
+    fmt = torch.channels_last if nhwc else torch.contiguous_format
+    x = torch.from_numpy(rng.uniform(size=(b_dim, 32 * n_draws, 12, 12)).astype(np.float32))
+    x = x.contiguous(memory_format=fmt)
+    w = torch.from_numpy((rng.normal(size=(n_draws, 5, 5, 32, hidden)) / np.sqrt(800)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=(n_draws, hidden)).astype(np.float32))
+    out = torch.full((b_dim, n_draws * hidden, 8, 8), float("nan")).contiguous(memory_format=fmt)
+    args = (x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), b_dim, n_draws)
+    assert grouped_conv_library.grouped_conv_fwd(*args, hidden, int(nhwc), None) == 0
+    want = gc.grouped_conv_plain(x, w, bias)
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    assert grouped_conv_library.grouped_conv_fwd(*args, 96, int(nhwc), None) != 0  # N not a multiple of 128

@@ -332,3 +332,81 @@ def test_bf16_dparams_kernels_match_bf16_twins(cuda, shape, monkeypatch):
                         + 1e-4 * float(f32_t.abs().max())).all(), (kind, k)
                 err = float((got_t - twin_t).abs().max())
                 assert err < 0.1 * float(err32.max()), (kind, k, err, float(err32.max()))
+
+
+GROUPED_CONV_SHAPES = [  # (B, S, hidden)
+    (128, 8, 512),  # model_0's widths at the attack batch
+    (128, 100, 512),  # model_0's attack: S = 100
+    (128, 8, 256),  # model_6
+    (128, 8, 1024),  # model_2, 4, 8, 9
+    (128, 1, 512),  # the NN path
+    (127, 8, 512),  # a batch that is not a multiple of the block's two images
+    (1, 8, 512),
+]
+
+
+@pytest.mark.parametrize("shape", GROUPED_CONV_SHAPES, ids=lambda s: "B{}_S{}_N{}".format(*s))
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])  # the trunk's, and a per-draw input's
+def test_grouped_conv_kernel_against_float64(cuda, shape, layout):
+    """``csrc/grouped_conv.cu`` against float64 ``F.conv2d`` with ``groups=S``,
+    the output in the input's layout.
+    Each output sums K = 800 products and the bias in f32 with FMAs in a
+    fixed order, so it lies within (K + 1)·2⁻²⁴ of its terms' absolute sum of the
+    exact value (the worst case of a K-term f32 sum; a fault moves outputs
+    by the size of a term, far beyond it). Bit-identical across two calls,
+    and one launch counted a forward."""
+    gc = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv")
+    b_dim, n_draws, hidden = shape
+    gen = torch.Generator(device=cuda).manual_seed(b_dim * 7919 + n_draws * 31 + hidden)
+    x = torch.rand((b_dim, 32 * n_draws, 12, 12), generator=gen, device=cuda)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.randn((n_draws, 5, 5, 32, hidden), generator=gen, device=cuda) / 800**0.5
+    bias = 0.1 * torch.randn((n_draws, hidden), generator=gen, device=cuda)
+    before = gc.launch_counts()["grouped_conv.fwd"]
+    got, again = gc.grouped_conv_fwd(x, w, bias), gc.grouped_conv_fwd(x, w, bias)
+    torch.cuda.synchronize()
+    assert gc.launch_counts()["grouped_conv.fwd"] == before + 2
+    out_format = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+    assert got.is_contiguous(memory_format=out_format)
+    assert torch.equal(got, again) and bool(torch.isfinite(got).all())
+    with torch.no_grad():
+        exact = gc.grouped_conv_plain(x.double(), w.double(), bias.double())
+        terms = gc.grouped_conv_plain(x.double().abs(), w.double().abs(), bias.double().abs())
+        assert bool(((got.double() - exact).abs() <= 801 * 2.0**-24 * terms).all())
+        del exact, terms
+
+
+def test_per_sample_input_grads_on_a_conv_model(cuda, monkeypatch):
+    """``_per_sample_input_grads`` (``vmap`` of ``grad``) on a CUDA f32 conv
+    model of the kernel's widths: the transforms' wrapped tensors keep the
+    trunk on ``F.conv2d``, so it launches no kernel and gives the bits it
+    gives with the kernel's route switched off. Each draw's input gradient
+    is near its one-draw autograd, whose forward is the kernel: the two conv
+    routes round differently, and a max-pool window or leaky unit within that
+    rounding of its switch sends a little of the gradient elsewhere, so the
+    two are held together in norm."""
+    from robustbnns_tpu_torch.analysis.gradients import _per_sample_input_grads, _summed_loss
+    from robustbnns_tpu_torch.models import architectures
+    from robustbnns_tpu_torch.ops import launch_counts
+    from robustbnns_tpu_torch.utils.pytree import map_params
+
+    arch = architectures.build_architecture("conv", "leaky", (28, 28, 1), 10, 512, "mnist")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n_draws = 4
+    params = map_params(lambda v: v[None].repeat(n_draws, *([1] * v.dim())) + 1e-2 * torch.randn(
+        (n_draws,) + v.shape, generator=gen, device=cuda), arch.init(torch.Generator(device=cuda).manual_seed(5)))
+    x = torch.rand((16, 28, 28, 1), generator=gen, device=cuda)
+    labels = torch.randint(0, 10, (16,), generator=gen, device=cuda)
+    before = launch_counts()["grouped_conv.fwd"]
+    got = _per_sample_input_grads(arch.apply, params, x, labels)
+    torch.cuda.synchronize()
+    assert launch_counts()["grouped_conv.fwd"] == before
+    for s in range(n_draws):
+        xs = x.clone().requires_grad_(True)
+        one = map_params(lambda v: v[s:s + 1], params)
+        (want,) = torch.autograd.grad(_summed_loss(arch.apply, one, xs, labels), xs)
+        assert float((got[s] - want).norm() / want.norm()) < 1e-2
+    assert launch_counts()["grouped_conv.fwd"] == before + n_draws
+    monkeypatch.setattr(architectures, "takes", lambda *args: False)
+    assert torch.equal(got, _per_sample_input_grads(arch.apply, params, x, labels))
