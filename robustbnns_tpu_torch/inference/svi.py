@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from robustbnns_tpu_torch.data.loaders import batch_arrays
 from robustbnns_tpu_torch.parallel.mesh import reduce_sum, replicate, resolve_mesh, split_rows, sum_gradients
-from robustbnns_tpu_torch.utils.device import resolve_device
+from robustbnns_tpu_torch.utils.device import exact_f32, resolve_device
 from robustbnns_tpu_torch.utils.pytree import Params, map_params, normal_like_tree, tree_leaves
 from robustbnns_tpu_torch.utils.timing import count, execution_time, span
 
@@ -207,7 +207,12 @@ def svi_epoch(
     rank's rows, with bf16 products under ``train_acc_bf16``. Returns the
     summed loss and the correct count (summed over ``data`` once, at the end)
     as device scalars, without synchronising.
+
+    The products are exact f32 (:func:`.utils.device.exact_f32`) whoever
+    calls it, as in :func:`svi_train`: cuDNN's convolutions otherwise take
+    TF32 by default.
     """
+    exact_f32()
     xb, yb, mb = batch_arrays(x, y, batch_size, perm=draws.perm)
     loss_sum, correct = x.new_zeros(()), x.new_zeros(())
     rows = slice(None)

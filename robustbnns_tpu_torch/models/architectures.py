@@ -1,5 +1,5 @@
-"""The four reference architectures as ``init``/``apply`` functions (port of
-``robustbnns_tpu/models/architectures.py``).
+"""The four reference architectures, and a Bayesian ResNet-20, as
+``init``/``apply`` functions (port of ``robustbnns_tpu/models/architectures.py``).
 
 * ``fc``   — Flatten -> Linear(in, h) -> act -> Linear(h, out)
 * ``fc2``  — Flatten -> Linear(in, h) -> act -> Linear(h, h) -> act -> Linear(h, out)
@@ -8,17 +8,21 @@
   MNIST/Fashion-MNIST only (28 -> 24 -> 12 -> 8 -> 7)
 * ``conv2``— the same trunk with a real, trained head (the JAX package's fix of
   the reference's fresh ``nn.Linear`` on every call, ``model_nn.py:121``)
+* ``resnet20`` — He et al.'s CIFAR-10 ResNet-20 (arXiv:1512.03385, sec. 4.2;
+  no JAX counterpart): a residual trunk of 3×3 convolutions of widths h, 2h
+  and 4h, then global average pooling and a dense head (:func:`_resnet_apply`)
 
 (reference ``model_nn.py:77-121``). Inputs are NHWC and flattened in (h, w, c)
-order, dense weights are ``(I, O)`` and conv weights HWIO ``(5, 5, C_in,
+order, dense weights are ``(I, O)`` and conv weights HWIO ``(k, k, C_in,
 C_out)``, so a JAX checkpoint gives the same logits here; the convs permute to
 OIHW only inside ``apply``. Initialization is torch's ``nn.Linear`` /
 ``nn.Conv2d`` default, ``U(-1/sqrt(fan_in), +1/sqrt(fan_in))`` for weights and
-biases, with ``fan_in = C_in·25`` for a conv. ``apply`` also takes a stacked
+biases, with ``fan_in = C_in·k·k`` for a conv. ``apply`` also takes a stacked
 parameter tree (a leading sample axis S on every leaf) and then returns
 ``(S, batch, out)``: the conv trunk runs the S draws as one convolution with
 S·32 output channels, then one grouped convolution (``groups=S``), with no loop
-over draws. With stacked parameters the input may carry the leading axis too,
+over draws (``resnet20``: the first conv so, every later one grouped). With
+stacked parameters the input may carry the leading axis too,
 ``(S, batch, h, w, c)``, one batch per draw (an ensemble's members, each on its
 own shuffle): the first convolution then groups by draw as well.
 
@@ -40,7 +44,7 @@ import torch.nn.functional as F
 from robustbnns_tpu_torch.ops.grouped_conv import grouped_conv, oihw, takes
 from robustbnns_tpu_torch.utils.device import bf16_products
 from robustbnns_tpu_torch.utils.pytree import Params, map_params
-from robustbnns_tpu_torch.utils.timing import span
+from robustbnns_tpu_torch.utils.timing import count, span
 
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "relu": F.relu,
@@ -61,7 +65,7 @@ class Architecture(NamedTuple):
     hidden_size: int
     activation: str
     # ((fan_in, out), ...) per layer: a dense layer's (I, O); a conv's im2col
-    # product (25·C_in, C_out)
+    # product (k·k·C_in, C_out)
     dims: tuple
 
 
@@ -136,26 +140,38 @@ def _dense(x: torch.Tensor, p: dict) -> torch.Tensor:
     return torch.matmul(x, p["w"]) + p["b"].unsqueeze(-2)
 
 
-def _conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int) -> torch.Tensor:
-    """``F.conv2d`` (VALID, OIHW); under :func:`.utils.device.bf16_products`
-    wholly in bf16, output included, then upcast, the bias added in f32
-    (JAX ``architectures.py:103-111``)."""
+def _conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int, stride: int = 1,
+            padding: int = 0) -> torch.Tensor:
+    """``F.conv2d`` (OIHW; VALID and stride 1 unless asked); under
+    :func:`.utils.device.bf16_products` wholly in bf16, output included, then
+    upcast, the bias added in f32 (JAX ``architectures.py:103-111``)."""
     if bf16_products():
-        y = F.conv2d(h.to(torch.bfloat16), w.to(torch.bfloat16), groups=groups).float()
+        y = F.conv2d(h.to(torch.bfloat16), w.to(torch.bfloat16), None, stride, padding, 1, groups).float()
         return y + b[:, None, None]
-    return F.conv2d(h, w, b, groups=groups)
+    return F.conv2d(h, w, b, stride, padding, 1, groups)
 
 
-def _grouped_conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The trunk's second conv, grouped by draw: on the card in exact f32 at
-    the kernel's shapes (32 channels a group, 5×5 on 12×12, hidden a multiple
-    of its 128-channel tile) the hand-written kernel of
-    :mod:`.ops.grouped_conv`, on the stacked HWIO weights as they are and in
-    the input's layout; otherwise (the CPU, bf16 products, other widths,
-    ``torch.func`` transforms) :func:`_conv2d`."""
-    if not bf16_products() and takes(h, w, b):
+def _grouped_conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int = 1,
+                    padding: int = 0) -> torch.Tensor:
+    """A conv grouped by draw, group s with draw s's stacked HWIO weights
+    ``w[s]``: on the card in exact f32 at the kernel's shapes (the conv
+    trunk's second conv: 32 channels a group, 5×5 VALID on 12×12, hidden a
+    multiple of its 128-channel tile) the hand-written kernel of
+    :mod:`.ops.grouped_conv`, on the stacked weights as they are and in the
+    input's layout; otherwise (the CPU, bf16 products, other shapes, strides
+    or padding, ``torch.func`` transforms) :func:`_conv2d`."""
+    if stride == 1 and padding == 0 and not bf16_products() and takes(h, w, b):
         return grouped_conv(h, w.contiguous(), b.contiguous())
-    return _conv2d(h, oihw(w), b.reshape(-1), w.shape[0])
+    return _conv2d(h, oihw(w), b.reshape(-1), w.shape[0], stride, padding)
+
+
+def _draws_as_channels(x: torch.Tensor, n_draws: int):
+    """The trunks' first input as NCHW and the first conv's groups: a shared
+    input ``(batch, h, w, c)`` as it is (one group); inputs per draw ``(S,
+    batch, h, w, c)`` side by side as S·c channels, one group a draw."""
+    if x.dim() == 5:
+        return x.permute(1, 0, 4, 2, 3).reshape(x.shape[1], -1, x.shape[2], x.shape[3]), n_draws
+    return x.permute(0, 3, 1, 2), 1
 
 
 def _conv_trunk_apply(act, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -170,10 +186,7 @@ def _conv_trunk_apply(act, params: Params, x: torch.Tensor) -> torch.Tensor:
     """
     n_draws = params[0]["w"].shape[0]
     with span("conv_trunk"):
-        if x.dim() == 5:
-            h, groups = x.permute(1, 0, 4, 2, 3).reshape(x.shape[1], -1, x.shape[2], x.shape[3]), n_draws
-        else:
-            h, groups = x.permute(0, 3, 1, 2), 1  # NHWC -> NCHW
+        h, groups = _draws_as_channels(x, n_draws)
         h = _conv2d(h, oihw(params[0]["w"]), params[0]["b"].reshape(-1), groups)
         h = F.max_pool2d(act(h), 2, 2)
         h = _grouped_conv2d(h, params[1]["w"], params[1]["b"])
@@ -181,6 +194,78 @@ def _conv_trunk_apply(act, params: Params, x: torch.Tensor) -> torch.Tensor:
         batch, _, h4, w4 = h.shape
         h = h.reshape(batch, n_draws, -1, h4, w4).permute(1, 0, 3, 4, 2).reshape(n_draws, batch, -1)
         return _dense(h, params[2])
+
+
+RESNET_STAGES, RESNET_BLOCKS = 3, 3  # He et al.'s n = 3: 6n + 2 = 20 weighted layers
+
+
+def _resnet_shapes(c_in: int, width: int, classes: int) -> list:
+    """ResNet-20's weight shapes in order: the first 3×3 conv (c_in -> width),
+    then each stage's blocks, two 3×3 convs a block (HWIO, widths width,
+    2·width, 4·width), then the head (4·width, classes)."""
+    shapes, c = [(3, 3, c_in, width)], width
+    for stage in range(RESNET_STAGES):
+        out = width << stage
+        for _ in range(RESNET_BLOCKS):
+            shapes += [(3, 3, c, out), (3, 3, out, out)]
+            c = out
+    return shapes + [(c, classes)]
+
+
+def _option_a(h: torch.Tensor, n_draws: int, out_channels: int) -> torch.Tensor:
+    """He et al.'s option-A shortcut where a stage halves the sides and
+    widens the channels: every other pixel (``h[:, :, ::2, ::2]``), and each
+    draw's own channels between zeros, a quarter of the new width on each
+    side (8 + 16 + 8 for 16 -> 32; the paper leaves the place open)."""
+    h = h[:, :, ::2, ::2]
+    batch, _, height, width = h.shape
+    h = h.reshape(batch, n_draws, -1, height, width)
+    pad = (out_channels - h.shape[2]) // 2
+    return F.pad(h, (0, 0, 0, 0, pad, pad)).reshape(batch, -1, height, width)
+
+
+def _resnet_apply(act, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """ResNet-20 on stacked parameters: ``(S, batch, out)``.
+
+    ``h = act(conv3x3(x) + b)``; three stages of three basic blocks, ``y =
+    act(conv3x3(h; stride s) + b1)``, ``h = act(conv3x3(y) + b2 +
+    shortcut(h))``, with s = 2 in the first block of stages 2 and 3 and the
+    shortcut the identity or, there, :func:`_option_a`; global average
+    pooling; ``logits = h·W + b``. Every conv pads by 1.
+
+    Departures from He et al., for a posterior over the weights: BatchNorm
+    in its inference form, a per-channel affine map, folded into each conv's
+    weight and bias (so no batch statistics); no per-pixel mean subtracted
+    (inputs in [0, 1], as the attacks clamp them); torch's default init.
+
+    A shared input goes through the first conv once with S·width output
+    channels; inputs per draw group by draw there too
+    (:func:`_draws_as_channels`). Every later conv is grouped by draw
+    (:func:`_grouped_conv2d`; none has the hand-written kernel's shape, so
+    all run on ``F.conv2d``). The trunk runs in contiguous NCHW: cuDNN's
+    grouped engine takes channels-last activations (a shared NHWC input's
+    permute) in three times the kernels, a quarter slower. Counted:
+    ``resnet.forwards``, one a forward, and ``resnet.cudnn_convs``, the
+    convs that no hand-written kernel ran (19); spans ``resnet.stage1`` ..
+    ``resnet.stage3`` inside ``conv_trunk``."""
+    n_draws = params[0]["w"].shape[0]
+    count("resnet.forwards")
+    with span("conv_trunk"):
+        h, groups = _draws_as_channels(x, n_draws)
+        h = act(_conv2d(h.contiguous(), oihw(params[0]["w"]), params[0]["b"].reshape(-1), groups, 1, 1))
+        layer = 1
+        for stage in range(RESNET_STAGES):
+            with span(f"resnet.stage{stage + 1}"):
+                for block in range(RESNET_BLOCKS):
+                    stride = 2 if stage and not block else 1
+                    w = params[layer]["w"]
+                    y = act(_grouped_conv2d(h, w, params[layer]["b"], stride, 1))
+                    shortcut = h if stride == 1 else _option_a(h, n_draws, w.shape[-1])
+                    h = act(_grouped_conv2d(y, params[layer + 1]["w"], params[layer + 1]["b"], 1, 1) + shortcut)
+                    layer += 2
+        count("resnet.cudnn_convs", layer)  # all 19
+        h = h.mean(dim=(2, 3))  # global average pooling: (B, S·4·width)
+        return _dense(h.reshape(h.shape[0], n_draws, -1).transpose(0, 1), params[-1])
 
 
 def _normalize_input_shape(input_shape: Sequence[int]) -> tuple:
@@ -201,12 +286,15 @@ def build_architecture(
     hidden_size: int,
     dataset_name: str = "",
 ) -> Architecture:
-    """Build one of the four reference architectures.
+    """Build one of the four reference architectures, or ``resnet20``.
 
     Raises on non-power-of-two or < 16 hidden sizes (reference
     ``model_nn.py:39-40``), on ``conv`` with a dataset other than MNIST or
-    Fashion-MNIST (``model_nn.py:95``), and where ``conv``'s reference head
-    dimension, (hidden/16)·input_size, differs from what its trunk produces.
+    Fashion-MNIST (``model_nn.py:95``), where ``conv``'s reference head
+    dimension, (hidden/16)·input_size, differs from what its trunk produces,
+    and on ``resnet20`` inputs whose sides do not divide by 4 (its two
+    stride-2 stages). ``resnet20``'s ``hidden_size`` is its first stage's
+    width (16 as published).
     """
     if hidden_size < 16 or (hidden_size & (hidden_size - 1)) != 0:
         raise ValueError("hidden size should be a power of 2, greater than 16.")
@@ -216,7 +304,7 @@ def build_architecture(
     h_in, w_in, c_in = hwc
     input_size = h_in * w_in * c_in
     act = ACTIVATIONS[activation]
-    conv = architecture in ("conv", "conv2")
+    trunk = {"conv": _conv_trunk_apply, "conv2": _conv_trunk_apply, "resnet20": _resnet_apply}.get(architecture)
 
     if architecture == "fc":
         dims = ((input_size, hidden_size), (hidden_size, output_size))
@@ -228,7 +316,12 @@ def build_architecture(
             (hidden_size, output_size),
         )
         w_shapes = dims
-    elif conv:
+    elif architecture == "resnet20":
+        if h_in % 4 or w_in % 4:
+            raise ValueError(f"resnet20 halves the input's sides twice: {hwc} does not divide by 4")
+        w_shapes = tuple(_resnet_shapes(c_in, hidden_size, output_size))
+        dims = tuple((math.prod(shape[:-1]), shape[-1]) for shape in w_shapes)
+    elif trunk is not None:
         if architecture == "conv" and dataset_name not in ("mnist", "fashion_mnist"):
             raise NotImplementedError("conv supports mnist/fashion_mnist only (reference model_nn.py:95)")
         # conv5 VALID -> pool 2/2 -> conv5 VALID -> pool 2/1
@@ -258,10 +351,10 @@ def build_architecture(
         )
 
     def apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-        if conv:
+        if trunk is not None:
             if params[0]["w"].dim() == 5:  # a leading sample axis
-                return _conv_trunk_apply(act, params, x)
-            return _conv_trunk_apply(act, map_params(lambda v: v[None], params), x)[0]
+                return trunk(act, params, x)
+            return trunk(act, map_params(lambda v: v[None], params), x)[0]
         h = x.flatten(-3) if x.dim() == 5 else x.reshape(x.shape[0], -1)
         for p in params[:-1]:
             h = act(_dense(h, p))

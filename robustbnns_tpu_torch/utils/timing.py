@@ -21,6 +21,8 @@ running count) rides in the range's inputs, which a profiler with
 - ``predictive.forward``: the predictive and its summed cross-entropy;
 - ``predictive.backward``: the input gradient (``torch.autograd.grad``);
 - ``conv_trunk``: the conv architectures' forward;
+- ``resnet.stage1``, ``resnet.stage2``, ``resnet.stage3``: ``resnet20``'s
+  three stages, inside ``conv_trunk``;
 - ``svi.step``: one SVI step, its draws, ELBO step and accuracy;
 - ``svi.draws``: the step's pull of its rows and its ELBO and accuracy noise;
 - ``svi.elbo.forward``, ``svi.elbo.backward``: the ELBO loss, its backward;
@@ -33,7 +35,9 @@ Adam's own ranges (``Optimizer.zero_grad#Adam.zero_grad``,
 :func:`counters`): ``attack.batches``, ``attack.iterations``, ``svi.steps``,
 ``sampled_dense.<wrapper>``, each sampled-dense kernel wrapper's launches,
 and ``grouped_conv.fwd``, the conv trunk's grouped-conv kernel's
-(:func:`.ops.launch_counts`).
+(:func:`.ops.launch_counts`); ``resnet.forwards``, one a ``resnet20``
+forward, and ``resnet.cudnn_convs``, its convolutions that ``F.conv2d`` ran
+rather than a hand-written kernel (all 19 a forward).
 """
 from __future__ import annotations
 
