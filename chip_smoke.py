@@ -111,7 +111,16 @@ Phases, each fatal on failure:
    its input channels-last (the trunk's) and NCHW, against float64 within
    (800 + 1)·2⁻²⁴ of each output's absolute sum of terms, bit-identical
    across calls, and its device time beside its bound, the plain version's
-   and one ``F.conv2d`` call's;
+   and one ``F.conv2d`` call's; then ``[grouped-conv3x3]``: ResNet-20's
+   grouped 3×3 kernel (``csrc/grouped_conv3x3.cu``) at its five shapes (B =
+   128, S = 100), forward and input gradient, against float64 within
+   (K + 1)·2⁻²⁴ of each output's absolute sum of terms, bit-identical across
+   calls, its device time beside its bound, the plain twin's and the
+   library's (``F.conv2d``, ``torch.nn.grad.conv2d_input``); and
+   ``[resnet20-attack]``: 40-step PGD at ε 8/255, S = 100 on 128 images of a
+   seeded ``resnet20`` posterior, in the ε-ball and [0, 1], with 18 forward
+   and 18 input-gradient launches of that kernel and one ``F.conv2d`` conv an
+   iteration;
 10. model_0 attack: Bayesian FGSM and 40-step PGD on a seeded random
    ``model_0`` posterior through the attack CLI (unfused: conv has no fused
    path), 256 images, S = 10: inside the ε-ball and [0, 1], at least 20% of
@@ -2223,6 +2232,136 @@ def phase_grouped_conv(torch) -> dict:
     return {r["name"]: r}
 
 
+CONV3X3_BATCH, CONV3X3_DRAWS = 128, 100  # resnet20.pgd.s100.eps8's batch and draws
+
+
+def phase_grouped_conv3x3(torch) -> dict:
+    """``csrc/grouped_conv3x3.cu`` at ResNet-20's five shapes (B 128, S 100,
+    the PGD cell's), forward and input gradient: against its plain twins in
+    float64 within (K + 1)·2⁻²⁴ of each output's absolute sum of terms (K =
+    9·C summed products, and the forward's bias), bit-identical across calls;
+    its device time beside its bound (2·B·S·side²·9·Ci·Co FLOP at the FP32
+    peak, or each tensor's bytes once at HBM's rate), the plain twin's and the
+    library's (``F.conv2d``, and ``torch.nn.grad.conv2d_input`` for the input
+    gradient: cuDNN's grouped engine, what the trunk ran before the kernel).
+    Returns one entry a mode for the ``kernels`` line, every shape under
+    ``per_shape``."""
+    import torch.nn.functional as F
+
+    g3 = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv3x3")
+    b_dim, n_draws = CONV3X3_BATCH, CONV3X3_DRAWS
+    results = {}
+    for mode in ("fwd", "dgrad"):
+        r = None
+        for (c_in, c_out, stride), side in g3.SHAPES.items():
+            out_side = side // stride
+            gen = torch.Generator(device="cuda").manual_seed(2026 + c_in + c_out + stride)
+            w = torch.randn((n_draws, 3, 3, c_in, c_out), generator=gen, device="cuda") / (9 * c_in) ** 0.5
+            w_oihw = g3.oihw(w)
+            x_shape = (b_dim, n_draws * c_in, side, side)
+            if mode == "fwd":
+                x = torch.rand(x_shape, generator=gen, device="cuda")
+                bias = 0.1 * torch.randn((n_draws, c_out), generator=gen, device="cuda")
+                b_flat = bias.reshape(-1)
+                run = lambda: g3.grouped_conv3x3_fwd(x, w, bias, stride)  # noqa: E731
+                twin = lambda f: g3.grouped_conv3x3_plain(f(x), f(w), f(bias), stride)  # noqa: E731
+                lib = lambda: F.conv2d(x, w_oihw, b_flat, stride, 1, 1, n_draws)  # noqa: E731
+                k_terms, nbytes = 9 * c_in + 1, 4.0 * (x.numel() + w.numel() + bias.numel()
+                                                       + b_dim * n_draws * c_out * out_side**2)
+            else:
+                g = torch.randn((b_dim, n_draws * c_out, out_side, out_side), generator=gen, device="cuda")
+                run = lambda: g3.grouped_conv3x3_dgrad(g, w, stride)  # noqa: E731
+                twin = lambda f: g3.grouped_conv3x3_dgrad_plain(f(g), f(w), stride)  # noqa: E731
+                lib = lambda: torch.nn.grad.conv2d_input(x_shape, w_oihw, g, stride, 1, 1, n_draws)  # noqa: E731
+                k_terms, nbytes = 9 * c_out, 4.0 * (g.numel() + w.numel() + math.prod(x_shape))
+            flops = 2.0 * b_dim * n_draws * out_side**2 * 9 * c_in * c_out
+            b_ms, b_by = bound_ms(flops, nbytes)
+            shape = f"{mode} Ci={c_in} Co={c_out} stride={stride} side={side} B={b_dim} S={n_draws}"
+            got = run()
+            with torch.no_grad():
+                exact = twin(lambda t: t.double())
+                terms = twin(lambda t: t.double().abs())
+                err = (got.double() - exact).abs()
+                share = float((err / ((k_terms + 1) * 2.0**-24 * terms)).max())
+                rel = float(err.max() / exact.abs().max())
+                del exact, terms, err
+            if share > 1:
+                fail(f"[grouped-conv3x3] {shape}: {share:.3f} of the f32 bound (K + 1)·2⁻²⁴·Σ|terms| from float64")
+            if not torch.equal(got, run()):
+                fail(f"[grouped-conv3x3] {shape}: two calls differ")
+            del got
+            ms = device_ms(torch, run, calls=4)
+            c_ms = call_ms(torch, run, reps=10)
+            plain_ms = device_ms(torch, lambda: twin(lambda t: t), calls=4)
+            lib_ms = device_ms(torch, lib, calls=4)
+            print(f"[grouped-conv3x3] {shape}: max|err| {rel:.3e} of max|float64|, {share:.4f} of the f32 bound; "
+                  f"kernel {ms:.4f} ms (call {c_ms:.4f}), bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of "
+                  f"it, {flops / ms * 1e-9:.2f} TFLOP/s; plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms = "
+                  f"{lib_ms / ms:.2f}x the kernel's time")
+            row = {"shape": shape, "ms": ms, "call_ms": c_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": rel}
+            if r is None:
+                r = {"name": f"grouped_conv3x3_{mode}", "route": "cuda",
+                     "source": "robustbnns_tpu_torch/csrc/grouped_conv3x3.cu",
+                     "replaces": "no Pallas kernel (the JAX package has no ResNet); cuDNN's grouped conv in the port",
+                     **row, "flops": flops, "bytes": nbytes, "per_shape": []}
+            r["max_abs_err"] = max(r["max_abs_err"], rel)
+            r["per_shape"].append(row)
+        print(f"[grouped-conv3x3] {mode}: the five shapes {sum(x['ms'] for x in r['per_shape']):.4f} ms, bound "
+              f"{sum(x['bound_ms'] for x in r['per_shape']):.4f} ms, library "
+              f"{sum(x['library_ms'] for x in r['per_shape']):.4f} ms")
+        results[r["name"]] = r
+    return results
+
+
+def phase_resnet20_attack(torch) -> dict:
+    """40-iteration PGD at ε 8/255 on a seeded ``resnet20`` posterior (width
+    16, CIFAR-10's 32×32×3) at S 100 on one batch of 128 images, as the
+    ``resnet20.pgd.s100.eps8`` cell attacks: inside the ε-ball and [0, 1],
+    pixels moved, and every iteration's forward ran the 18 grouped 3×3 convs
+    on the kernel and the first conv alone on ``F.conv2d``, and its input
+    gradient the kernel's 18 input gradients, with no other hand-written
+    kernel launched. Returns the launches by counter."""
+    from robustbnns_tpu_torch import ops
+    from robustbnns_tpu_torch.attacks.gradient_attacks import attack
+    from robustbnns_tpu_torch.config import BNNConfig
+    from robustbnns_tpu_torch.models.bnn import BNN
+    from robustbnns_tpu_torch.utils import timing
+
+    bnn = BNN.from_config(BNNConfig("cifar", 16, "relu", "resnet20", "svi"), (32, 32, 3), 10, device="cuda")
+    bnn.posterior = seeded_posterior(torch, bnn.arch)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.rand((CONV3X3_BATCH, 32, 32, 3), generator=gen, device="cuda")
+    y = torch.randint(0, 10, (CONV3X3_BATCH,), generator=gen, device="cuda")
+    eps, iters = 8 / 255, 40
+    run = lambda: attack(bnn, x, y, method="pgd", epsilon=eps, n_samples=CONV3X3_DRAWS, save=False,  # noqa: E731
+                         verbose=False, generator=torch.Generator().manual_seed(12))
+    run()  # the shapes warmed
+    ops.reset_launch_counts()
+    before = timing.counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_adv = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    convs = timing.counters()["resnet.cudnn_convs"] - before.get("resnet.cudnn_convs", 0)
+    want = {"grouped_conv3x3.fwd": 18 * iters, "grouped_conv3x3.dgrad": 18 * iters}
+    if counts != want or convs != iters:
+        fail(f"[resnet20-attack] launches {counts} and {convs} F.conv2d convs for {iters} iterations: "
+             f"want {want} and {iters}")
+    if not bool(torch.isfinite(x_adv).all()) or float((x_adv - x).abs().max()) > eps + 1e-6 or float(
+            x_adv.min()) < 0 or float(x_adv.max()) > 1:
+        fail("[resnet20-attack] the adversarial batch is not finite or leaves the eps-ball or [0, 1]")
+    moved = float(((x_adv - x).abs() > 1e-6).float().mean())
+    if moved < 0.2:
+        fail(f"[resnet20-attack] only {moved:.1%} of pixels moved")
+    print(f"[resnet20-attack] PGD S={CONV3X3_DRAWS} B={CONV3X3_BATCH} eps 8/255: {wall:.3f} s = "
+          f"{CONV3X3_BATCH / wall:.3f} images/s, {1e3 * wall / iters:.1f} ms an iteration; {moved:.1%} pixels "
+          f"moved; launches {json.dumps(counts)}, {convs} F.conv2d convs (one an iteration)")
+    return counts
+
+
 @contextlib.contextmanager
 def grouped_conv_launches(torch, phase: str, launches: dict):
     """Fail ``phase`` unless every forward of the conv trunk's second conv
@@ -3467,6 +3606,8 @@ def main() -> None:
         phase_train_profile(torch)
         phase_conv(torch)
         grouped = phase_grouped_conv(torch)
+        conv3x3 = phase_grouped_conv3x3(torch)
+        conv3x3_launches = phase_resnet20_attack(torch)
         conv_launches = {}
         with grouped_conv_launches(torch, "model0-attack", conv_launches):
             phase_model0_attack(torch, workdir)
@@ -3515,10 +3656,11 @@ def main() -> None:
         run_phase(torch, "multimodal", phase_multimodal)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     line = []
-    for name, r in {**kernels, **bf16_kernels, **grouped}.items():
+    for name, r in {**kernels, **bf16_kernels, **grouped, **conv3x3}.items():
         line.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
             "launches": sum(conv_launches.values()) if name in grouped else
+            conv3x3_launches[name.replace("_fwd", ".fwd").replace("_dgrad", ".dgrad")] if name in conv3x3 else
             (grad_counts if name in DPARAMS else bf16_counts if name in bf16_kernels else counts)[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

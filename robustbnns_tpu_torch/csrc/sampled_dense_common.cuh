@@ -90,6 +90,11 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool 
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
                "r"(valid ? 16 : 0));
 }
+// 4 bytes global -> shared without registers (cp.async.ca: the form that takes sizes below 16).
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 // cp.async.wait_group: all but this thread's newest kPending cp.async groups have landed.

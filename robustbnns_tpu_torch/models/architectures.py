@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from robustbnns_tpu_torch.ops.grouped_conv import grouped_conv, oihw, takes
+from robustbnns_tpu_torch.ops.grouped_conv3x3 import grouped_conv3x3, takes3x3
 from robustbnns_tpu_torch.utils.device import bf16_products
 from robustbnns_tpu_torch.utils.pytree import Params, map_params
 from robustbnns_tpu_torch.utils.timing import count, span
@@ -152,16 +153,23 @@ def _conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int, stri
 
 
 def _grouped_conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int = 1,
-                    padding: int = 0) -> torch.Tensor:
+                    padding: int = 0, library_counter: str | None = None) -> torch.Tensor:
     """A conv grouped by draw, group s with draw s's stacked HWIO weights
-    ``w[s]``: on the card in exact f32 at the kernel's shapes (the conv
-    trunk's second conv: 32 channels a group, 5×5 VALID on 12×12, hidden a
-    multiple of its 128-channel tile) the hand-written kernel of
-    :mod:`.ops.grouped_conv`, on the stacked weights as they are and in the
-    input's layout; otherwise (the CPU, bf16 products, other shapes, strides
-    or padding, ``torch.func`` transforms) :func:`_conv2d`."""
+    ``w[s]``, routed by shape. On the card in exact f32, on the stacked
+    weights as they are: the conv trunk's second conv (32 channels a group,
+    5×5 VALID on 12×12, hidden a multiple of its 128-channel tile) on the
+    kernel of :mod:`.ops.grouped_conv`, in the input's layout; ResNet-20's
+    residual 3×3 convs (padding 1, stride 1 or 2, :func:`.ops.grouped_conv3x3.takes3x3`)
+    on the kernel of :mod:`.ops.grouped_conv3x3`, forward and input gradient.
+    Otherwise (the CPU, bf16 products, other shapes, strides or padding,
+    ``torch.func`` transforms) :func:`_conv2d`, counted in ``library_counter``
+    where one is given."""
     if stride == 1 and padding == 0 and not bf16_products() and takes(h, w, b):
         return grouped_conv(h, w.contiguous(), b.contiguous())
+    if takes3x3(h, w, b, stride, padding):
+        return grouped_conv3x3(h, w.contiguous(), b.contiguous(), stride)
+    if library_counter is not None:
+        count(library_counter)
     return _conv2d(h, oihw(w), b.reshape(-1), w.shape[0], stride, padding)
 
 
@@ -239,31 +247,34 @@ def _resnet_apply(act, params: Params, x: torch.Tensor) -> torch.Tensor:
     (inputs in [0, 1], as the attacks clamp them); torch's default init.
 
     A shared input goes through the first conv once with S·width output
-    channels; inputs per draw group by draw there too
+    channels, on ``F.conv2d``; inputs per draw group by draw there too
     (:func:`_draws_as_channels`). Every later conv is grouped by draw
-    (:func:`_grouped_conv2d`; none has the hand-written kernel's shape, so
-    all run on ``F.conv2d``). The trunk runs in contiguous NCHW: cuDNN's
-    grouped engine takes channels-last activations (a shared NHWC input's
-    permute) in three times the kernels, a quarter slower. Counted:
+    (:func:`_grouped_conv2d`): on the card in exact f32 at width 16 on 32×32
+    inputs, the hand-written kernel of :mod:`.ops.grouped_conv3x3`, forward
+    and input gradient; otherwise ``F.conv2d``. The trunk runs in contiguous
+    NCHW, which the kernel reads (cuDNN's grouped engine, too, took
+    channels-last activations in three times the kernels). Counted:
     ``resnet.forwards``, one a forward, and ``resnet.cudnn_convs``, the
-    convs that no hand-written kernel ran (19); spans ``resnet.stage1`` ..
-    ``resnet.stage3`` inside ``conv_trunk``."""
+    convs that ``F.conv2d`` ran (1 on the card, 19 on the CPU, under bf16
+    products or inside ``torch.func`` transforms); spans ``resnet.stage1``
+    .. ``resnet.stage3`` inside ``conv_trunk``."""
     n_draws = params[0]["w"].shape[0]
     count("resnet.forwards")
     with span("conv_trunk"):
         h, groups = _draws_as_channels(x, n_draws)
         h = act(_conv2d(h.contiguous(), oihw(params[0]["w"]), params[0]["b"].reshape(-1), groups, 1, 1))
+        count("resnet.cudnn_convs")
         layer = 1
         for stage in range(RESNET_STAGES):
             with span(f"resnet.stage{stage + 1}"):
                 for block in range(RESNET_BLOCKS):
                     stride = 2 if stage and not block else 1
                     w = params[layer]["w"]
-                    y = act(_grouped_conv2d(h, w, params[layer]["b"], stride, 1))
+                    y = act(_grouped_conv2d(h, w, params[layer]["b"], stride, 1, "resnet.cudnn_convs"))
                     shortcut = h if stride == 1 else _option_a(h, n_draws, w.shape[-1])
-                    h = act(_grouped_conv2d(y, params[layer + 1]["w"], params[layer + 1]["b"], 1, 1) + shortcut)
+                    h = act(_grouped_conv2d(y, params[layer + 1]["w"], params[layer + 1]["b"], 1, 1,
+                                            "resnet.cudnn_convs") + shortcut)
                     layer += 2
-        count("resnet.cudnn_convs", layer)  # all 19
         h = h.mean(dim=(2, 3))  # global average pooling: (B, S·4·width)
         return _dense(h.reshape(h.shape[0], n_draws, -1).transpose(0, 1), params[-1])
 

@@ -24,7 +24,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = ("sampled_dense_fwd.cu", "sampled_dense_dx.cu", "sampled_dense_dparams.cu", "sampled_dense_dx_bf16.cu",
-           "sampled_dense_xs_bf16.cu", "sampled_dense_dparams_bf16.cu", "grouped_conv.cu")
+           "sampled_dense_xs_bf16.cu", "sampled_dense_dparams_bf16.cu", "grouped_conv.cu",
+           "grouped_conv3x3.cu")
 
 _libraries: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}  # nvcc's output per source (register and spill report)

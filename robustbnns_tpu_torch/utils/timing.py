@@ -34,10 +34,12 @@ Adam's own ranges (``Optimizer.zero_grad#Adam.zero_grad``,
 **Counters** are process-wide integers, always on (:func:`count`,
 :func:`counters`): ``attack.batches``, ``attack.iterations``, ``svi.steps``,
 ``sampled_dense.<wrapper>``, each sampled-dense kernel wrapper's launches,
-and ``grouped_conv.fwd``, the conv trunk's grouped-conv kernel's
-(:func:`.ops.launch_counts`); ``resnet.forwards``, one a ``resnet20``
-forward, and ``resnet.cudnn_convs``, its convolutions that ``F.conv2d`` ran
-rather than a hand-written kernel (all 19 a forward).
+``grouped_conv.fwd``, the conv trunk's grouped-conv kernel's, and
+``grouped_conv3x3.fwd`` and ``grouped_conv3x3.dgrad``, ResNet-20's 3×3
+kernel's (:func:`.ops.launch_counts`); ``resnet.forwards``, one a
+``resnet20`` forward, and ``resnet.cudnn_convs``, its convolutions that
+``F.conv2d`` ran rather than a hand-written kernel (1 a forward in f32 on
+the card, 19 elsewhere).
 """
 from __future__ import annotations
 

@@ -175,7 +175,7 @@ def test_the_trunk_keeps_conv2d_inside_torch_func_transforms(monkeypatch):
 def test_launch_counts_report_the_grouped_conv():
     ops.reset_launch_counts()
     counts = ops.launch_counts()
-    assert counts["grouped_conv.fwd"] == 0 and counts["sampled_dense_fwd"] == 0 and len(counts) == 13
+    assert counts["grouped_conv.fwd"] == 0 and counts["sampled_dense_fwd"] == 0 and len(counts) == 15
     x, w, b, _ = conv_inputs(1, 1, 128)
     gc.grouped_conv_fwd(x, w, b)  # the plain version: no launch
     assert ops.launch_counts()["grouped_conv.fwd"] == 0

@@ -22,8 +22,9 @@ the launch plans of ``ops/sampled_dense.fwd_plan``, ``dx_plan``,
 ``dparams_plan`` (and ``dparams_bf16_plan``: the bf16 parameter-gradient
 kernels also at every split, their bias bit-equal to the f32 kernel's) and
 ``xs_bf16_plan`` (the bf16 forwards and per-sample dx, held further in
-``tests/test_torch_xs_bf16.py``), and the grouped conv of ``grouped_conv.cu`` in both of its
-layouts against ``F.conv2d``. This checks the kernels' indexing, masking, work split,
+``tests/test_torch_xs_bf16.py``), the grouped conv of ``grouped_conv.cu`` in both of its
+layouts against ``F.conv2d``, and ResNet-20's grouped 3×3 conv of ``grouped_conv3x3.cu``,
+forward and input gradient, against its plain twins. This checks the kernels' indexing, masking, work split,
 fixed-order sum of partials, MMA fragment layout and noise-quad ownership at
 ragged shapes on a machine without a card; the card itself is checked by
 ``tests/test_torch_kernels.py`` and ``chip_smoke.py``. Same gates as there:
@@ -58,6 +59,7 @@ LDMATRIX_ASM = re.compile(r"(void ldmatrix_x4_trans\(.*?\)) \{\n.*?  asm volatil
 CP_ASYNC = {  # the PTX helpers of the source, as plain copies
     "cp_async16": "__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {\n"
                   "  for (int j = 0; j < 4; ++j) smem[j] = valid ? gmem[j] : 0.f;\n}\n",
+    "cp_async4": "__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {\n  *smem = *gmem;\n}\n",
     "cp_async_commit": "__device__ __forceinline__ void cp_async_commit() {}\n",
     "cp_async_wait_all": "__device__ __forceinline__ void cp_async_wait_all() {}\n",
 }
@@ -84,7 +86,8 @@ def emulated_header(source: str) -> str:
     for name, body in CP_ASYNC.items():
         one_line = rf"__device__ __forceinline__ void {name}\(\) \{{[^\n]*\}}\n"
         multi_line = rf"__device__ __forceinline__ void {name}\([^)]+\) \{{\n.*?\n\}}\n"
-        out, n = re.subn(one_line if name != "cp_async16" else multi_line, body, out, count=1, flags=re.S)
+        out, n = re.subn(multi_line if name in ("cp_async16", "cp_async4") else one_line, body, out, count=1,
+                         flags=re.S)
         assert n == 1, name
     out, n = CP_ASYNC_WAIT.subn(r"\1 {}\n", out)
     assert n == 1
@@ -533,3 +536,49 @@ def test_grouped_conv_kernel_matches_conv2d_on_the_cpu(grouped_conv_library, b_d
     want = gc.grouped_conv_plain(x, w, bias)
     torch.testing.assert_close(out, want, rtol=0, atol=1e-5 * float(want.abs().max()))
     assert grouped_conv_library.grouped_conv_fwd(*args, 96, int(nhwc), None) != 0  # N not a multiple of 128
+
+
+@pytest.fixture(scope="module")
+def grouped_conv3x3_library(tmp_path_factory):
+    dll = build(tmp_path_factory, "grouped_conv3x3.cu", ())
+    dll.grouped_conv3x3_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    dll.grouped_conv3x3_dgrad.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    dll.grouped_conv3x3_fwd.restype = dll.grouped_conv3x3_dgrad.restype = ctypes.c_int
+    return dll
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 1), (16, 32, 2), (32, 32, 1), (32, 64, 2), (64, 64, 1)],
+                         ids=lambda s: "Ci{}_Co{}_stride{}".format(*s))
+def test_grouped_conv3x3_kernel_matches_its_plain_twins_on_the_cpu(grouped_conv3x3_library, shape):
+    """``csrc/grouped_conv3x3.cu`` in both modes against its plain twins at
+    each of ResNet-20's shapes, B 2, S 2, on the sides the kernel is built
+    for: the forward against ``F.conv2d`` with ``groups=S``, the input
+    gradient against the rotated conv (stride 1) or the four parity classes
+    (stride 2). The same f32 sums of at most 9·64 terms in another order,
+    held to 1e-5 of the largest output. The outputs start as NaN, so a missed
+    store shows; a shape the kernel does not take is refused."""
+    g3 = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv3x3")
+    c_in, c_out, stride = shape
+    side, b_dim, n_draws = g3.SHAPES[shape], 2, 2
+    rng = np.random.default_rng(c_in * 7919 + c_out * 31 + stride)
+
+    def tensor(*dims, scale=1.0):
+        return torch.from_numpy((rng.normal(size=dims) * scale).astype(np.float32))
+
+    x = tensor(b_dim, n_draws * c_in, side, side)
+    w = tensor(n_draws, 3, 3, c_in, c_out, scale=1 / np.sqrt(9 * c_in))
+    bias = tensor(n_draws, c_out)
+    g = tensor(b_dim, n_draws * c_out, side // stride, side // stride)
+    lib = grouped_conv3x3_library
+    out = torch.full((b_dim, n_draws * c_out, side // stride, side // stride), float("nan"))
+    assert lib.grouped_conv3x3_fwd(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), b_dim, n_draws,
+                                   c_in, c_out, stride, side, None) == 0
+    want = g3.grouped_conv3x3_plain(x, w, bias, stride)
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    dx = torch.full(x.shape, float("nan"))
+    assert lib.grouped_conv3x3_dgrad(g.data_ptr(), w.data_ptr(), dx.data_ptr(), b_dim, n_draws, c_in, c_out, stride,
+                                     side, None) == 0
+    want = g3.grouped_conv3x3_dgrad_plain(g, w, stride)
+    torch.testing.assert_close(dx, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    assert lib.grouped_conv3x3_fwd(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), b_dim, n_draws,
+                                   c_in, c_out, 3 - stride, side, None) != 0  # not one of the shapes

@@ -410,3 +410,79 @@ def test_per_sample_input_grads_on_a_conv_model(cuda, monkeypatch):
     assert launch_counts()["grouped_conv.fwd"] == before + n_draws
     monkeypatch.setattr(architectures, "takes", lambda *args: False)
     assert torch.equal(got, _per_sample_input_grads(arch.apply, params, x, labels))
+
+
+CONV3X3_SHAPES = [(16, 16, 1), (16, 32, 2), (32, 32, 1), (32, 64, 2), (64, 64, 1)]  # (Ci, Co, stride)
+
+
+@pytest.mark.parametrize("shape", CONV3X3_SHAPES, ids=lambda s: "Ci{}_Co{}_stride{}".format(*s))
+@pytest.mark.parametrize("mode", ["fwd", "dgrad"])
+def test_grouped_conv3x3_kernel_against_float64(cuda, shape, mode):
+    """``csrc/grouped_conv3x3.cu`` at ResNet-20's attack shapes (B 128, S
+    100) against its plain twins in float64: the forward (``F.conv2d`` with
+    ``groups=S``, padding 1) and the input gradient (the rotated conv, or
+    the four parity classes at stride 2). Each output sums at most K = 9·C
+    products (and the forward's bias) in f32 with FMAs in a fixed order, so it
+    lies within (K + 1)·2⁻²⁴ of its terms' absolute sum of the exact value (a
+    fault moves outputs by the size of a term, far beyond it). Bit-identical
+    across two calls, one launch counted a call."""
+    g3 = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv3x3")
+    c_in, c_out, stride = shape
+    side, b_dim, n_draws = g3.SHAPES[shape], 128, 100
+    gen = torch.Generator(device=cuda).manual_seed(c_in * 7919 + c_out * 31 + stride)
+    w = torch.randn((n_draws, 3, 3, c_in, c_out), generator=gen, device=cuda) / (9 * c_in) ** 0.5
+    if mode == "fwd":
+        x = torch.rand((b_dim, n_draws * c_in, side, side), generator=gen, device=cuda)
+        bias = 0.1 * torch.randn((n_draws, c_out), generator=gen, device=cuda)
+        run = lambda: g3.grouped_conv3x3_fwd(x, w, bias, stride)  # noqa: E731
+        twin = lambda f: g3.grouped_conv3x3_plain(f(x), f(w), f(bias), stride)  # noqa: E731
+        k_terms = 9 * c_in + 1
+    else:
+        g = torch.randn((b_dim, n_draws * c_out, side // stride, side // stride), generator=gen, device=cuda)
+        run = lambda: g3.grouped_conv3x3_dgrad(g, w, stride)  # noqa: E731
+        twin = lambda f: g3.grouped_conv3x3_dgrad_plain(f(g), f(w), stride)  # noqa: E731
+        k_terms = 9 * c_out
+    counter = f"grouped_conv3x3.{mode}"
+    before = g3.launch_counts()[counter]
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert g3.launch_counts()[counter] == before + 2
+    assert torch.equal(got, again) and bool(torch.isfinite(got).all())
+    with torch.no_grad():
+        exact = twin(lambda t: t.double())
+        terms = twin(lambda t: t.double().abs())
+        assert got.shape == exact.shape
+        assert bool(((got.double() - exact).abs() <= (k_terms + 1) * 2.0**-24 * terms).all())
+        del exact, terms
+
+
+def test_resnet20_pgd_iteration_runs_the_3x3_kernel(cuda):
+    """One PGD iteration on a ``resnet20`` posterior at S 10, B 16, in f32 on
+    the card: its forward runs the 18 grouped 3×3 convs on the kernel and
+    the first conv alone on ``F.conv2d``, and its input gradient runs the
+    kernel's 18 input gradients."""
+    from robustbnns_tpu_torch.attacks.gradient_attacks import pgd_attack
+    from robustbnns_tpu_torch.config import BNNConfig
+    from robustbnns_tpu_torch.inference import svi
+    from robustbnns_tpu_torch.models.bnn import BNN
+    from robustbnns_tpu_torch.ops import launch_counts
+    from robustbnns_tpu_torch.utils import timing
+    from robustbnns_tpu_torch.utils.pytree import map_params
+
+    config = BNNConfig("cifar", 16, "relu", "resnet20", "svi", epochs=1, lr=0.01)
+    bnn = BNN.from_config(config, (32, 32, 3), 10, device="cuda")
+    loc = bnn.arch.init(torch.Generator(device=cuda).manual_seed(3))
+    bnn.posterior = svi.MeanFieldPosterior(loc=loc, rho=map_params(lambda v: torch.full_like(v, -5.0), loc))
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.rand((16, 32, 32, 3), generator=gen, device=cuda)
+    y = torch.randint(0, 10, (16,), generator=gen, device=cuda)
+    before = {**launch_counts(), **timing.counters()}
+    x_adv = pgd_attack(bnn.predictive_fn(10), x, y, epsilon=8 / 255, iters=1,
+                       generator=torch.Generator().manual_seed(5))  # the CLI's CPU generator
+    torch.cuda.synchronize()
+    after = {**launch_counts(), **timing.counters()}
+    delta = {k: after[k] - before.get(k, 0) for k in ("grouped_conv3x3.fwd", "grouped_conv3x3.dgrad",
+                                                       "resnet.cudnn_convs", "attack.iterations")}
+    assert delta == {"grouped_conv3x3.fwd": 18, "grouped_conv3x3.dgrad": 18, "resnet.cudnn_convs": 1,
+                     "attack.iterations": 1}
+    assert bool(torch.isfinite(x_adv).all()) and float((x_adv - x).abs().max()) <= 8 / 255 + 1e-6

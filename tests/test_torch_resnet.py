@@ -181,8 +181,9 @@ def test_the_grouped_conv_pads_and_strides_as_a_loop_over_draws(stride, layout):
 
 def test_one_forward_counts_its_convs_and_nests_its_stages(monkeypatch):
     """A forward counts ``resnet.forwards`` once and ``resnet.cudnn_convs``
-    19 times (no conv has a hand-written kernel), under bf16 products too;
-    its three stage spans nest, in order, inside ``conv_trunk``."""
+    19 times on the CPU (the grouped 3×3 kernel runs only on the card, where
+    the count is 1), under bf16 products too; its three stage spans nest, in
+    order, inside ``conv_trunk``."""
     a = arch()
     stacked = draws(a.init(torch.Generator().manual_seed(5)), 2, seed=6)
     x, _ = images(2)
