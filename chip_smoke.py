@@ -497,7 +497,7 @@ def earlier_bf16(library: str, name: str):
     sd = importlib.import_module("robustbnns_tpu_torch.ops.sampled_dense")
     fn = getattr(extra_library(library), name)
     port_name = name.removesuffix("_partials").removesuffix("_shared_sums")
-    fn.argtypes, fn.restype = sd._SIGNATURES[port_name][1], ctypes.c_int
+    fn.argtypes, fn.restype = sd.SIGNATURES[port_name][1], ctypes.c_int
     return fn
 
 
@@ -2248,30 +2248,30 @@ def phase_grouped_conv3x3(torch) -> dict:
     ``per_shape``."""
     import torch.nn.functional as F
 
-    g3 = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv3x3")
+    gc = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv")
     b_dim, n_draws = CONV3X3_BATCH, CONV3X3_DRAWS
     results = {}
     for mode in ("fwd", "dgrad"):
         r = None
-        for (c_in, c_out, stride), side in g3.SHAPES.items():
+        for (c_in, c_out, stride), side in gc.SHAPES3X3.items():
             out_side = side // stride
             gen = torch.Generator(device="cuda").manual_seed(2026 + c_in + c_out + stride)
             w = torch.randn((n_draws, 3, 3, c_in, c_out), generator=gen, device="cuda") / (9 * c_in) ** 0.5
-            w_oihw = g3.oihw(w)
+            w_oihw = gc.oihw(w)
             x_shape = (b_dim, n_draws * c_in, side, side)
             if mode == "fwd":
                 x = torch.rand(x_shape, generator=gen, device="cuda")
                 bias = 0.1 * torch.randn((n_draws, c_out), generator=gen, device="cuda")
                 b_flat = bias.reshape(-1)
-                run = lambda: g3.grouped_conv3x3_fwd(x, w, bias, stride)  # noqa: E731
-                twin = lambda f: g3.grouped_conv3x3_plain(f(x), f(w), f(bias), stride)  # noqa: E731
+                run = lambda: gc.grouped_conv_fwd(x, w, bias, stride, 1)  # noqa: E731
+                twin = lambda f: gc.grouped_conv_plain(f(x), f(w), f(bias), stride, 1)  # noqa: E731
                 lib = lambda: F.conv2d(x, w_oihw, b_flat, stride, 1, 1, n_draws)  # noqa: E731
                 k_terms, nbytes = 9 * c_in + 1, 4.0 * (x.numel() + w.numel() + bias.numel()
                                                        + b_dim * n_draws * c_out * out_side**2)
             else:
                 g = torch.randn((b_dim, n_draws * c_out, out_side, out_side), generator=gen, device="cuda")
-                run = lambda: g3.grouped_conv3x3_dgrad(g, w, stride)  # noqa: E731
-                twin = lambda f: g3.grouped_conv3x3_dgrad_plain(f(g), f(w), stride)  # noqa: E731
+                run = lambda: gc.grouped_conv_dgrad(g, w, stride, 1)  # noqa: E731
+                twin = lambda f: gc.dgrad3x3_plain(f(g), f(w), stride)  # noqa: E731
                 lib = lambda: torch.nn.grad.conv2d_input(x_shape, w_oihw, g, stride, 1, 1, n_draws)  # noqa: E731
                 k_terms, nbytes = 9 * c_out, 4.0 * (g.numel() + w.numel() + math.prod(x_shape))
             flops = 2.0 * b_dim * n_draws * out_side**2 * 9 * c_in * c_out

@@ -42,7 +42,6 @@ import torch
 import torch.nn.functional as F
 
 from robustbnns_tpu_torch.ops.grouped_conv import grouped_conv, oihw, takes
-from robustbnns_tpu_torch.ops.grouped_conv3x3 import grouped_conv3x3, takes3x3
 from robustbnns_tpu_torch.utils.device import bf16_products
 from robustbnns_tpu_torch.utils.pytree import Params, map_params
 from robustbnns_tpu_torch.utils.timing import count, span
@@ -155,19 +154,14 @@ def _conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int, stri
 def _grouped_conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int = 1,
                     padding: int = 0, library_counter: str | None = None) -> torch.Tensor:
     """A conv grouped by draw, group s with draw s's stacked HWIO weights
-    ``w[s]``, routed by shape. On the card in exact f32, on the stacked
-    weights as they are: the conv trunk's second conv (32 channels a group,
-    5×5 VALID on 12×12, hidden a multiple of its 128-channel tile) on the
-    kernel of :mod:`.ops.grouped_conv`, in the input's layout; ResNet-20's
-    residual 3×3 convs (padding 1, stride 1 or 2, :func:`.ops.grouped_conv3x3.takes3x3`)
-    on the kernel of :mod:`.ops.grouped_conv3x3`, forward and input gradient.
-    Otherwise (the CPU, bf16 products, other shapes, strides or padding,
-    ``torch.func`` transforms) :func:`_conv2d`, counted in ``library_counter``
-    where one is given."""
-    if stride == 1 and padding == 0 and not bf16_products() and takes(h, w, b):
-        return grouped_conv(h, w.contiguous(), b.contiguous())
-    if takes3x3(h, w, b, stride, padding):
-        return grouped_conv3x3(h, w.contiguous(), b.contiguous(), stride)
+    ``w[s]``: where :func:`.ops.grouped_conv.takes` says a hand-written
+    kernel computes it (on the card in exact f32: the conv trunk's second
+    conv, ResNet-20's residual 3×3 convs), :func:`.ops.grouped_conv.grouped_conv`
+    on the stacked weights as they are. Otherwise (the CPU, bf16 products,
+    other shapes, strides or padding, ``torch.func`` transforms)
+    :func:`_conv2d`, counted in ``library_counter`` where one is given."""
+    if takes(h, w, b, stride, padding):
+        return grouped_conv(h, w.contiguous(), b.contiguous(), stride, padding)
     if library_counter is not None:
         count(library_counter)
     return _conv2d(h, oihw(w), b.reshape(-1), w.shape[0], stride, padding)
@@ -250,7 +244,7 @@ def _resnet_apply(act, params: Params, x: torch.Tensor) -> torch.Tensor:
     channels, on ``F.conv2d``; inputs per draw group by draw there too
     (:func:`_draws_as_channels`). Every later conv is grouped by draw
     (:func:`_grouped_conv2d`): on the card in exact f32 at width 16 on 32×32
-    inputs, the hand-written kernel of :mod:`.ops.grouped_conv3x3`, forward
+    inputs, the hand-written 3×3 kernel of :mod:`.ops.grouped_conv`, forward
     and input gradient; otherwise ``F.conv2d``. The trunk runs in contiguous
     NCHW, which the kernel reads (cuDNN's grouped engine, too, took
     channels-last activations in three times the kernels). Counted:

@@ -48,8 +48,9 @@ round the same operands and multiply them in f32.
 draws, the yardstick for the kernels' noise statistics; it launches no kernel.
 
 Each wrapper launches its kernel for CUDA tensors (or raises), and runs its
-plain PyTorch twin for CPU tensors only. Each counts its kernel launches in
-the counter ``sampled_dense.<wrapper>`` (:func:`launch_counts`). The
+plain PyTorch twin for CPU tensors only (:func:`_sampled_dense_launch`, on
+:mod:`.build`'s launch path). Each counts its kernel launches in the counter
+``sampled_dense.<wrapper>`` (:func:`launch_counts`). The
 autograd backward launches the dx kernel only when the input's gradient is
 asked for and the dparams kernel only when a parameter's is, as the JAX VJP
 splits them into two ``pallas_call``s that XLA can drop one by one
@@ -58,14 +59,15 @@ splits them into two ``pallas_call``s that XLA can drop one by one
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from robustbnns_tpu_torch.ops.build import library
-from robustbnns_tpu_torch.utils.timing import count, counters, reset_counters
+from robustbnns_tpu_torch.ops import build
+from robustbnns_tpu_torch.utils.timing import reset_counters
 
 _MASK = 0xFFFFFFFF
 _TWO_PI_F32 = float(np.float32(6.283185307179586))
@@ -260,52 +262,21 @@ def kernel_precision_default() -> bool:
 # --------------------------------------------------------------------------- #
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-_SIGNATURES = {
-    "sampled_dense_fwd": ("sampled_dense_fwd.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_xs_fwd": ("sampled_dense_fwd.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_dx": ("sampled_dense_dx.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_xs_dx": ("sampled_dense_dx.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_dparams": ("sampled_dense_dparams.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_xs_dparams": ("sampled_dense_dparams.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_fwd_bf16": ("sampled_dense_xs_bf16.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_xs_fwd_bf16": ("sampled_dense_xs_bf16.cu", [_P] * 8 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_dx_bf16": ("sampled_dense_dx_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_xs_dx_bf16": ("sampled_dense_xs_bf16.cu", [_P] * 6 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_dparams_bf16": ("sampled_dense_dparams_bf16.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
-    "sampled_dense_xs_dparams_bf16": ("sampled_dense_dparams_bf16.cu", [_P] * 9 + [_I] * 4 + [_U, _I, _P]),
+# entry point (each wrapper's name) -> (its source, its argument types, the stream last)
+SIGNATURES = {
+    "sampled_dense_fwd": ("sampled_dense_fwd.cu", (_P,) * 8 + (_I,) * 4 + (_U, _I, _P)),
+    "sampled_dense_xs_fwd": ("sampled_dense_fwd.cu", (_P,) * 8 + (_I,) * 4 + (_U, _I, _P)),
+    "sampled_dense_dx": ("sampled_dense_dx.cu", (_P,) * 6 + (_I,) * 4 + (_U, _I, _P)),
+    "sampled_dense_xs_dx": ("sampled_dense_dx.cu", (_P,) * 6 + (_I,) * 4 + (_U, _I, _P)),
+    "sampled_dense_dparams": ("sampled_dense_dparams.cu", (_P,) * 9 + (_I,) * 4 + (_U, _I, _P)),
+    "sampled_dense_xs_dparams": ("sampled_dense_dparams.cu", (_P,) * 9 + (_I,) * 4 + (_U, _I, _P)),
+    "sampled_dense_fwd_bf16": ("sampled_dense_xs_bf16.cu", (_P,) * 8 + (_I,) * 4 + (_U, _I, _P)),
+    "sampled_dense_xs_fwd_bf16": ("sampled_dense_xs_bf16.cu", (_P,) * 8 + (_I,) * 4 + (_U, _I, _P)),
+    "sampled_dense_dx_bf16": ("sampled_dense_dx_bf16.cu", (_P,) * 6 + (_I,) * 4 + (_U, _I, _P)),
+    "sampled_dense_xs_dx_bf16": ("sampled_dense_xs_bf16.cu", (_P,) * 6 + (_I,) * 4 + (_U, _I, _P)),
+    "sampled_dense_dparams_bf16": ("sampled_dense_dparams_bf16.cu", (_P,) * 9 + (_I,) * 4 + (_U, _I, _P)),
+    "sampled_dense_xs_dparams_bf16": ("sampled_dense_dparams_bf16.cu", (_P,) * 9 + (_I,) * 4 + (_U, _I, _P)),
 }
-
-
-_bound: dict[str, ctypes._CFuncPtr] = {}
-
-
-def _kernel(name: str):
-    """The C entry point ``name``, typed once per process."""
-    if name not in _bound:
-        source, argtypes = _SIGNATURES[name]
-        fn = getattr(library(source), name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _bound[name] = fn
-    return _bound[name]
-
-
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """Whether the call is the plain twin's (CPU tensors); all must share one device."""
-    device = tensors[0].device
-    for t in tensors[1:]:
-        if t.device != device:
-            raise ValueError(f"all tensors must be on {device}, got one on {t.device}")
-    return device.type == "cpu"
-
-
-def _check_cuda(*tensors: torch.Tensor) -> None:
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"the sampled-dense kernels take float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the sampled-dense kernels take contiguous tensors")
-        if t.data_ptr() % 16:
-            raise ValueError("the sampled-dense kernels take 16-byte aligned tensors")
 
 
 def _check_params(loc, rho, bloc=None, brho=None) -> None:
@@ -332,16 +303,25 @@ def _check_cotangent(g, loc, rho, n_samples: int) -> None:
         raise ValueError(f"g must be (S={n_samples}, B, O={loc.shape[1]}), got {tuple(g.shape)}")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch on ``device``'s current stream, with ``device`` current for the runtime."""
-    with torch.cuda.device(device):
-        err = _kernel(name)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} failed to launch: cudaError {err}")
+def _sampled_dense_launch(wrapper, plain, operands: tuple, n_samples: int, seed: int, buffers):
+    """``plain`` on CPU tensors; else the kernel named as ``wrapper`` (its C
+    entry point), counted in ``sampled_dense.<wrapper>``. ``operands`` lead
+    with x, xs or g and hold rho (I, O) third; ``buffers(device, S, B, I, O,
+    sms)`` plans the call and gives ``(n_split, result, tensors)``, the
+    launch's arguments after the operands in ``tensors``."""
+    if not build.check("sampled-dense", operands):
+        return plain(*operands, n_samples, seed)
+    device, b_dim, (i_dim, o_dim) = operands[0].device, operands[0].shape[-2], operands[2].shape
+    n_split, result, tensors = buffers(device, n_samples, b_dim, i_dim, o_dim, build.sm_count(device))
+    name = wrapper.__name__
+    build.launch("sampled_dense." + name, build.bind(SIGNATURES[name][0], name, SIGNATURES[name][1]), device,
+                 *operands, *tensors, n_samples, b_dim, i_dim, o_dim, seed & _MASK, n_split)
+    return result
 
 
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def _scratch(plan, device):
+    """The plan's partials, or None where it has none."""
+    return torch.empty(plan.scratch, device=device) if plan.scratch else None
 
 
 # Geometry of the dx kernels (csrc/sampled_dense_dx.cu): a wide block owns 128
@@ -730,78 +710,38 @@ def dx_bf16_unit_runs(plan: DxBf16Plan) -> list[range]:
     return [range(u * r // n, u * (r + 1) // n) for r in range(n)]
 
 
-def _dx_bf16_launch(wrapper, plain, g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
-    """``plain`` on CPU tensors; else the kernel of ``sampled_dense_dx_bf16.cu``
-    on :func:`dx_bf16_plan`'s geometry, counted on ``wrapper``."""
-    if _on_cpu(g, loc, rho):
-        return plain(g, loc, rho, n_samples, seed)
-    _check_cuda(g, loc, rho)
-    (_, b_dim, o_dim), i_dim = g.shape, loc.shape[0]
-    plan = dx_bf16_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(g.device))
-    out = torch.empty((b_dim, i_dim), device=g.device)
-    partials = torch.empty(plan.scratch, device=g.device) if plan.scratch else None
-    _launch(wrapper.__name__, g.device, g.data_ptr(), loc.data_ptr(), rho.data_ptr(), None,
-            partials.data_ptr() if partials is not None else None, out.data_ptr(),
-            n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
-    count("sampled_dense." + wrapper.__name__)
-    return out
+def _dx_bf16_buffers(device, n_samples, b_dim, i_dim, o_dim, sms):
+    """The kernel of ``sampled_dense_dx_bf16.cu`` on :func:`dx_bf16_plan`'s geometry."""
+    plan = dx_bf16_plan(n_samples, b_dim, i_dim, o_dim, sms)
+    out = torch.empty((b_dim, i_dim), device=device)
+    return plan.n_split, out, (None, _scratch(plan, device), out)
 
 
-def _xs_bf16_launch(wrapper, plain, a, params, n_samples: int, seed: int, kind: str) -> torch.Tensor:
-    """``plain`` on CPU tensors; else the kernel of ``sampled_dense_xs_bf16.cu``
-    named as ``wrapper`` on :func:`xs_bf16_plan`'s geometry, counted on it.
-    ``a`` is xs or the shared x (forward: ``params`` = loc, rho, bloc, brho)
-    or g (dx: loc, rho)."""
-    if _on_cpu(a, *params):
-        return plain(a, *params, n_samples, seed)
-    _check_cuda(a, *params)
-    b_dim = a.shape[-2]
-    i_dim, o_dim = params[0].shape
-    plan = xs_bf16_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(a.device), kind)
-    out = torch.empty((n_samples, b_dim, o_dim if kind == "fwd" else i_dim), device=a.device)
-    sp = torch.empty_like(params[1]) if plan.softplus_scratch else None
-    _launch(wrapper.__name__, a.device, a.data_ptr(), *(t.data_ptr() for t in params),
-            sp.data_ptr() if sp is not None else None, None, out.data_ptr(),
-            n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
-    count("sampled_dense." + wrapper.__name__)
-    return out
+def _xs_bf16_buffers(device, n_samples, b_dim, i_dim, o_dim, sms, kind: str):
+    """The kernels of ``sampled_dense_xs_bf16.cu`` on :func:`xs_bf16_plan`'s
+    geometry: ``kind`` ``"fwd"`` after xs or the shared x and loc, rho,
+    bloc, brho; ``"dx"`` after g, loc and rho."""
+    plan = xs_bf16_plan(n_samples, b_dim, i_dim, o_dim, sms, kind)
+    out = torch.empty((n_samples, b_dim, o_dim if kind == "fwd" else i_dim), device=device)
+    return plan.n_split, out, (torch.empty((i_dim, o_dim), device=device) if plan.softplus_scratch else None,
+                               None, out)
 
 
-def _fwd_launch(wrapper, plain, x, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
-    """``plain`` on CPU tensors; else the kernel named as ``wrapper``, counted
-    on it."""
-    if _on_cpu(x, loc, rho, bloc, brho):
-        return plain(x, loc, rho, bloc, brho, n_samples, seed)
-    _check_cuda(x, loc, rho, bloc, brho)
-    b_dim, i_dim = x.shape[-2:]
-    o_dim = loc.shape[1]
-    plan = fwd_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(x.device))
-    out = torch.empty((n_samples, b_dim, o_dim), device=x.device)
-    sp = None if plan.narrow else torch.empty_like(rho)
-    partials = torch.empty(plan.scratch, device=x.device) if plan.scratch else None
-    _launch(wrapper.__name__, x.device, x.data_ptr(), loc.data_ptr(), rho.data_ptr(), bloc.data_ptr(),
-            brho.data_ptr(), *(t.data_ptr() if t is not None else None for t in (sp, partials)), out.data_ptr(),
-            n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
-    count("sampled_dense." + wrapper.__name__)
-    return out
+def _fwd_buffers(device, n_samples, b_dim, i_dim, o_dim, sms):
+    """The forward kernels on :func:`fwd_plan`'s geometry."""
+    plan = fwd_plan(n_samples, b_dim, i_dim, o_dim, sms)
+    out = torch.empty((n_samples, b_dim, o_dim), device=device)
+    return plan.n_split, out, (None if plan.narrow else torch.empty((i_dim, o_dim), device=device),
+                               _scratch(plan, device), out)
 
 
-def _dx_launch(wrapper, plain, g, loc, rho, n_samples: int, seed: int, sum_samples: bool) -> torch.Tensor:
-    """As :func:`_fwd_launch` for the input-gradient kernels; ``sum_samples``
+def _dx_buffers(device, n_samples, b_dim, i_dim, o_dim, sms, sum_samples: bool):
+    """The input-gradient kernels on :func:`dx_plan`'s geometry; ``sum_samples``
     gives dx (B, I), else dxs (S, B, I)."""
-    if _on_cpu(g, loc, rho):
-        return plain(g, loc, rho, n_samples, seed)
-    _check_cuda(g, loc, rho)
-    (_, b_dim, o_dim), i_dim = g.shape, loc.shape[0]
-    plan = dx_plan(n_samples, b_dim, i_dim, o_dim, _sm_count(g.device), sum_samples)
-    out = torch.empty((b_dim, i_dim) if sum_samples else (n_samples, b_dim, i_dim), device=g.device)
-    sp = None if plan.narrow else torch.empty_like(rho)
-    partials = torch.empty(plan.scratch, device=g.device) if plan.scratch else None
-    _launch(wrapper.__name__, g.device, g.data_ptr(), loc.data_ptr(), rho.data_ptr(),
-            *(t.data_ptr() if t is not None else None for t in (sp, partials)), out.data_ptr(),
-            n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
-    count("sampled_dense." + wrapper.__name__)
-    return out
+    plan = dx_plan(n_samples, b_dim, i_dim, o_dim, sms, sum_samples)
+    out = torch.empty((b_dim, i_dim) if sum_samples else (n_samples, b_dim, i_dim), device=device)
+    return plan.n_split, out, (None if plan.narrow else torch.empty((i_dim, o_dim), device=device),
+                               _scratch(plan, device), out)
 
 
 def sampled_dense_fwd(x, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
@@ -821,7 +761,8 @@ def sampled_dense_fwd(x, loc, rho, bloc, brho, n_samples: int, seed: int) -> tor
     _check_input(x, loc, rho, bloc, brho, None)
     if kernel_precision_default():
         return sampled_dense_fwd_bf16(x, loc, rho, bloc, brho, n_samples, seed)
-    return _fwd_launch(sampled_dense_fwd, sampled_dense_fwd_plain, x, loc, rho, bloc, brho, n_samples, seed)
+    return _sampled_dense_launch(sampled_dense_fwd, sampled_dense_fwd_plain, (x, loc, rho, bloc, brho), n_samples,
+                                 seed, _fwd_buffers)
 
 
 def sampled_dense_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
@@ -843,7 +784,8 @@ def sampled_dense_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
     _check_cotangent(g, loc, rho, n_samples)
     if kernel_precision_default():
         return sampled_dense_dx_bf16(g, loc, rho, n_samples, seed)
-    return _dx_launch(sampled_dense_dx, sampled_dense_dx_plain, g, loc, rho, n_samples, seed, sum_samples=True)
+    return _sampled_dense_launch(sampled_dense_dx, sampled_dense_dx_plain, (g, loc, rho), n_samples, seed,
+                                 functools.partial(_dx_buffers, sum_samples=True))
 
 
 def sampled_dense_xs_fwd(xs, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
@@ -858,7 +800,8 @@ def sampled_dense_xs_fwd(xs, loc, rho, bloc, brho, n_samples: int, seed: int) ->
     _check_input(xs, loc, rho, bloc, brho, n_samples)
     if kernel_precision_default():
         return sampled_dense_xs_fwd_bf16(xs, loc, rho, bloc, brho, n_samples, seed)
-    return _fwd_launch(sampled_dense_xs_fwd, sampled_dense_xs_fwd_plain, xs, loc, rho, bloc, brho, n_samples, seed)
+    return _sampled_dense_launch(sampled_dense_xs_fwd, sampled_dense_xs_fwd_plain, (xs, loc, rho, bloc, brho),
+                                 n_samples, seed, _fwd_buffers)
 
 
 def sampled_dense_xs_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
@@ -878,7 +821,8 @@ def sampled_dense_xs_dx(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
     _check_cotangent(g, loc, rho, n_samples)
     if kernel_precision_default():
         return sampled_dense_xs_dx_bf16(g, loc, rho, n_samples, seed)
-    return _dx_launch(sampled_dense_xs_dx, sampled_dense_xs_dx_plain, g, loc, rho, n_samples, seed, sum_samples=False)
+    return _sampled_dense_launch(sampled_dense_xs_dx, sampled_dense_xs_dx_plain, (g, loc, rho), n_samples, seed,
+                                 functools.partial(_dx_buffers, sum_samples=False))
 
 
 def sampled_dense_fwd_bf16(x, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
@@ -895,8 +839,8 @@ def sampled_dense_fwd_bf16(x, loc, rho, bloc, brho, n_samples: int, seed: int) -
     counted.
     """
     _check_input(x, loc, rho, bloc, brho, None)
-    return _xs_bf16_launch(sampled_dense_fwd_bf16, sampled_dense_fwd_bf16_plain, x, (loc, rho, bloc, brho),
-                           n_samples, seed, "fwd")
+    return _sampled_dense_launch(sampled_dense_fwd_bf16, sampled_dense_fwd_bf16_plain, (x, loc, rho, bloc, brho),
+                                 n_samples, seed, functools.partial(_xs_bf16_buffers, kind="fwd"))
 
 
 def sampled_dense_dx_bf16(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
@@ -919,7 +863,8 @@ def sampled_dense_dx_bf16(g, loc, rho, n_samples: int, seed: int) -> torch.Tenso
     are several (bit-identical from call to call). One launch counted.
     """
     _check_cotangent(g, loc, rho, n_samples)
-    return _dx_bf16_launch(sampled_dense_dx_bf16, sampled_dense_dx_bf16_plain, g, loc, rho, n_samples, seed)
+    return _sampled_dense_launch(sampled_dense_dx_bf16, sampled_dense_dx_bf16_plain, (g, loc, rho), n_samples, seed,
+                                 _dx_bf16_buffers)
 
 
 def sampled_dense_xs_fwd_bf16(xs, loc, rho, bloc, brho, n_samples: int, seed: int) -> torch.Tensor:
@@ -943,8 +888,9 @@ def sampled_dense_xs_fwd_bf16(xs, loc, rho, bloc, brho, n_samples: int, seed: in
     tiles, 64-deep chunks, softplus inline) one kernel; one launch counted.
     """
     _check_input(xs, loc, rho, bloc, brho, n_samples)
-    return _xs_bf16_launch(sampled_dense_xs_fwd_bf16, sampled_dense_xs_fwd_bf16_plain, xs, (loc, rho, bloc, brho),
-                           n_samples, seed, "fwd")
+    return _sampled_dense_launch(sampled_dense_xs_fwd_bf16, sampled_dense_xs_fwd_bf16_plain,
+                                 (xs, loc, rho, bloc, brho), n_samples, seed,
+                                 functools.partial(_xs_bf16_buffers, kind="fwd"))
 
 
 def sampled_dense_xs_dx_bf16(g, loc, rho, n_samples: int, seed: int) -> torch.Tensor:
@@ -959,8 +905,8 @@ def sampled_dense_xs_dx_bf16(g, loc, rho, n_samples: int, seed: int) -> torch.Te
     one 16-deep chunk of O, softplus inline: one kernel. One launch counted.
     """
     _check_cotangent(g, loc, rho, n_samples)
-    return _xs_bf16_launch(sampled_dense_xs_dx_bf16, sampled_dense_xs_dx_bf16_plain, g, (loc, rho), n_samples,
-                           seed, "dx")
+    return _sampled_dense_launch(sampled_dense_xs_dx_bf16, sampled_dense_xs_dx_bf16_plain, (g, loc, rho), n_samples,
+                                 seed, functools.partial(_xs_bf16_buffers, kind="dx"))
 
 
 def _check_dparams(g, x, rho, brho, n_samples: int, x_lead: tuple) -> None:
@@ -972,26 +918,14 @@ def _check_dparams(g, x, rho, brho, n_samples: int, x_lead: tuple) -> None:
         raise ValueError(f"the layer input must be {want}, got {tuple(x.shape)}")
 
 
-def _dparams_launch(wrapper, plain, g, x, rho, brho, n_samples: int, seed: int):
-    """``plain`` on CPU tensors; else the kernel named as ``wrapper`` on
-    :func:`dparams_plan`'s geometry (:func:`dparams_bf16_plan`'s for the bf16
-    kernels), counted on it."""
-    if _on_cpu(g, x, rho, brho):
-        return plain(g, x, rho, brho, n_samples, seed)
-    _check_cuda(g, x, rho, brho)
-    (_, b_dim, o_dim), i_dim = g.shape, rho.shape[0]
-    sms = _sm_count(g.device)
-    plan = (dparams_bf16_plan(n_samples, b_dim, i_dim, o_dim, sms) if wrapper.__name__.endswith("_bf16")
+def _dparams_buffers(device, n_samples, b_dim, i_dim, o_dim, sms, bf16: bool):
+    """The dparams kernels on :func:`dparams_plan`'s geometry (``bf16``:
+    :func:`dparams_bf16_plan`'s); the result (dloc, drho, dbloc, dbrho)."""
+    plan = (dparams_bf16_plan(n_samples, b_dim, i_dim, o_dim, sms) if bf16
             else dparams_plan(n_samples, i_dim, o_dim, sms))
-    dloc, drho = (torch.empty((i_dim, o_dim), device=g.device) for _ in range(2))
-    dbloc, dbrho = (torch.empty((o_dim,), device=g.device) for _ in range(2))
-    partials = torch.empty(plan.scratch, device=g.device) if plan.scratch else None
-    _launch(wrapper.__name__, g.device, g.data_ptr(), x.data_ptr(), rho.data_ptr(), brho.data_ptr(),
-            partials.data_ptr() if partials is not None else None,
-            dloc.data_ptr(), drho.data_ptr(), dbloc.data_ptr(), dbrho.data_ptr(),
-            n_samples, b_dim, i_dim, o_dim, seed & _MASK, plan.n_split)
-    count("sampled_dense." + wrapper.__name__)
-    return dloc, drho, dbloc, dbrho
+    grads = (*(torch.empty((i_dim, o_dim), device=device) for _ in range(2)),
+             *(torch.empty((o_dim,), device=device) for _ in range(2)))
+    return plan.n_split, grads, (_scratch(plan, device), *grads)
 
 
 def sampled_dense_dparams(g, x, rho, brho, n_samples: int, seed: int):
@@ -1016,7 +950,8 @@ def sampled_dense_dparams(g, x, rho, brho, n_samples: int, seed: int):
     _check_dparams(g, x, rho, brho, n_samples, ())
     if kernel_precision_default():
         return sampled_dense_dparams_bf16(g, x, rho, brho, n_samples, seed)
-    return _dparams_launch(sampled_dense_dparams, sampled_dense_dparams_plain, g, x, rho, brho, n_samples, seed)
+    return _sampled_dense_launch(sampled_dense_dparams, sampled_dense_dparams_plain, (g, x, rho, brho), n_samples,
+                                 seed, functools.partial(_dparams_buffers, bf16=False))
 
 
 def sampled_dense_xs_dparams(g, xs, rho, brho, n_samples: int, seed: int):
@@ -1033,8 +968,8 @@ def sampled_dense_xs_dparams(g, xs, rho, brho, n_samples: int, seed: int):
     _check_dparams(g, xs, rho, brho, n_samples, (n_samples,))
     if kernel_precision_default():
         return sampled_dense_xs_dparams_bf16(g, xs, rho, brho, n_samples, seed)
-    return _dparams_launch(sampled_dense_xs_dparams, sampled_dense_xs_dparams_plain, g, xs, rho, brho, n_samples,
-                           seed)
+    return _sampled_dense_launch(sampled_dense_xs_dparams, sampled_dense_xs_dparams_plain, (g, xs, rho, brho),
+                                 n_samples, seed, functools.partial(_dparams_buffers, bf16=False))
 
 
 def sampled_dense_dparams_bf16(g, x, rho, brho, n_samples: int, seed: int):
@@ -1065,16 +1000,16 @@ def sampled_dense_dparams_bf16(g, x, rho, brho, n_samples: int, seed: int):
     counted.
     """
     _check_dparams(g, x, rho, brho, n_samples, ())
-    return _dparams_launch(sampled_dense_dparams_bf16, sampled_dense_dparams_bf16_plain, g, x, rho, brho,
-                           n_samples, seed)
+    return _sampled_dense_launch(sampled_dense_dparams_bf16, sampled_dense_dparams_bf16_plain, (g, x, rho, brho),
+                                 n_samples, seed, functools.partial(_dparams_buffers, bf16=True))
 
 
 def sampled_dense_xs_dparams_bf16(g, xs, rho, brho, n_samples: int, seed: int):
     """Pallas ``_bwd_xs_dparams_kernel`` under ``Precision.DEFAULT``: as
     :func:`sampled_dense_dparams_bf16` with the per-sample input xs (S, B, I)."""
     _check_dparams(g, xs, rho, brho, n_samples, (n_samples,))
-    return _dparams_launch(sampled_dense_xs_dparams_bf16, sampled_dense_xs_dparams_bf16_plain, g, xs, rho, brho,
-                           n_samples, seed)
+    return _sampled_dense_launch(sampled_dense_xs_dparams_bf16, sampled_dense_xs_dparams_bf16_plain,
+                                 (g, xs, rho, brho), n_samples, seed, functools.partial(_dparams_buffers, bf16=True))
 
 
 KERNEL_WRAPPERS = (
@@ -1085,14 +1020,16 @@ KERNEL_WRAPPERS = (
 )
 
 
+build.LAUNCH_COUNTERS.update({wrapper.__name__: "sampled_dense." + wrapper.__name__ for wrapper in KERNEL_WRAPPERS})
+
+
 def reset_launch_counts() -> None:
     reset_counters("sampled_dense.")
 
 
 def launch_counts() -> dict[str, int]:
-    """Each kernel wrapper's launches, by its name (the counters ``sampled_dense.<wrapper>``)."""
-    counted = counters()
-    return {wrapper.__name__: counted.get("sampled_dense." + wrapper.__name__, 0) for wrapper in KERNEL_WRAPPERS}
+    """Each kernel wrapper's launches, by its name: :func:`.build.launch_counts`' sampled-dense part."""
+    return {name: n for name, n in build.launch_counts().items() if name in SIGNATURES}
 
 
 # --------------------------------------------------------------------------- #

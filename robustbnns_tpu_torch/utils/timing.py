@@ -34,9 +34,11 @@ Adam's own ranges (``Optimizer.zero_grad#Adam.zero_grad``,
 **Counters** are process-wide integers, always on (:func:`count`,
 :func:`counters`): ``attack.batches``, ``attack.iterations``, ``svi.steps``,
 ``sampled_dense.<wrapper>``, each sampled-dense kernel wrapper's launches,
-``grouped_conv.fwd``, the conv trunk's grouped-conv kernel's, and
+and ``<kind>.fwd`` and ``<kind>.dgrad`` of each kind of grouped conv a
+kernel computes (``grouped_conv.fwd``, the conv trunk's 5×5 kernel's;
 ``grouped_conv3x3.fwd`` and ``grouped_conv3x3.dgrad``, ResNet-20's 3×3
-kernel's (:func:`.ops.launch_counts`); ``resnet.forwards``, one a
+kernel's), each bumped by :func:`.ops.build.launch` after a launch that
+succeeded and read by :func:`.ops.launch_counts`; ``resnet.forwards``, one a
 ``resnet20`` forward, and ``resnet.cudnn_convs``, its convolutions that
 ``F.conv2d`` ran rather than a hand-written kernel (1 a forward in f32 on
 the card, 19 elsewhere).

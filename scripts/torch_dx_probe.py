@@ -529,7 +529,7 @@ def finish_variant(sd, fam: dict, started, tag: str) -> ctypes.CDLL:
             print(f"[probe] build {stem} {tag}: {line.strip()}")
     dll = ctypes.CDLL(lib)
     for name, *_ in fam["shapes"]:
-        getattr(dll, name).argtypes = sd._SIGNATURES[name.removesuffix(fam.get("suffix", ""))][1]
+        getattr(dll, name).argtypes = sd.SIGNATURES[name.removesuffix(fam.get("suffix", ""))][1]
     return dll
 
 

@@ -132,7 +132,7 @@ def build(tmp_path_factory, source: str, names, directory: Path = CSRC) -> ctype
     assert done.returncode == 0, done.stderr[-4000:]
     dll = ctypes.CDLL(str(lib))
     for name in names:
-        getattr(dll, name).argtypes = sd._SIGNATURES[name.removesuffix("_partials")][1]
+        getattr(dll, name).argtypes = sd.SIGNATURES[name.removesuffix("_partials")][1]
         getattr(dll, name).restype = ctypes.c_int
     return dll
 
@@ -505,8 +505,9 @@ def test_dparams_bf16_plan_walks_every_unit_and_quad_once(shape, sms):
 
 @pytest.fixture(scope="module")
 def grouped_conv_library(tmp_path_factory):
+    gc = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv")
     dll = build(tmp_path_factory, "grouped_conv.cu", ())
-    dll.grouped_conv_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    dll.grouped_conv_fwd.argtypes = gc.KINDS[(5, 1, 0)].fwd.argtypes
     dll.grouped_conv_fwd.restype = ctypes.c_int
     return dll
 
@@ -540,9 +541,10 @@ def test_grouped_conv_kernel_matches_conv2d_on_the_cpu(grouped_conv_library, b_d
 
 @pytest.fixture(scope="module")
 def grouped_conv3x3_library(tmp_path_factory):
+    kind = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv").KINDS[(3, 1, 1)]
     dll = build(tmp_path_factory, "grouped_conv3x3.cu", ())
-    dll.grouped_conv3x3_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    dll.grouped_conv3x3_dgrad.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    dll.grouped_conv3x3_fwd.argtypes = kind.fwd.argtypes
+    dll.grouped_conv3x3_dgrad.argtypes = kind.dgrad.argtypes
     dll.grouped_conv3x3_fwd.restype = dll.grouped_conv3x3_dgrad.restype = ctypes.c_int
     return dll
 
@@ -557,9 +559,9 @@ def test_grouped_conv3x3_kernel_matches_its_plain_twins_on_the_cpu(grouped_conv3
     (stride 2). The same f32 sums of at most 9·64 terms in another order,
     held to 1e-5 of the largest output. The outputs start as NaN, so a missed
     store shows; a shape the kernel does not take is refused."""
-    g3 = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv3x3")
+    gc = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv")
     c_in, c_out, stride = shape
-    side, b_dim, n_draws = g3.SHAPES[shape], 2, 2
+    side, b_dim, n_draws = gc.SHAPES3X3[shape], 2, 2
     rng = np.random.default_rng(c_in * 7919 + c_out * 31 + stride)
 
     def tensor(*dims, scale=1.0):
@@ -573,12 +575,12 @@ def test_grouped_conv3x3_kernel_matches_its_plain_twins_on_the_cpu(grouped_conv3
     out = torch.full((b_dim, n_draws * c_out, side // stride, side // stride), float("nan"))
     assert lib.grouped_conv3x3_fwd(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), b_dim, n_draws,
                                    c_in, c_out, stride, side, None) == 0
-    want = g3.grouped_conv3x3_plain(x, w, bias, stride)
+    want = gc.grouped_conv_plain(x, w, bias, stride, 1)
     torch.testing.assert_close(out, want, rtol=0, atol=1e-5 * float(want.abs().max()))
     dx = torch.full(x.shape, float("nan"))
     assert lib.grouped_conv3x3_dgrad(g.data_ptr(), w.data_ptr(), dx.data_ptr(), b_dim, n_draws, c_in, c_out, stride,
                                      side, None) == 0
-    want = g3.grouped_conv3x3_dgrad_plain(g, w, stride)
+    want = gc.dgrad3x3_plain(g, w, stride)
     torch.testing.assert_close(dx, want, rtol=0, atol=1e-5 * float(want.abs().max()))
     assert lib.grouped_conv3x3_fwd(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), b_dim, n_draws,
                                    c_in, c_out, 3 - stride, side, None) != 0  # not one of the shapes

@@ -355,6 +355,8 @@ def test_grouped_conv_kernel_against_float64(cuda, shape, layout):
     exact value (the worst case of a K-term f32 sum; a fault moves outputs
     by the size of a term, far beyond it). Bit-identical across two calls,
     and one launch counted a forward."""
+    from robustbnns_tpu_torch.ops import launch_counts
+
     gc = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv")
     b_dim, n_draws, hidden = shape
     gen = torch.Generator(device=cuda).manual_seed(b_dim * 7919 + n_draws * 31 + hidden)
@@ -363,10 +365,10 @@ def test_grouped_conv_kernel_against_float64(cuda, shape, layout):
         x = x.contiguous(memory_format=torch.channels_last)
     w = torch.randn((n_draws, 5, 5, 32, hidden), generator=gen, device=cuda) / 800**0.5
     bias = 0.1 * torch.randn((n_draws, hidden), generator=gen, device=cuda)
-    before = gc.launch_counts()["grouped_conv.fwd"]
+    before = launch_counts()["grouped_conv.fwd"]
     got, again = gc.grouped_conv_fwd(x, w, bias), gc.grouped_conv_fwd(x, w, bias)
     torch.cuda.synchronize()
-    assert gc.launch_counts()["grouped_conv.fwd"] == before + 2
+    assert launch_counts()["grouped_conv.fwd"] == before + 2
     out_format = torch.channels_last if layout == "channels_last" else torch.contiguous_format
     assert got.is_contiguous(memory_format=out_format)
     assert torch.equal(got, again) and bool(torch.isfinite(got).all())
@@ -426,27 +428,29 @@ def test_grouped_conv3x3_kernel_against_float64(cuda, shape, mode):
     lies within (K + 1)·2⁻²⁴ of its terms' absolute sum of the exact value (a
     fault moves outputs by the size of a term, far beyond it). Bit-identical
     across two calls, one launch counted a call."""
-    g3 = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv3x3")
+    from robustbnns_tpu_torch.ops import launch_counts
+
+    gc = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv")
     c_in, c_out, stride = shape
-    side, b_dim, n_draws = g3.SHAPES[shape], 128, 100
+    side, b_dim, n_draws = gc.SHAPES3X3[shape], 128, 100
     gen = torch.Generator(device=cuda).manual_seed(c_in * 7919 + c_out * 31 + stride)
     w = torch.randn((n_draws, 3, 3, c_in, c_out), generator=gen, device=cuda) / (9 * c_in) ** 0.5
     if mode == "fwd":
         x = torch.rand((b_dim, n_draws * c_in, side, side), generator=gen, device=cuda)
         bias = 0.1 * torch.randn((n_draws, c_out), generator=gen, device=cuda)
-        run = lambda: g3.grouped_conv3x3_fwd(x, w, bias, stride)  # noqa: E731
-        twin = lambda f: g3.grouped_conv3x3_plain(f(x), f(w), f(bias), stride)  # noqa: E731
+        run = lambda: gc.grouped_conv_fwd(x, w, bias, stride, 1)  # noqa: E731
+        twin = lambda f: gc.grouped_conv_plain(f(x), f(w), f(bias), stride, 1)  # noqa: E731
         k_terms = 9 * c_in + 1
     else:
         g = torch.randn((b_dim, n_draws * c_out, side // stride, side // stride), generator=gen, device=cuda)
-        run = lambda: g3.grouped_conv3x3_dgrad(g, w, stride)  # noqa: E731
-        twin = lambda f: g3.grouped_conv3x3_dgrad_plain(f(g), f(w), stride)  # noqa: E731
+        run = lambda: gc.grouped_conv_dgrad(g, w, stride, 1)  # noqa: E731
+        twin = lambda f: gc.dgrad3x3_plain(f(g), f(w), stride)  # noqa: E731
         k_terms = 9 * c_out
     counter = f"grouped_conv3x3.{mode}"
-    before = g3.launch_counts()[counter]
+    before = launch_counts()[counter]
     got, again = run(), run()
     torch.cuda.synchronize()
-    assert g3.launch_counts()[counter] == before + 2
+    assert launch_counts()[counter] == before + 2
     assert torch.equal(got, again) and bool(torch.isfinite(got).all())
     with torch.no_grad():
         exact = twin(lambda t: t.double())
