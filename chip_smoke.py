@@ -111,7 +111,10 @@ Phases, each fatal on failure:
    its input channels-last (the trunk's) and NCHW, against float64 within
    (800 + 1)·2⁻²⁴ of each output's absolute sum of terms, bit-identical
    across calls, and its device time beside its bound, the plain version's
-   and one ``F.conv2d`` call's; then ``[grouped-conv3x3]``: ResNet-20's
+   and one ``F.conv2d`` call's, and its input gradient likewise (within
+   (25·hidden + 1)·2⁻²⁴, dx with aten's strides, timed beside the plain
+   twin, ``torch.nn.grad.conv2d_input`` and aten's input gradient in the
+   trunk's layout) at S = 100, 10 and 1; then ``[grouped-conv3x3]``: ResNet-20's
    grouped 3×3 kernel (``csrc/grouped_conv3x3.cu``) at its five shapes (B =
    128, S = 100), forward and input gradient, against float64 within
    (K + 1)·2⁻²⁴ of each output's absolute sum of terms, bit-identical across
@@ -2170,6 +2173,14 @@ GROUPED_CONV_SHAPES = (  # (B, S, hidden, input layout, the callers of that shap
 )
 
 
+GROUPED_CONV_DGRAD_SHAPES = (  # (B, S, hidden, layout of g and dx, the callers of that shape)
+    (128, 100, 512, "channels_last", "model_0's attack at S = 100, the trunk's layout"),
+    (128, 100, 512, "nchw", "model_0's attack at S = 100 on per-draw inputs"),
+    (128, 10, 512, "channels_last", "model_0 at S = 10: the attack CLI"),
+    (128, 1, 512, "channels_last", "SVI's ELBO step and the NN path: one image a block"),
+)
+
+
 def phase_grouped_conv(torch) -> dict:
     """``csrc/grouped_conv.cu`` at the shapes its callers give it
     (:data:`GROUPED_CONV_SHAPES`, model_0's attack first): against float64
@@ -2178,9 +2189,14 @@ def phase_grouped_conv(torch) -> dict:
     its device time beside its bound (2·B·S·64·hidden·800 FLOP at the FP32
     peak), the plain version's (``F.conv2d`` with ``groups=S`` on the
     permuted weights) and the library's (``F.conv2d`` on weights permuted
-    beforehand, what the trunk ran before the kernel). The result holds
-    model_0's attack shape in the trunk's layout, and every shape under
-    ``per_shape``."""
+    beforehand, what the trunk ran before the kernel). Then its input
+    gradient at :data:`GROUPED_CONV_DGRAD_SHAPES` the same way: float64
+    within (K + 1)·2⁻²⁴ (K = 25·hidden), bit-identical, dx in g's layout,
+    the same bound, the plain twin's time (``F.conv_transpose2d``), the
+    library's (``torch.nn.grad.conv2d_input``) and aten's input gradient with
+    the input in g's layout (what the trunk ran before the kernel). Each
+    result holds model_0's attack shape in the trunk's layout, and every
+    shape under ``per_shape``."""
     import torch.nn.functional as F
 
     gc = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv")
@@ -2229,6 +2245,61 @@ def phase_grouped_conv(torch) -> dict:
                  **row, "flops": flops, "bytes": nbytes, "per_shape": []}
         r["max_abs_err"] = max(r["max_abs_err"], rel)
         r["per_shape"].append(row)
+    return {r["name"]: r, **phase_grouped_conv_dgrad(torch)}
+
+
+def phase_grouped_conv_dgrad(torch) -> dict:
+    """The input gradient of ``csrc/grouped_conv.cu`` (:func:`phase_grouped_conv`)."""
+    gc = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv")
+    r = None
+    for b_dim, n_draws, hidden, layout, callers in GROUPED_CONV_DGRAD_SHAPES:
+        fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+        gen = torch.Generator(device="cuda").manual_seed(2027 + b_dim + n_draws + hidden)
+        g = torch.randn((b_dim, n_draws * hidden, 8, 8), generator=gen, device="cuda").contiguous(memory_format=fmt)
+        w = torch.randn((n_draws, 5, 5, 32, hidden), generator=gen, device="cuda") / 800**0.5
+        w_oihw, x_shape = gc.oihw(w), (b_dim, n_draws * 32, 12, 12)
+        x = torch.zeros(x_shape, device="cuda").contiguous(memory_format=fmt)
+        flops = 2.0 * b_dim * n_draws * 64 * hidden * 800
+        nbytes = 4.0 * (g.numel() + w.numel() + math.prod(x_shape))
+        b_ms, b_by = bound_ms(flops, nbytes)
+        shape = f"dgrad B={b_dim} S={n_draws} hidden={hidden} {layout}"
+        run = lambda: gc.grouped_conv_dgrad(g, w, 1, 0)  # noqa: E731
+        aten = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            g, x, w_oihw, None, [1, 1], [0, 0], [1, 1], False, [0, 0], n_draws, [True, False, False])[0]
+        got = run()
+        with torch.no_grad():
+            exact = gc.dgrad5x5_plain(g.double(), w.double())
+            terms = gc.dgrad5x5_plain(g.double().abs(), w.double().abs())
+            err = (got.double() - exact).abs()
+            share = float((err / ((25 * hidden + 1) * 2.0**-24 * terms)).max())
+            rel = float(err.max() / exact.abs().max())
+            del exact, terms, err
+        if share > 1:
+            fail(f"[grouped-conv] {shape}: {share:.3f} of the f32 bound (K + 1)·2⁻²⁴·Σ|terms| from float64")
+        if not torch.equal(got, run()) or got.stride() != aten().stride():
+            fail(f"[grouped-conv] {shape}: two calls differ, or dx's strides are not aten's input gradient's")
+        del got
+        calls = 4 if n_draws * b_dim > 2000 else 20
+        ms = device_ms(torch, run, calls=calls)
+        c_ms = call_ms(torch, run, reps=10)
+        plain_ms = device_ms(torch, lambda: gc.dgrad5x5_plain(g, w), calls=calls)
+        lib_ms = device_ms(torch, lambda: torch.nn.grad.conv2d_input(x_shape, w_oihw, g, 1, 0, 1, n_draws),
+                           calls=calls)
+        aten_ms = device_ms(torch, aten, calls=calls)
+        print(f"[grouped-conv] {shape} ({callers}): max|err| {rel:.3e} of max|float64|, {share:.4f} of the f32 "
+              f"bound; kernel {ms:.4f} ms (call {c_ms:.4f}), bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% "
+              f"of it, {flops / ms * 1e-9:.2f} TFLOP/s; plain {plain_ms:.4f} ms, library conv2d_input "
+              f"{lib_ms:.4f} ms = {lib_ms / ms:.2f}x, aten's input gradient in g's layout {aten_ms:.4f} ms = "
+              f"{aten_ms / ms:.2f}x the kernel's time")
+        row = {"shape": shape, "ms": ms, "call_ms": c_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "aten_ms": aten_ms, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": rel}
+        if r is None:
+            r = {"name": "grouped_conv_dgrad", "route": "cuda", "source": "robustbnns_tpu_torch/csrc/grouped_conv.cu",
+                 "replaces": "no Pallas kernel (XLA's conv gradient in the JAX package); cuDNN's FFT dgrad in the port",
+                 **row, "flops": flops, "bytes": nbytes, "per_shape": []}
+        r["max_abs_err"] = max(r["max_abs_err"], rel)
+        r["per_shape"].append(row)
+        del g, x
     return {r["name"]: r}
 
 
@@ -2367,7 +2438,8 @@ def grouped_conv_launches(torch, phase: str, launches: dict):
     """Fail ``phase`` unless every forward of the conv trunk's second conv
     inside the block ran the grouped-conv kernel, one launch a forward (these
     phases run model_0 in f32 on the card, where the trunk routes every one to
-    it), and no sampled-dense kernel launched. Records the launches in
+    it), its input gradient launched at most once a forward, and no
+    sampled-dense kernel launched. Records the launches by counter in
     ``launches[phase]``."""
     from robustbnns_tpu_torch import ops
     from robustbnns_tpu_torch.models import architectures
@@ -2386,14 +2458,15 @@ def grouped_conv_launches(torch, phase: str, launches: dict):
         architectures._grouped_conv2d = routed
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    fwd = counts.pop("grouped_conv.fwd")
+    fwd, dgrad = counts.pop("grouped_conv.fwd"), counts.pop("grouped_conv.dgrad")
     if any(counts.values()):
         fail(f"[{phase}] launched a sampled-dense kernel: {counts}")
-    if not fwd == len(forwards) > 0:
-        fail(f"[{phase}] {fwd} grouped-conv launches for the conv trunk's {len(forwards)} forwards of its second conv")
-    launches[phase] = fwd
-    print(f"[{phase}] grouped-conv launches {fwd}, one for each of the trunk's {len(forwards)} second-conv forwards; "
-          f"no sampled-dense launch")
+    if not fwd == len(forwards) > 0 or dgrad > fwd:
+        fail(f"[{phase}] {fwd} grouped-conv launches for the conv trunk's {len(forwards)} forwards of its second conv, "
+             f"{dgrad} of its input gradient")
+    launches[phase] = {"grouped_conv.fwd": fwd, "grouped_conv.dgrad": dgrad}
+    print(f"[{phase}] grouped-conv launches {fwd}, one for each of the trunk's {len(forwards)} second-conv forwards, "
+          f"and {dgrad} of its input gradient; no sampled-dense launch")
 
 
 def phase_model0_attack(torch, workdir: str) -> None:
@@ -3659,7 +3732,8 @@ def main() -> None:
     for name, r in {**kernels, **bf16_kernels, **grouped, **conv3x3}.items():
         line.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
-            "launches": sum(conv_launches.values()) if name in grouped else
+            "launches": sum(p[name.replace("_fwd", ".fwd").replace("_dgrad", ".dgrad")] for p in conv_launches.values())
+            if name in grouped else
             conv3x3_launches[name.replace("_fwd", ".fwd").replace("_dgrad", ".dgrad")] if name in conv3x3 else
             (grad_counts if name in DPARAMS else bf16_counts if name in bf16_kernels else counts)[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "call_ms": r["call_ms"],

@@ -1,4 +1,5 @@
-// The conv trunk's second convolution, grouped by draw: for each draw s,
+// The conv trunk's second convolution, grouped by draw: the forward here, its
+// input gradient further down (namespace grouped_conv_dx). For each draw s,
 // image b, output channel o < N and output pixel (y, x) < 8 x 8,
 //   out[b, s*N + o, y, x] = bias[s, o]
 //       + sum_{ky, kx < 5} sum_{c < 32} in[b, s*32 + c, y + ky, x + kx] * w[s, ky, kx, c, o]
@@ -254,4 +255,267 @@ extern "C" int grouped_conv_fwd(const float* x, const float* w, const float* bia
     fwd_kernel<false><<<grid, kThreads, kSmemBytes, on>>>(x, w, bias, out, B, S, N);
   }
   return (int)cudaGetLastError();
+}
+
+// The input gradient of the same convolution: for each draw s, image b, input
+// channel c < 32 and input pixel (i, j) < 12 x 12,
+//   dx[b, s*32 + c, i, j] = sum_{ky, kx < 5, 0 <= i - ky < 8, 0 <= j - kx < 8}
+//       sum_{o < N} g[b, s*N + o, i - ky, j - kx] * w[s, ky, kx, c, o]
+// from the output gradient g (B, S*N, 8, 8), NCHW or channels-last, read in
+// place, into dx (B, S*32, 12, 12) in g's layout, with the stacked HWIO
+// weights read as they are: their last axis, o, is the sum's.
+//
+// Replaces no Pallas kernel: the JAX package leaves this gradient to XLA. It
+// stands in for cuDNN's FFT input gradient (seven kernels a draw: two
+// fft2d_r2c passes, a complex GEMM, fft2d_c2r and three layout changes),
+// which took 54.8 ms of a PGD iteration at model_0's B = 128, S = 100,
+// N = 512: 18% of the bound below.
+//
+// What bounds it on the H100. The useful work is the forward's: 2*B*S*64*N*800
+// FLOP, 671 GFLOP at model_0's shapes, 10.0 ms on the FFMA pipe at 67 TFLOP/s
+// (exact f32 rules out the tensor cores). The bytes (g 1.68 GB, dx 236 MB,
+// the weights 164 MB) take 0.6 ms at HBM's rate. An implicit GEMM over dx's
+// 144 pixels x 25 taps would do 2.25x that work (only 1,600 of its 3,600
+// (pixel, tap) pairs fall inside g); this design does none of the rest.
+//
+// Design: per draw, the GEMM Y[p, (tap, c)] = sum_o g[p, o] * w[tap, c, o]
+// over g's pixels p (M = B*64, N' = 25*32 = 800, K = N): exactly the useful
+// FLOP, with the col2im dx[p + tap, c] += Y[p, tap, c] in the epilogue.
+// - A block of 128 threads an image owns whole images of one draw: two, or
+//   one where two-image blocks would not fill every SM twice over. dx's tile,
+//   12 x 12 x 32 floats an image, stays in shared memory for the whole sum.
+// - Thread (image, output row y, channel pair) holds Y for the 8 pixels of
+//   row y, the 5 taps of one tap row ky and its 2 channels: an 8 x 10 register
+//   tile of outer products, 80 FFMA a k for two float4 of g and three float4
+//   of w (a pair's 10 columns, padded to 12) from shared memory.
+// - The stages walk the tap rows ky = 0 .. 4, and within each the sum's N
+//   channels 16 an image at a time: g's tile, (16 x images) o by (images x
+//   64) pixels (16-byte copies NCHW, 4-byte copies that transpose it
+//   channels-last), and w's tile of tap row ky, o by 160 (c, kx) (4-byte
+//   copies that transpose it), land by cp.async in a ring of three stages,
+//   two ahead. One __syncthreads a stage; a block reads its images' g once a
+//   tap row, from L2 or HBM.
+// - After a tap row, the col2im from registers: dx row y + ky, column j gets
+//   the thread's Y at pixel j - kx and tap kx, summed over kx in order, for
+//   its 2 channels. Within a tap row no other thread writes that row; the
+//   thread of row y - 1 writes it a tap row later, a barrier a stage on.
+// - Grid (image groups, S), image groups fastest, so the blocks of one draw
+//   run together and its weights (1.6 MB at N = 512) stay in L2.
+// - Every dx element is one fixed-order sum from zero: tap row by tap row,
+//   tap by tap, each tap's N products in order. No atomics: bit-identical
+//   from call to call.
+// - Two-image blocks: 160 KB of shared memory and about 200 registers a
+//   thread, one block an SM; one-image blocks: 68 KB and about 250, two. (A
+//   cap of 128 registers, two two-image blocks an SM with stages of 16 o,
+//   spilled and took 18.0 ms at model_0's shapes against 16.9; stages of 32 o
+//   for one-image blocks, 0.38 ms at S = 1 against 0.25.)
+// - Measured at model_0's B = 128, S = 100, N = 512 (H100, 700 W): 16.9 ms
+//   channels-last, 15.9 ms NCHW, 59-63% of the bound; 2.8x faster than
+//   cuDNN's FFT input gradient channels-last (47.1 ms), 5.2x NCHW (83.1).
+// - B need not be even (a missing second image reads the last image's g and
+//   is not stored); N must be a multiple of 32.
+namespace grouped_conv_dx {
+namespace {
+
+using sampled_dense::cp_async16;
+using sampled_dense::cp_async4;
+using sampled_dense::cp_async_commit;
+using sampled_dense::cp_async_wait_pending;
+
+constexpr int kC = 32;          // dx's channels a draw
+constexpr int kK = 5;           // the filter's side
+constexpr int kSide = 12;       // dx's side
+constexpr int kOutSide = 8;     // g's side
+constexpr int kPix = kOutSide * kOutSide;
+constexpr int kInPix = kSide * kSide;
+constexpr int kStages = 3;
+constexpr int kPairCols = 12;  // a channel pair's columns in w's tile: c1 * 5 + kx, then 2 unused
+constexpr int kWRow = kC / 2 * kPairCols + 4;  // w's tile row (one o), padded
+constexpr int kDxRow = kSide * kC + 16;  // dx's tile row: [j][c], padded
+constexpr int kDxImage = kSide * kDxRow;
+
+template <int kImages>
+struct Tile {
+  static constexpr int kThreads = 128 * kImages;  // (image, output row, channel pair)
+  static constexpr int kStep = 16 * kImages;      // the sum's channels a stage
+  static constexpr int kM = kImages * kPix;       // g's pixels a block
+  static constexpr int kARow = kM + 4;            // g's tile row (one o), padded
+  static constexpr int kStage = kStep * (kARow + kWRow);
+  static constexpr int kSmemBytes = (kStages * kStage + kImages * kDxImage) * 4;  // 164,352 for two images
+  // g's 4-byte copies, 8 o by 4 pixels, hit 32 banks; a warp's float2
+  // updates of dx's tile (8 channel pairs by 2 rows a half) none twice
+  static_assert(kARow % 32 == 4 && kWRow % 32 == 4 && kDxRow % 32 == 16, "bank spreads");
+};
+
+// kChannelsLast: g (B, 8, 8, S*N) and dx (B, 12, 12, S*32) in memory; else
+// g (B, S*N, 8, 8) and dx (B, S*32, 12, 12).
+template <int kImages, bool kChannelsLast>
+__global__ void __launch_bounds__(Tile<kImages>::kThreads, 2 / kImages) dgrad_kernel(
+    const float* __restrict__ g, const float* __restrict__ w,  // w (S, 5, 5, 32, N)
+    float* __restrict__ dx, int B, int S, int N) {
+  using T = Tile<kImages>;
+  constexpr int kThreads = T::kThreads, kStep = T::kStep, kRowLanes = kThreads / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* dx_tile = smem + kStages * T::kStage;  // [image][i][j * 32 + c], rows kDxRow apart
+
+  const int tid = threadIdx.x, s = blockIdx.y;
+  const int b0 = (int)blockIdx.x * kImages;
+  const int row_steps = N / kStep, steps = kK * row_steps;
+
+  // Stage t: tap row t / row_steps, the sum's channels o0 .. o0 + kStep - 1,
+  // into buffer buf: g's tile [o][image * 64 + pixel] and w's [o][pair * 12 +
+  // c1 * 5 + kx] for channel c = 2 pair + c1. The
+  // transposing 4-byte copies take 8 o by kThreads / 8 rows, so a warp reads
+  // 32-byte runs of o.
+  const int o_lane = tid % 8, row_lane = tid / 8;
+  auto fetch = [&](int t, int buf) {
+    const int ky = t / row_steps, o0 = (t % row_steps) * kStep;
+    float* a = smem + buf * T::kStage;
+    float* wt = a + kStep * T::kARow;
+    if (kChannelsLast) {  // g[b, pixel, s*N + o]
+#pragma unroll
+      for (int h = 0; h < kStep / 8; ++h)
+#pragma unroll
+        for (int q = 0; q < T::kM / kRowLanes; ++q) {
+          const int m = row_lane + kRowLanes * q, image = kImages == 2 ? q / 2 : 0;
+          const size_t b = (size_t)min(b0 + image, B - 1);
+          cp_async4(a + (8 * h + o_lane) * T::kARow + m,
+                    g + ((b * kPix + m - kPix * image) * S + s) * N + o0 + 8 * h + o_lane);
+        }
+    } else {  // g[b, s*N + o, pixel]: an image's 64 pixels of one o are contiguous
+      constexpr int kCopies = kStep * kImages * kPix / 4;
+#pragma unroll
+      for (int j = 0; j < kCopies / kThreads; ++j) {
+        const int f = tid + j * kThreads, q = f % (kPix / 4), image = f / (kPix / 4) % kImages;
+        const int o = f / (kPix / 4 * kImages);
+        const size_t b = (size_t)min(b0 + image, B - 1);
+        cp_async16(a + o * T::kARow + image * kPix + 4 * q, g + ((b * S + s) * N + o0 + o) * kPix + 4 * q, true);
+      }
+    }
+    // w[s, ky, kx, c, o]: row (kx, c) of tap row ky
+    const float* w_ky = w + ((size_t)s * kK + ky) * kK * kC * N + o0 + o_lane;
+#pragma unroll
+    for (int h = 0; h < kStep / 8; ++h)
+#pragma unroll
+      for (int q = 0; q < kC / kRowLanes; ++q)
+#pragma unroll
+        for (int kx = 0; kx < kK; ++kx) {
+          const int c = row_lane + kRowLanes * q;
+          cp_async4(wt + (8 * h + o_lane) * kWRow + c / 2 * kPairCols + c % 2 * kK + kx,
+                    w_ky + (size_t)(kx * kC + c) * N + 8 * h);
+        }
+  };
+
+  // This thread's Y: image img, output row y, channels 2 cp and 2 cp + 1. A
+  // warp holds 8 channel pairs of 4 rows: its float4 reads of g touch 4
+  // addresses and those of w 8, on distinct banks.
+  const int warp = tid / 32, lane = tid % 32;
+  const int cp = (warp % 2) * 8 + lane % 8, y = (warp / 2 % 2) * 4 + lane / 8, img = warp / 4;
+
+  for (int f = tid; f < kImages * kDxImage / 4; f += kThreads)
+    reinterpret_cast<float4*>(dx_tile)[f] = make_float4(0.f, 0.f, 0.f, 0.f);
+  fetch(0, 0);
+  cp_async_commit();
+  fetch(1, 1);  // steps >= 5
+  cp_async_commit();
+
+  float acc[8][10] = {};  // [pixel of row y][c1 * 5 + kx] for channel 2 cp + c1
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait_pending<1>();  // this thread's copies of stage t have landed; t + 1's may be in flight
+    __syncthreads();             // ... everyone's; everyone is done with stage t - 1's buffer
+    if (t + 2 < steps) fetch(t + 2, (t + 2) % kStages);
+    cp_async_commit();  // one group a stage, empty at the end
+    const float* a = smem + (t % kStages) * T::kStage + img * kPix + y * 8;
+    const float* wt = smem + (t % kStages) * T::kStage + kStep * T::kARow + kPairCols * cp;
+#pragma unroll
+    for (int k = 0; k < kStep; ++k) {
+      const float4 a_lo = *reinterpret_cast<const float4*>(a + k * T::kARow);
+      const float4 a_hi = *reinterpret_cast<const float4*>(a + k * T::kARow + 4);
+      const float av[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
+      float wv[kPairCols];
+#pragma unroll
+      for (int u = 0; u < kPairCols / 4; ++u) {
+        const float4 v = *reinterpret_cast<const float4*>(wt + k * kWRow + 4 * u);
+        wv[4 * u] = v.x;
+        wv[4 * u + 1] = v.y;
+        wv[4 * u + 2] = v.z;
+        wv[4 * u + 3] = v.w;
+      }
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+#pragma unroll
+        for (int r = 0; r < 10; ++r) acc[x][r] = fmaf(av[x], wv[r], acc[x][r]);
+    }
+    if ((t + 1) % row_steps == 0) {  // tap row ky summed: its col2im into dx row y + ky, then a fresh sum
+      float* dst = dx_tile + img * kDxImage + (y + t / row_steps) * kDxRow + 2 * cp;
+#pragma unroll
+      for (int j = 0; j < kSide; ++j) {
+        float lo = 0.f, hi = 0.f;
+#pragma unroll
+        for (int kx = 0; kx < kK; ++kx) {
+          if (j - kx < 0 || j - kx >= kOutSide) continue;
+          lo += acc[j - kx][kx];
+          hi += acc[j - kx][kK + kx];
+        }
+        float2* cell = reinterpret_cast<float2*>(dst + j * kC);
+        const float2 v = *cell;
+        *cell = make_float2(v.x + lo, v.y + hi);
+      }
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+#pragma unroll
+        for (int r = 0; r < 10; ++r) acc[x][r] = 0.f;
+    }
+  }
+  __syncthreads();  // every tap row's col2im is in dx's tile
+
+  if (kChannelsLast) {  // dx[b, pixel, s*32 + c]: a pixel's 32 channels, 8 float4
+    for (int f = tid; f < kImages * kInPix * (kC / 4); f += kThreads) {
+      const int q = f % (kC / 4), pixel = f / (kC / 4) % kInPix, image = f / (kC / 4 * kInPix);
+      const size_t b = (size_t)(b0 + image);
+      if (b0 + image >= B) break;
+      const float* src = dx_tile + image * kDxImage + pixel / kSide * kDxRow + pixel % kSide * kC + 4 * q;
+      *reinterpret_cast<float4*>(dx + ((b * kInPix + pixel) * S + s) * kC + 4 * q) =
+          *reinterpret_cast<const float4*>(src);
+    }
+  } else {  // dx[b, s*32 + c, i, j]: a channel's plane, float4 along j
+    for (int f = tid; f < kImages * kC * kInPix / 4; f += kThreads) {
+      const int q = f % (kInPix / 4), c = f / (kInPix / 4) % kC, image = f / (kInPix / 4 * kC);
+      const size_t b = (size_t)(b0 + image);
+      if (b0 + image >= B) break;
+      const float* src = dx_tile + image * kDxImage + q / 3 * kDxRow + 4 * (q % 3) * kC + c;
+      *reinterpret_cast<float4*>(dx + ((b * S + s) * kC + c) * kInPix + 4 * q) =
+          make_float4(src[0], src[kC], src[2 * kC], src[3 * kC]);
+    }
+  }
+}
+
+template <int kImages, bool kChannelsLast>
+int launch(const float* g, const float* w, float* dx, int B, int S, int N, cudaStream_t on) {
+  using T = Tile<kImages>;
+  // above the 48 KB a block gets without asking; set once, before any graph capture
+  static const cudaError_t attr = cudaFuncSetAttribute(dgrad_kernel<kImages, kChannelsLast>,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((unsigned)((B + kImages - 1) / kImages), S);
+  dgrad_kernel<kImages, kChannelsLast><<<grid, T::kThreads, T::kSmemBytes, on>>>(g, w, dx, B, S, N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace grouped_conv_dx
+
+// dx (B, S*32, 12, 12) = the input gradient of that convolution from g (B,
+// S*N, 8, 8) and w (S, 5, 5, 32, N); g and dx NCHW, or both channels-last
+// (channels_last != 0). N a multiple of 32; every pointer 16-byte aligned.
+// sms: the card's SMs; blocks take two images where that gives each SM two
+// blocks, else one.
+extern "C" int grouped_conv_dgrad(const float* g, const float* w, float* dx, int B, int S, int N,
+                                  int channels_last, int sms, void* stream) {
+  using namespace grouped_conv_dx;
+  if (B < 1 || S < 1 || S > 65535 || N < 32 || N % 32 != 0 || sms < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t on = static_cast<cudaStream_t>(stream);
+  if ((long long)((B + 1) / 2) * S >= 2LL * sms)
+    return channels_last ? launch<2, true>(g, w, dx, B, S, N, on) : launch<2, false>(g, w, dx, B, S, N, on);
+  return channels_last ? launch<1, true>(g, w, dx, B, S, N, on) : launch<1, false>(g, w, dx, B, S, N, on);
 }

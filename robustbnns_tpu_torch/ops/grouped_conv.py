@@ -18,11 +18,14 @@ trunk to XLA and has no ResNet):
 
 - ``grouped_conv`` (5, 1, 0), ``csrc/grouped_conv.cu``: the conv trunk's
   second conv, 32 input channels a group on a 12×12 input, Co a multiple of
-  :data:`N_TILE`; the forward. The input comes NCHW or channels-last, and
-  the output takes its layout, as ``F.conv2d``'s does: the trunk's first
-  conv leaves a one-channel image's activations channels-last, and the
-  backward's library convolutions then get the layouts they got from
-  ``F.conv2d``.
+  :data:`N_TILE`; the forward and the input gradient. The input comes NCHW
+  or channels-last, and the output takes its layout, as ``F.conv2d``'s does:
+  the trunk's first conv leaves a one-channel image's activations
+  channels-last, and the backward's library convolutions then get the
+  layouts they got from ``F.conv2d``. The input gradient reads the output
+  gradient in place in the input's layout and gives dx in it, as the
+  library's input gradient does (:func:`dgrad5x5_plain`, its function in
+  plain PyTorch).
 - ``grouped_conv3x3`` (3, 1, 1) and (3, 2, 1), ``csrc/grouped_conv3x3.cu``:
   ResNet-20's residual convs at width 16 on 32×32 inputs
   (:data:`SHAPES3X3`), contiguous NCHW; the forward and the input gradient.
@@ -33,10 +36,10 @@ trunk to XLA and has no ResNet):
 
 A kind's launches are counted in ``<name>.fwd`` and ``<name>.dgrad``
 (:func:`.build.launch_counts`). :class:`GroupedConv`'s backward takes the
-input gradient from the kind's dgrad kernel where it has one, and the rest
-from the library: ``aten.convolution_backward``, the op that autograd's
-``ConvolutionBackward0`` calls for ``F.conv2d``, with the same arguments,
-each gradient computed only where asked for.
+input gradient from the kind's dgrad kernel, and the weight and bias
+gradients from the library: ``aten.convolution_backward``, the op that
+autograd's ``ConvolutionBackward0`` calls for ``F.conv2d``, with the same
+arguments, each gradient computed only where asked for.
 
 :func:`takes` alone says which calls a kernel computes; the architectures
 route the others to ``F.conv2d``: the CPU, bf16 products, other shapes,
@@ -72,6 +75,14 @@ def grouped_conv_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride
                        padding: int = 0) -> torch.Tensor:
     """``F.conv2d`` with ``groups=S`` on the permuted weights: the forward kernels' function."""
     return F.conv2d(x, oihw(w), b.reshape(-1), stride, padding, 1, w.shape[0])
+
+
+def dgrad5x5_plain(g: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """The 5×5 input-gradient kernel's function: the input gradient of
+    :func:`grouped_conv_plain`, (B, S·Ci, 12, 12) from ``g`` (B, S·Co, 8, 8),
+    in ``g``'s layout: ``F.conv_transpose2d`` with ``groups=S`` on the same
+    permuted weights."""
+    return F.conv_transpose2d(g, oihw(w), None, stride, padding, 0, w.shape[0])
 
 
 def parity_taps(parity: int) -> list[tuple[int, int]]:
@@ -135,6 +146,29 @@ def _fwd5x5(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int):
     return out, (x, w, b, out, x.shape[0], n_draws, hidden, int(nhwc))
 
 
+def _fits_dgrad5x5(g: torch.Tensor, w: torch.Tensor, stride: int) -> bool:
+    return (
+        w.shape[3] == GROUP_CHANNELS
+        and w.shape[4] % N_TILE == 0
+        and g.dim() == 4
+        and g.shape[0] > 0
+        and g.shape[1:] == (w.shape[0] * w.shape[4], OUTPUT_SIDE, OUTPUT_SIDE)
+        and (g.is_contiguous() or g.is_contiguous(memory_format=torch.channels_last))
+    )
+
+
+def _dgrad5x5(g: torch.Tensor, w: torch.Tensor, stride: int):
+    n_draws, hidden, nhwc = w.shape[0], w.shape[4], not g.is_contiguous()
+    dx = torch.empty((g.shape[0], n_draws * GROUP_CHANNELS, INPUT_SIDE, INPUT_SIDE), device=g.device,
+                     memory_format=torch.channels_last if nhwc else torch.contiguous_format)
+    return dx, (g, w, dx, g.shape[0], n_draws, hidden, int(nhwc), build.sm_count(g.device))
+
+
+def _layout(x: torch.Tensor) -> torch.memory_format:
+    """The memory format of an NCHW or channels-last activation."""
+    return torch.contiguous_format if x.is_contiguous() else torch.channels_last
+
+
 def _fits3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int) -> bool:
     n_draws, _, _, c_in, c_out = w.shape
     side = SHAPES3X3.get((c_in, c_out, stride))
@@ -166,24 +200,26 @@ class Mode(NamedTuple):
     """One entry point of a kind, on operands (x, w, b) or (g, w): ``fits(*operands,
     stride)``, whether its kernel computes them (the first operand's layout
     included); ``call(*operands, stride)``, the output and the launch's
-    arguments; ``plain(*operands, stride, padding)``, its function on the CPU."""
+    arguments; ``plain(*operands, stride, padding)``, its function on the CPU;
+    the input gradient's ``layout(x)``, the memory format it reads ``g`` in for
+    the input ``x`` (``g`` is copied into it only where it differs)."""
 
     fits: Callable[..., bool]
     call: Callable
     plain: Callable[..., torch.Tensor]
     argtypes: tuple
+    layout: Optional[Callable[[torch.Tensor], torch.memory_format]] = None
 
 
 class Kind(NamedTuple):
     """A grouped conv that hand-written kernels compute: the library
     ``csrc/<name>.cu``, its entry points ``<name>_fwd`` and ``<name>_dgrad``,
-    counted in ``<name>.fwd`` and ``<name>.dgrad``. No ``dgrad``: the
-    library's input gradient."""
+    counted in ``<name>.fwd`` and ``<name>.dgrad``."""
 
     name: str
     inputs: str  # what the kernels take, for the wrappers' errors
     fwd: Mode
-    dgrad: Optional[Mode] = None
+    dgrad: Mode
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -191,17 +227,18 @@ _CONV5X5 = Kind(
     "grouped_conv",
     f"x (B>0, S·{GROUP_CHANNELS}, {INPUT_SIDE}, {INPUT_SIDE}) NCHW or channels-last, w (S, 5, 5, "
     f"{GROUP_CHANNELS}, Co) with Co a multiple of {N_TILE} and b (S, Co), the last two contiguous",
-    Mode(_fits5x5, _fwd5x5, grouped_conv_plain, (_P,) * 4 + (_I,) * 4 + (_P,)))
+    Mode(_fits5x5, _fwd5x5, grouped_conv_plain, (_P,) * 4 + (_I,) * 4 + (_P,)),
+    Mode(_fits_dgrad5x5, _dgrad5x5, dgrad5x5_plain, (_P,) * 3 + (_I,) * 5 + (_P,), _layout))
 _CONV3X3 = Kind(
     "grouped_conv3x3",
     f"contiguous NCHW activations (B>0, S·C, side, side), w (S, 3, 3, Ci, Co) and b (S, Co), with "
     f"(Ci, Co, stride) -> the input's side one of {SHAPES3X3}",
     Mode(_fits3x3, _fwd3x3, grouped_conv_plain, (_P,) * 4 + (_I,) * 6 + (_P,)),
     Mode(_fits_dgrad3x3, _dgrad3x3, lambda g, w, stride, padding: dgrad3x3_plain(g, w, stride),
-         (_P,) * 3 + (_I,) * 6 + (_P,)))
+         (_P,) * 3 + (_I,) * 6 + (_P,), lambda x: torch.contiguous_format))
 KINDS = {(5, 1, 0): _CONV5X5, (3, 1, 1): _CONV3X3, (3, 2, 1): _CONV3X3}  # (k, stride, padding) -> kind
 build.LAUNCH_COUNTERS.update({f"{kind.name}.{mode}": f"{kind.name}.{mode}" for kind in KINDS.values()
-                              for mode in ("fwd", "dgrad") if getattr(kind, mode) is not None})
+                              for mode in ("fwd", "dgrad")})
 
 
 def _kind(w: torch.Tensor, stride: int, padding: int) -> Optional[Kind]:
@@ -236,10 +273,10 @@ def _run(mode_name: str, operands: tuple, stride: int, padding: int) -> torch.Te
     function for CPU tensors."""
     w = operands[1]
     kind = _kind(w, stride, padding)
-    mode = getattr(kind, mode_name) if kind is not None else None
-    if mode is None:
+    if kind is None:
         raise ValueError(f"no grouped-conv kernel computes the {mode_name} of weights {tuple(w.shape)} at stride "
                          f"{stride}, padding {padding}")
+    mode = getattr(kind, mode_name)
     on_card = build.check(kind.name, operands, contiguous=False)
     if not (all(_plain_f32(t) for t in operands) and mode.fits(*operands, stride)
             and all(t.is_contiguous() for t in operands[1:])):
@@ -265,17 +302,16 @@ def grouped_conv_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: 
 
 def grouped_conv_dgrad(g: torch.Tensor, w: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
     """The input gradient (B, S·Ci, side, side) from the output gradient
-    ``g``: the kind's dgrad kernel for CUDA tensors (raises for a kind that
-    has none), its plain function for CPU tensors. One launch, counted in
-    ``<kind>.dgrad``."""
+    ``g``: the kind's dgrad kernel for CUDA tensors, its plain function for
+    CPU tensors. One launch, counted in ``<kind>.dgrad``."""
     return _run("dgrad", (g, w), stride, padding)
 
 
 class GroupedConv(torch.autograd.Function):
     """:func:`grouped_conv_fwd`, with :func:`grouped_conv_dgrad` for the input
-    gradient where the kind has a dgrad kernel (on a contiguous ``g``), and
-    the library's gradients (``aten.convolution_backward``) for the rest,
-    each computed only where asked for."""
+    gradient (on ``g`` in the memory format the kind's dgrad ``layout``
+    gives) and the library's weight and bias gradients
+    (``aten.convolution_backward``), each computed only where asked for."""
 
     @staticmethod
     def forward(ctx, x, w, b, stride, padding):
@@ -288,18 +324,14 @@ class GroupedConv(torch.autograd.Function):
         x, w = ctx.saved_tensors
         stride, padding = ctx.stride, ctx.padding
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dgrad = _kind(w, stride, padding).dgrad is not None
-        if dgrad:
-            g = g.contiguous()
-        dx = grouped_conv_dgrad(g, w, stride, padding) if dgrad and need_x else None
+        g = g.contiguous(memory_format=_kind(w, stride, padding).dgrad.layout(x))
+        dx = grouped_conv_dgrad(g, w, stride, padding) if need_x else None
         dw = db = None
-        asked = [need_x and not dgrad, need_w, need_b]
-        if any(asked):
+        if need_w or need_b:
             n_draws, kh, kw, c_in, c_out = w.shape
-            library_dx, dw, db = torch.ops.aten.convolution_backward(
+            _, dw, db = torch.ops.aten.convolution_backward(
                 g, x, oihw(w), [n_draws * c_out], [stride, stride], [padding, padding], [1, 1], False, [0, 0],
-                n_draws, asked)
-            dx = library_dx if asked[0] else dx
+                n_draws, [False, need_w, need_b])
             if dw is not None:
                 dw = dw.reshape(n_draws, c_out, c_in, kh, kw).permute(0, 3, 4, 2, 1)
             if db is not None:

@@ -3,13 +3,15 @@
 Two kinds (:data:`KINDS`): the conv trunk's 5×5 VALID second conv and
 ResNet-20's residual 3×3 convs (padding 1, stride 1 or 2). :class:`GroupedConv`
 on CPU tensors runs the plain functions: the forward is ``F.conv2d`` with
-``groups=S`` on the permuted stacked weights; the 3×3 kind's input gradient is
-a 3×3 conv of the output gradient with each tap rotated 180° and transposed
-(stride 1), or four parity classes of 2×2 convs put in place (stride 2); the
-rest is the library's backward (``aten.convolution_backward``, what autograd's
-``ConvolutionBackward0`` calls). On integer-valued inputs every product and
-sum is exact in f32, whatever the order, so the 3×3 twins meet ``F.conv2d``
-and ``torch.nn.grad.conv2d_input`` bit for bit there and a wrong tap, offset or
+``groups=S`` on the permuted stacked weights; the 5×5 kind's input gradient is
+``F.conv_transpose2d`` on those weights, in the output gradient's layout; the
+3×3 kind's is a 3×3 conv of the output gradient with each tap rotated 180° and
+transposed (stride 1), or four parity classes of 2×2 convs put in place
+(stride 2); the weight and bias gradients are the library's backward
+(``aten.convolution_backward``, what autograd's ``ConvolutionBackward0``
+calls), asked for those two alone. On integer-valued inputs every product and
+sum is exact in f32, whatever the order, so the twins meet ``F.conv2d`` and its
+autograd input gradient bit for bit there and a wrong tap, offset or
 transposition cannot hide in rounding. The trunks send only CUDA f32 calls of
 a kind's shapes to its kernel (with ``takes`` answering as it would on the
 card here, through ``fits``): on the CPU, under ``bf16_scope``, inside
@@ -23,6 +25,7 @@ import importlib
 import pytest
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import robustbnns_tpu_torch.ops as ops
 from robustbnns_tpu_torch.analysis.gradients import _per_sample_input_grads, _summed_loss
@@ -81,6 +84,20 @@ def conv3x3_inputs(shape, b_dim=2, n_draws=3, integers=False, seed=0):
             draw(b_dim, n_draws * c_out, side // stride, side // stride, scale=1.0))
 
 
+class LibraryBackwardMasks(TorchDispatchMode):
+    """Records the output mask (dx, dw, db asked for) of each
+    ``aten.convolution_backward`` call made inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.masks = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket is torch.ops.aten.convolution_backward:
+            self.masks.append(list(args[10]))
+        return func(*args, **(kwargs or {}))
+
+
 # (x, w, b, g, stride, padding) of each kind's calls in the tests below
 AUTOGRAD_CASES = [pytest.param(("5x5", n_draws, hidden, layout), id=f"5x5-{layout}-S{n_draws}-Co{hidden}")
                   for layout in ("nchw", "channels_last") for hidden in (128, 256) for n_draws in (1, 3)]
@@ -102,10 +119,10 @@ def case_inputs(case):
 def test_the_autograd_function_is_conv2d_on_the_cpu(case, asked):
     """:class:`GroupedConv` on CPU tensors: its output is ``F.conv2d``'s bit
     for bit, in the input's layout; its weight and bias gradients the
-    library's bit for bit, each computed only where asked for; its input
-    gradient the library's bit for bit where the kind has no dgrad kernel
-    (5×5), and the rotated conv's where it has one (3×3: to f32 rounding of
-    at most 9·64-term sums)."""
+    library's bit for bit, each computed only where asked for, from one
+    library call that asks for those two alone; its input gradient the dgrad
+    twin's: the library's bit for bit, in the input's layout (5×5), and the
+    rotated conv's (3×3: to f32 rounding of at most 9·64-term sums)."""
     x, w, b, g, stride, padding = case_inputs(case)
     wants = (True, asked == "all", asked == "all")
     ours = [t.clone().requires_grad_(want) for t, want in zip((x, w, b), wants)]
@@ -113,10 +130,12 @@ def test_the_autograd_function_is_conv2d_on_the_cpu(case, asked):
     out = gc.grouped_conv(*ours, stride, padding)
     ref = F.conv2d(lib[0], oihw(lib[1]), lib[2].reshape(-1), stride, padding, 1, w.shape[0])
     assert torch.equal(out, ref) and is_channels_last(out) == is_channels_last(x)
-    out.backward(g)
+    with LibraryBackwardMasks() as library:
+        out.backward(g)
+    assert library.masks == ([[False, True, True]] if asked == "all" else [])
     ref.backward(g)
-    if gc.KINDS[(w.shape[1], stride, padding)].dgrad is None:
-        assert torch.equal(ours[0].grad, lib[0].grad)
+    if case[0] == "5x5":
+        assert torch.equal(ours[0].grad, lib[0].grad) and is_channels_last(ours[0].grad) == is_channels_last(x)
     else:
         torch.testing.assert_close(ours[0].grad, lib[0].grad, rtol=0, atol=1e-5 * float(lib[0].grad.abs().max()))
     for got, want, asked_for in zip(ours[1:], lib[1:], wants[1:]):
@@ -125,13 +144,26 @@ def test_the_autograd_function_is_conv2d_on_the_cpu(case, asked):
             assert got.grad.shape == got.shape and torch.equal(got.grad, want.grad)
 
 
-@pytest.mark.parametrize("shape", SHAPES3X3, ids=IDS3X3)
+@pytest.mark.parametrize("shape", SHAPES3X3 + ["5x5"], ids=IDS3X3 + ["5x5"])
 def test_the_twins_are_conv2d_and_its_input_gradient_bit_for_bit(shape):
     """On integer-valued inputs: the 3×3 forward twin equals ``F.conv2d`` on
     each draw's own channels, the input-gradient twin equals
     ``torch.nn.grad.conv2d_input`` of the grouped conv, and at stride 2 the
     input gradient is the sum of its four parity classes, each on its own
-    pixels."""
+    pixels; the 5×5 input-gradient twin equals the autograd input gradient
+    of ``F.conv2d`` with ``groups=S``, NCHW and channels-last, in its
+    layout."""
+    if shape == "5x5":
+        gen = torch.Generator().manual_seed(5)
+        x, w, g = (torch.randint(-3, 4, dims, generator=gen).float()
+                   for dims in ((2, 3 * 32, 12, 12), (3, 5, 5, 32, 128), (2, 3 * 128, 8, 8)))
+        for fmt in (torch.contiguous_format, torch.channels_last):
+            xr = x.clone(memory_format=fmt).requires_grad_(True)
+            g_fmt = g.contiguous(memory_format=fmt)
+            F.conv2d(xr, oihw(w), None, 1, 0, 1, 3).backward(g_fmt)
+            got = gc.dgrad5x5_plain(g_fmt, w)
+            assert torch.equal(got, xr.grad) and got.stride() == xr.grad.stride()
+        return
     c_in, c_out, stride = shape
     x, w, b, g = conv3x3_inputs(shape, integers=True)
     n_draws = w.shape[0]
@@ -171,6 +203,12 @@ def test_the_kernels_shapes(kind):
         assert not gc.fits(x.transpose(2, 3), w, b)  # neither NCHW nor channels-last
         with bf16_scope():
             assert not gc.fits(x, w, b)
+        g = conv_inputs(2, 3, 128)[3]
+        dgrad = gc.KINDS[(5, 1, 0)].dgrad
+        assert dgrad.fits(g, w, 1) and dgrad.fits(g.contiguous(memory_format=torch.channels_last), w, 1)
+        assert not dgrad.fits(g.transpose(2, 3), w, 1) and not dgrad.fits(g[:, :, :6, :6].contiguous(), w, 1)
+        assert dgrad.layout(x) == torch.contiguous_format
+        assert dgrad.layout(x.contiguous(memory_format=torch.channels_last)) == torch.channels_last
         return
     for shape in SHAPES3X3:
         x, w, b, _ = conv3x3_inputs(shape)
@@ -212,14 +250,15 @@ def test_no_kind_is_taken_under_bf16_products(key):
 
 FAULTS = ["dtype", "width", "side", "stride", "not_contiguous", "device"]
 RAISES = [("5x5", f) for f in ["dtype", "width", "input_side", "channels", "bias", "not_contiguous"]]
+RAISES += [("5x5_dgrad", f) for f in ["dtype", "width", "output_side", "not_contiguous"]]
 RAISES += [("fwd", f) for f in FAULTS + ["bias"]] + [("dgrad", f) for f in FAULTS]
 
 
 @pytest.mark.parametrize("mode,fault", RAISES)
 def test_the_wrappers_raise_on_what_the_kernel_does_not_take(mode, fault):
-    """The 5×5 kind's forward, and the 3×3 kind's forward and input gradient
-    (``mode`` ``fwd`` and ``dgrad``, at (32, 64, 2)), on what their kernels
-    do not take, on the CPU as on the card."""
+    """The 5×5 kind's forward and input gradient, and the 3×3 kind's forward
+    and input gradient (``mode`` ``fwd`` and ``dgrad``, at (32, 64, 2)), on
+    what their kernels do not take, on the CPU as on the card."""
     if mode == "5x5":
         x, w, b, _ = conv_inputs(2, 2, 128)
         error = ValueError
@@ -237,6 +276,20 @@ def test_the_wrappers_raise_on_what_the_kernel_does_not_take(mode, fault):
             x = x.transpose(2, 3)
         with pytest.raises(error):
             gc.grouped_conv_fwd(x, w, b)
+        return
+    if mode == "5x5_dgrad":
+        _, w, _, g = conv_inputs(2, 2, 128)
+        error = ValueError
+        if fault == "dtype":
+            g, error = g.double(), TypeError
+        elif fault == "width":
+            _, w, _, g = conv_inputs(2, 2, 96)
+        elif fault == "output_side":
+            g = g[:, :, :6, :6].contiguous()
+        else:  # neither NCHW nor channels-last
+            g = g.transpose(2, 3)
+        with pytest.raises(error):
+            gc.grouped_conv_dgrad(g, w, 1, 0)
         return
     x, w, b, g = conv3x3_inputs((32, 64, 2))
     stride, error = 2, ValueError
@@ -409,17 +462,19 @@ def test_the_trunk_keeps_conv2d_inside_torch_func_transforms(monkeypatch, model)
             torch.testing.assert_close(got[s], want, rtol=1e-4, atol=1e-6 * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("counter", ["grouped_conv.fwd", "grouped_conv3x3.fwd", "grouped_conv3x3.dgrad"])
+@pytest.mark.parametrize("counter", ["grouped_conv.fwd", "grouped_conv.dgrad", "grouped_conv3x3.fwd",
+                                     "grouped_conv3x3.dgrad"])
 def test_launch_counts_report_the_grouped_convs(counter):
     """``ops.launch_counts`` holds each kind's counters beside the
-    sampled-dense wrappers', 15 in all; the plain functions of CPU tensors
+    sampled-dense wrappers', 16 in all; the plain functions of CPU tensors
     launch nothing."""
     ops.reset_launch_counts()
     counts = ops.launch_counts()
-    assert counts[counter] == 0 and counts["sampled_dense_fwd"] == 0 and len(counts) == 15
-    if counter == "grouped_conv.fwd":
-        x, w, b, _ = conv_inputs(1, 1, 128)
+    assert counts[counter] == 0 and counts["sampled_dense_fwd"] == 0 and len(counts) == 16
+    if counter.startswith("grouped_conv."):
+        x, w, b, g = conv_inputs(1, 1, 128)
         gc.grouped_conv_fwd(x, w, b)
+        gc.grouped_conv_dgrad(g, w, 1, 0)
     else:
         x, w, b, g = conv3x3_inputs((16, 16, 1), b_dim=1, n_draws=1)
         gc.grouped_conv_fwd(x, w, b, 1, 1)

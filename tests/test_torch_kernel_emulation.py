@@ -508,7 +508,8 @@ def grouped_conv_library(tmp_path_factory):
     gc = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv")
     dll = build(tmp_path_factory, "grouped_conv.cu", ())
     dll.grouped_conv_fwd.argtypes = gc.KINDS[(5, 1, 0)].fwd.argtypes
-    dll.grouped_conv_fwd.restype = ctypes.c_int
+    dll.grouped_conv_dgrad.argtypes = gc.KINDS[(5, 1, 0)].dgrad.argtypes
+    dll.grouped_conv_fwd.restype = dll.grouped_conv_dgrad.restype = ctypes.c_int
     return dll
 
 
@@ -537,6 +538,31 @@ def test_grouped_conv_kernel_matches_conv2d_on_the_cpu(grouped_conv_library, b_d
     want = gc.grouped_conv_plain(x, w, bias)
     torch.testing.assert_close(out, want, rtol=0, atol=1e-5 * float(want.abs().max()))
     assert grouped_conv_library.grouped_conv_fwd(*args, 96, int(nhwc), None) != 0  # N not a multiple of 128
+
+
+@pytest.mark.parametrize("sms", [1, 132], ids=["two_images_a_block", "one_image_a_block"])
+@pytest.mark.parametrize("nhwc", [False, True], ids=["nchw", "channels_last"])
+def test_grouped_conv_dgrad_kernel_matches_its_twin_on_the_cpu(grouped_conv_library, sms, nhwc):
+    """The input gradient of ``csrc/grouped_conv.cu`` against its plain twin
+    (``F.conv_transpose2d`` with ``groups=S``) at B 3 (the last two-image
+    block's second image absent), S 2, N 128, g and dx in one layout; with
+    one SM the blocks take two images, with 132 one. The same 3,200-term f32
+    sums in another order, held to 1e-5 of the largest entry; dx starts as
+    NaN, so a missed store shows. An N that is not a multiple of 32 is
+    refused."""
+    gc = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv")
+    b_dim, n_draws, hidden = 3, 2, 128
+    rng = np.random.default_rng(2 * sms + nhwc)
+    fmt = torch.channels_last if nhwc else torch.contiguous_format
+    g = torch.from_numpy(rng.normal(size=(b_dim, n_draws * hidden, 8, 8)).astype(np.float32))
+    g = g.contiguous(memory_format=fmt)
+    w = torch.from_numpy((rng.normal(size=(n_draws, 5, 5, 32, hidden)) / np.sqrt(800)).astype(np.float32))
+    dx = torch.full((b_dim, n_draws * 32, 12, 12), float("nan")).contiguous(memory_format=fmt)
+    args = (g.data_ptr(), w.data_ptr(), dx.data_ptr(), b_dim, n_draws)
+    assert grouped_conv_library.grouped_conv_dgrad(*args, hidden, int(nhwc), sms, None) == 0
+    want = gc.dgrad5x5_plain(g, w)
+    torch.testing.assert_close(dx, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    assert grouped_conv_library.grouped_conv_dgrad(*args, 120, int(nhwc), sms, None) != 0  # N not a multiple of 32
 
 
 @pytest.fixture(scope="module")

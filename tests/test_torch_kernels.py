@@ -379,6 +379,50 @@ def test_grouped_conv_kernel_against_float64(cuda, shape, layout):
         del exact, terms
 
 
+GROUPED_CONV_DGRAD_SHAPES = [  # (B, S, hidden)
+    (128, 100, 512),  # model_0's attack: two images a block
+    (128, 1, 512),  # SVI's ELBO step and the NN path: one image a block
+    (127, 8, 512),  # a batch that is not a multiple of two images
+]
+
+
+@pytest.mark.parametrize("shape", GROUPED_CONV_DGRAD_SHAPES, ids=lambda s: "B{}_S{}_N{}".format(*s))
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])  # the trunk's, and a per-draw input's
+def test_grouped_conv_dgrad_kernel_against_float64(cuda, shape, layout):
+    """The input gradient of ``csrc/grouped_conv.cu`` against its plain twin
+    (the input gradient of ``grouped_conv_plain``) in float64, dx in g's
+    layout with the strides of aten's input gradient for an input in that
+    layout. Each dx element sums K = 25·N products in f32 with FMAs in a
+    fixed order, so it lies within (K + 1)·2⁻²⁴ of its terms' absolute sum of
+    the exact value (a fault moves entries by the size of a term, far beyond
+    it). Bit-identical across two calls, one launch counted a call."""
+    from robustbnns_tpu_torch.ops import launch_counts
+
+    gc = importlib.import_module("robustbnns_tpu_torch.ops.grouped_conv")
+    b_dim, n_draws, hidden = shape
+    fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+    gen = torch.Generator(device=cuda).manual_seed(b_dim * 7919 + n_draws * 31 + hidden + 1)
+    g = torch.randn((b_dim, n_draws * hidden, 8, 8), generator=gen, device=cuda).contiguous(memory_format=fmt)
+    w = torch.randn((n_draws, 5, 5, 32, hidden), generator=gen, device=cuda) / 800**0.5
+    before = launch_counts()["grouped_conv.dgrad"]
+    got = gc.grouped_conv_dgrad(g, w, 1, 0)
+    assert launch_counts()["grouped_conv.dgrad"] == before + 1
+    again = gc.grouped_conv_dgrad(g, w, 1, 0)
+    torch.cuda.synchronize()
+    assert launch_counts()["grouped_conv.dgrad"] == before + 2
+    assert torch.equal(got, again) and bool(torch.isfinite(got).all())
+    x = torch.zeros((b_dim, n_draws * 32, 12, 12), device=cuda).contiguous(memory_format=fmt)
+    library = torch.ops.aten.convolution_backward(g, x, gc.oihw(w), None, [1, 1], [0, 0], [1, 1], False, [0, 0],
+                                                  n_draws, [True, False, False])[0]
+    assert got.shape == library.shape and got.stride() == library.stride()
+    del x, library
+    with torch.no_grad():
+        exact = gc.dgrad5x5_plain(g.double(), w.double())
+        terms = gc.dgrad5x5_plain(g.double().abs(), w.double().abs())
+        assert bool(((got.double() - exact).abs() <= (25 * hidden + 1) * 2.0**-24 * terms).all())
+        del exact, terms
+
+
 def test_per_sample_input_grads_on_a_conv_model(cuda, monkeypatch):
     """``_per_sample_input_grads`` (``vmap`` of ``grad``) on a CUDA f32 conv
     model of the kernel's widths: the transforms' wrapped tensors keep the
