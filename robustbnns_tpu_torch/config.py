@@ -31,7 +31,7 @@ class NNConfig:
     dataset: str
     hidden_size: int
     activation: str  # relu | leaky | sigm | tanh
-    architecture: str  # fc | fc2 | conv | conv2
+    architecture: str  # fc | fc2 | conv | conv2 | resnet20 | cct7
     epochs: int
     lr: float
 

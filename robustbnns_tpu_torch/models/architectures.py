@@ -1,5 +1,6 @@
-"""The four reference architectures, and a Bayesian ResNet-20, as
-``init``/``apply`` functions (port of ``robustbnns_tpu/models/architectures.py``).
+"""The four reference architectures, a Bayesian ResNet-20 and a Bayesian
+CCT-7/3×1, as ``init``/``apply`` functions (port of
+``robustbnns_tpu/models/architectures.py``).
 
 * ``fc``   — Flatten -> Linear(in, h) -> act -> Linear(h, out)
 * ``fc2``  — Flatten -> Linear(in, h) -> act -> Linear(h, h) -> act -> Linear(h, out)
@@ -11,6 +12,10 @@
 * ``resnet20`` — He et al.'s CIFAR-10 ResNet-20 (arXiv:1512.03385, sec. 4.2;
   no JAX counterpart): a residual trunk of 3×3 convolutions of widths h, 2h
   and 4h, then global average pooling and a dense head (:func:`_resnet_apply`)
+* ``cct7`` — Hassani et al.'s Compact Convolutional Transformer CCT-7/3×1
+  (arXiv:2104.05704; no JAX counterpart): a 3×3 conv tokenizer, 7 pre-norm
+  transformer encoder layers of width h with 4 heads and an MLP of 2h,
+  sequence pooling and a dense head (:func:`_cct_apply`)
 
 (reference ``model_nn.py:77-121``). Inputs are NHWC and flattened in (h, w, c)
 order, dense weights are ``(I, O)`` and conv weights HWIO ``(k, k, C_in,
@@ -21,7 +26,8 @@ biases, with ``fan_in = C_in·k·k`` for a conv. ``apply`` also takes a stacked
 parameter tree (a leading sample axis S on every leaf) and then returns
 ``(S, batch, out)``: the conv trunk runs the S draws as one convolution with
 S·32 output channels, then one grouped convolution (``groups=S``), with no loop
-over draws (``resnet20``: the first conv so, every later one grouped). With
+over draws (``resnet20``: the first conv so, every later one grouped;
+``cct7``: the first conv so, then every product batched over the draws). With
 stacked parameters the input may carry the leading axis too,
 ``(S, batch, h, w, c)``, one batch per draw (an ensemble's members, each on its
 own shuffle): the first convolution then groups by draw as well.
@@ -31,16 +37,19 @@ Under ``ROBUSTBNNS_BF16=1`` (or a sampler's ``bf16_scope``,
 JAX package (``architectures.py:96-173``): a dense layer multiplies the
 bf16-rounded input and weights with f32 sums into an f32 result and adds the
 bias in f32 (:func:`bf16_matmul`); a conv runs wholly in bf16, its output
-included, then is upcast and gets its bias in f32.
+included, then is upcast and gets its bias in f32. ``cct7`` takes every
+other product (attention's ``q·kᵀ`` and ``p·v``, the sequence pooling's)
+through :func:`bf16_matmul` too.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
+from robustbnns_tpu_torch.ops.attention import attention
 from robustbnns_tpu_torch.ops.grouped_conv import grouped_conv, oihw, takes
 from robustbnns_tpu_torch.utils.device import bf16_products
 from robustbnns_tpu_torch.utils.pytree import Params, map_params
@@ -132,22 +141,26 @@ def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _Bf16Matmul.apply(a, b)
 
 
+def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(a, b)``; under :func:`.utils.device.bf16_products`, :func:`bf16_matmul`."""
+    return bf16_matmul(a, b) if bf16_products() else torch.matmul(a, b)
+
+
 def _dense(x: torch.Tensor, p: dict) -> torch.Tensor:
     """``x @ w + b``; with stacked ``w`` (S, I, O) and ``b`` (S, O) it gives (S, B, O).
     Under :func:`.utils.device.bf16_products`, :func:`bf16_matmul`."""
-    if bf16_products():
-        return bf16_matmul(x, p["w"]) + p["b"].unsqueeze(-2)
-    return torch.matmul(x, p["w"]) + p["b"].unsqueeze(-2)
+    return _product(x, p["w"]) + p["b"].unsqueeze(-2)
 
 
-def _conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int, stride: int = 1,
+def _conv2d(h: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], groups: int, stride: int = 1,
             padding: int = 0) -> torch.Tensor:
-    """``F.conv2d`` (OIHW; VALID and stride 1 unless asked); under
-    :func:`.utils.device.bf16_products` wholly in bf16, output included, then
-    upcast, the bias added in f32 (JAX ``architectures.py:103-111``)."""
+    """``F.conv2d`` (OIHW; VALID and stride 1 unless asked; ``b`` None for
+    no bias); under :func:`.utils.device.bf16_products` wholly in bf16,
+    output included, then upcast, the bias added in f32 (JAX
+    ``architectures.py:103-111``)."""
     if bf16_products():
         y = F.conv2d(h.to(torch.bfloat16), w.to(torch.bfloat16), None, stride, padding, 1, groups).float()
-        return y + b[:, None, None]
+        return y if b is None else y + b[:, None, None]
     return F.conv2d(h, w, b, stride, padding, 1, groups)
 
 
@@ -273,6 +286,85 @@ def _resnet_apply(act, params: Params, x: torch.Tensor) -> torch.Tensor:
         return _dense(h.reshape(h.shape[0], n_draws, -1).transpose(0, 1), params[-1])
 
 
+CCT_LAYERS, CCT_HEADS, CCT_MLP_RATIO = 7, 4, 2  # CCT-7/3×1: 7 encoder layers, 4 heads, MLP 2× the width
+LAYER_NORM_EPS = 1e-5  # torch's and CCT's default
+
+
+def _cct_layers(c_in: int, width: int, tokens: int, classes: int) -> list:
+    """CCT's 39 layer dicts as ``(w shape, b shape, fan-in, is a LayerNorm)``:
+    the tokenizer (conv HWIO ``(3, 3, c_in, width)``, no bias, so the
+    positional table P ``(tokens, width)`` takes ``"b"``); per encoder layer
+    LN_pre, attention (``w`` ``[W_q|W_k|W_v|W_o]`` ``(width, 4·width)``, ``b``
+    W_o's bias), LN_1, the MLP's two dense layers; then LN_f, the sequence
+    pooling's gate ``(width, 1)`` and the head. A LayerNorm's ``w`` is its
+    scale γ and ``b`` its shift β, at fan-in 1."""
+    mlp = CCT_MLP_RATIO * width
+    norm = ((width,), (width,), 1, True)
+    layers = [((3, 3, c_in, width), (tokens, width), 9 * c_in, False)]
+    for _ in range(CCT_LAYERS):
+        layers += [norm, ((width, 4 * width), (width,), width, False), norm,
+                   ((width, mlp), (mlp,), width, False), ((mlp, width), (width,), mlp, False)]
+    return layers + [norm, ((width, 1), (1,), width, False), ((width, classes), (classes,), width, False)]
+
+
+def _layer_norm(z: torch.Tensor, p: dict) -> torch.Tensor:
+    """LayerNorm over the last axis of ``z`` ``(S, N, d)`` with each draw's
+    own scale ``w`` and shift ``b`` ``(S, d)``."""
+    return torch.addcmul(p["b"][:, None], F.layer_norm(z, z.shape[-1:], eps=LAYER_NORM_EPS), p["w"][:, None])
+
+
+def _self_attention(z: torch.Tensor, p: dict, n_seq: int) -> torch.Tensor:
+    """Multi-head self-attention of ``z`` ``(S, N, d)``, N = batch·T tokens of
+    ``n_seq`` = S·batch sequences: ``q, k, v = z·[W_q|W_k|W_v]`` (no bias),
+    :func:`.ops.attention.attention` over the S·batch·heads sequences, then
+    ``·W_o + b_o``. The heads are views of the products, ``(S·batch, heads,
+    T, d/heads)``, never copies."""
+    n_draws, _, width = z.shape
+    head = width // CCT_HEADS
+    qkv = _product(z, p["w"][..., :3 * width]).view(n_seq, -1, 3, CCT_HEADS, head)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    a = attention(q, k, v, head ** -0.5, _product)  # (S·batch, heads, T, head)
+    a = a.transpose(1, 2).reshape(n_draws, -1, width)
+    return _product(a, p["w"][..., 3 * width:]) + p["b"][:, None]
+
+
+def _cct_apply(act, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """CCT-7/3×1 on stacked parameters: ``(S, batch, out)``.
+
+    Tokenizer: ``t = maxpool3x3/2,pad1(act(conv3x3(x)))`` (stride 1, pad 1,
+    no bias), the (h, w) pixels in row-major order as T tokens of width d,
+    ``z = t + P``. Each of 7 layers: ``z = LN_1(z + MHSA(LN_pre(z)))``, then
+    ``z = z + W_2·gelu(W_1·z + b_1) + b_2`` (GELU in its erf form). Head:
+    ``z = LN_f(z)``, ``p = softmax_T(z·w_g + b_g)``, ``logits = (Σ_t p_t
+    z_t)·W + b``. Dropout and stochastic depth are train-time only.
+
+    A shared input goes through the tokenizer's conv once with S·d output
+    channels on ``F.conv2d`` (inputs per draw group by draw,
+    :func:`_draws_as_channels`); then the tokens of all draws sit in one
+    ``(S, batch·T, d)`` tensor, each dense product one batched matmul over
+    the draws, each LayerNorm with its draw's own scale and shift, and the
+    attention over S·batch·heads sequences at once. Counted:
+    ``cct.forwards``, one a forward; the attention op counts its routes.
+    Inside ``conv_trunk``."""
+    n_draws, width = params[0]["w"].shape[0], params[0]["w"].shape[-1]
+    count("cct.forwards")
+    with span("conv_trunk"):
+        h, groups = _draws_as_channels(x, n_draws)
+        h = F.max_pool2d(act(_conv2d(h.contiguous(), oihw(params[0]["w"]), None, groups, 1, 1)), 3, 2, 1)
+        batch, _, side_h, side_w = h.shape
+        tokens = side_h * side_w
+        z = h.reshape(batch, n_draws, width, tokens).permute(1, 0, 3, 2) + params[0]["b"][:, None]
+        z = z.reshape(n_draws, batch * tokens, width)
+        for layer in range(CCT_LAYERS):
+            ln_pre, attn, ln_1, mlp_1, mlp_2 = params[1 + 5 * layer:6 + 5 * layer]
+            z = _layer_norm(z + _self_attention(_layer_norm(z, ln_pre), attn, n_draws * batch), ln_1)
+            z = z + _dense(F.gelu(_dense(z, mlp_1)), mlp_2)
+        z = _layer_norm(z, params[-3])
+        pool = torch.softmax(_dense(z, params[-2]).reshape(n_draws * batch, 1, tokens), dim=-1)
+        v = _product(pool, z.reshape(n_draws * batch, tokens, width))  # Σ_t p_t z_t
+        return _dense(v.reshape(n_draws, batch, width), params[-1])
+
+
 def _normalize_input_shape(input_shape: Sequence[int]) -> tuple:
     """Accept reference-style CHW shapes and return HWC (``architectures.py:136-148``)."""
     s = tuple(int(d) for d in input_shape)
@@ -291,7 +383,8 @@ def build_architecture(
     hidden_size: int,
     dataset_name: str = "",
 ) -> Architecture:
-    """Build one of the four reference architectures, or ``resnet20``.
+    """Build one of the four reference architectures (``fc``, ``fc2``,
+    ``conv``, ``conv2``), ``resnet20`` or ``cct7``.
 
     Raises on non-power-of-two or < 16 hidden sizes (reference
     ``model_nn.py:39-40``), on ``conv`` with a dataset other than MNIST or
@@ -299,7 +392,11 @@ def build_architecture(
     dimension, (hidden/16)·input_size, differs from what its trunk produces,
     and on ``resnet20`` inputs whose sides do not divide by 4 (its two
     stride-2 stages). ``resnet20``'s ``hidden_size`` is its first stage's
-    width (16 as published).
+    width (16 as published); ``cct7``'s is its embedding width (256 as
+    published), the heads' width a quarter of it, and its ``activation`` the
+    tokenizer's (ReLU as published). ``cct7``'s LayerNorms start at scale 1
+    and shift 0; every other layer takes torch's default init, the
+    positional table P at the tokenizer conv's fan-in.
     """
     if hidden_size < 16 or (hidden_size & (hidden_size - 1)) != 0:
         raise ValueError("hidden size should be a power of 2, greater than 16.")
@@ -309,7 +406,8 @@ def build_architecture(
     h_in, w_in, c_in = hwc
     input_size = h_in * w_in * c_in
     act = ACTIVATIONS[activation]
-    trunk = {"conv": _conv_trunk_apply, "conv2": _conv_trunk_apply, "resnet20": _resnet_apply}.get(architecture)
+    trunk = {"conv": _conv_trunk_apply, "conv2": _conv_trunk_apply, "resnet20": _resnet_apply,
+             "cct7": _cct_apply}.get(architecture)
 
     if architecture == "fc":
         dims = ((input_size, hidden_size), (hidden_size, output_size))
@@ -326,6 +424,10 @@ def build_architecture(
             raise ValueError(f"resnet20 halves the input's sides twice: {hwc} does not divide by 4")
         w_shapes = tuple(_resnet_shapes(c_in, hidden_size, output_size))
         dims = tuple((math.prod(shape[:-1]), shape[-1]) for shape in w_shapes)
+    elif architecture == "cct7":
+        tokens = ((h_in + 1) // 2) * ((w_in + 1) // 2)  # after the max-pool 3/2, pad 1
+        layers = _cct_layers(c_in, hidden_size, tokens, output_size)
+        dims = tuple((fan_in, w[-1]) for w, _, fan_in, _ in layers)
     elif trunk is not None:
         if architecture == "conv" and dataset_name not in ("mnist", "fashion_mnist"):
             raise NotImplementedError("conv supports mnist/fashion_mnist only (reference model_nn.py:95)")
@@ -344,15 +446,17 @@ def build_architecture(
     else:
         raise NotImplementedError(f"unknown architecture {architecture!r}")
 
+    if architecture != "cct7":
+        layers = [(shape, (o,), fan_in, False) for shape, (fan_in, o) in zip(w_shapes, dims)]
+
     def init(generator: torch.Generator) -> Params:
-        """torch-default init on the generator's device, layer by layer (w, then b)."""
+        """torch-default init on the generator's device, layer by layer (w,
+        then b); a LayerNorm's scale 1 and shift 0."""
         device = generator.device
         return tuple(
-            {
-                "w": _uniform_fan_in(generator, shape, fan_in, device),
-                "b": _uniform_fan_in(generator, (o,), fan_in, device),
-            }
-            for shape, (fan_in, o) in zip(w_shapes, dims)
+            {"w": torch.ones(w, device=device), "b": torch.zeros(b, device=device)} if norm else
+            {"w": _uniform_fan_in(generator, w, fan_in, device), "b": _uniform_fan_in(generator, b, fan_in, device)}
+            for w, b, fan_in, norm in layers
         )
 
     def apply(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -7,9 +7,10 @@ trained posterior state — a :class:`MeanFieldPosterior` for SVI or a stacked
 ``evaluate`` / ``predictive_fn`` / ``save`` / ``load`` mirroring the reference
 surface (``model_bnn.py:69``), for every model of the zoo: the SVI ``fc``/``fc2``
 and ``conv`` models and the HMC models (``model_1``, ``3``, ``9``), sampled by
-HMC or, with ``hmc_sampler='nuts'``, by NUTS (:mod:`.inference.nuts`), and a
-Bayesian ResNet-20 outside the zoo (``BNNConfig("cifar", 16, "relu",
-"resnet20", "svi", ...)``).
+HMC or, with ``hmc_sampler='nuts'``, by NUTS (:mod:`.inference.nuts`), and,
+outside the zoo, a Bayesian ResNet-20 (``BNNConfig("cifar", 16, "relu",
+"resnet20", "svi", ...)``) and a Bayesian CCT-7/3×1 (``BNNConfig("cifar",
+256, "relu", "cct7", "svi", ...)``).
 
 The probabilistic model is the reference's (``model_bnn.py:105-119``): iid
 ``N(0, 1)`` priors on every parameter and a categorical likelihood on the
@@ -318,8 +319,8 @@ class BNN:
         as the reference does at attack time (``adversarialAttacks.py:97``);
         an HMC closure takes the draws ``range(n_samples)``, indexed once.
         ``fused=True`` (SVI fresh-draw mode, fc/fc2) routes through the CUDA
-        sampled-dense kernels; the conv architectures and ``resnet20`` have no
-        fused path and raise, as in the JAX package, and HMC refuses it.
+        sampled-dense kernels; ``conv``, ``conv2``, ``resnet20`` and ``cct7``
+        have no fused path and raise, as in the JAX package, and HMC refuses it.
         """
         from robustbnns_tpu_torch.inference.svi import sample_meanfield_eps
         from robustbnns_tpu_torch.predict import sample_eps, svi_predict
@@ -337,7 +338,9 @@ class BNN:
             from robustbnns_tpu_torch.ops.fused_predict import fused_predictive_fn, supports_fused
 
             if not supports_fused(self.arch):
-                raise NotImplementedError("fused predictive supports fc/fc2 architectures")
+                raise NotImplementedError(
+                    f"fused predictive supports fc/fc2 architectures, not {self.arch.name} "
+                    "(conv, conv2, resnet20 and cct7 have no fused path)")
             cache_key = ("fused", n_samples)
             if cache_key not in self._fn_cache:
                 self._fn_cache[cache_key] = fused_predictive_fn(self.arch, posterior, n_samples)

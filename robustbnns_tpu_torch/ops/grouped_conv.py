@@ -56,7 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from robustbnns_tpu_torch.ops import build
-from robustbnns_tpu_torch.utils.device import bf16_products
+from robustbnns_tpu_torch.utils.device import bf16_products, plain_f32
 
 GROUP_CHANNELS, INPUT_SIDE, OUTPUT_SIDE = 32, 12, 8  # the 5×5 kind's
 N_TILE = 128  # output channels a block of the 5×5 kernel: it takes Co a multiple of it
@@ -248,17 +248,13 @@ def _kind(w: torch.Tensor, stride: int, padding: int) -> Optional[Kind]:
     return KINDS.get((w.shape[1], stride, padding))
 
 
-def _plain_f32(t: torch.Tensor) -> bool:
-    return t.dtype == torch.float32 and not torch._C._functorch.is_functorch_wrapped_tensor(t)
-
-
 def fits(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int = 1, padding: int = 0) -> bool:
     """Whether a kernel would compute this grouped conv were the tensors on
     the card: not under :func:`.utils.device.bf16_products`, plain f32
     tensors (not the wrappers of a ``torch.func`` transform), a kind of
     :data:`KINDS` and the shapes and layouts its forward fits."""
     kind = _kind(w, stride, padding)
-    return (kind is not None and not bf16_products() and all(_plain_f32(t) for t in (x, w, b))
+    return (kind is not None and not bf16_products() and all(plain_f32(t) for t in (x, w, b))
             and kind.fwd.fits(x, w, b, stride))
 
 
@@ -278,7 +274,7 @@ def _run(mode_name: str, operands: tuple, stride: int, padding: int) -> torch.Te
                          f"{stride}, padding {padding}")
     mode = getattr(kind, mode_name)
     on_card = build.check(kind.name, operands, contiguous=False)
-    if not (all(_plain_f32(t) for t in operands) and mode.fits(*operands, stride)
+    if not (all(plain_f32(t) for t in operands) and mode.fits(*operands, stride)
             and all(t.is_contiguous() for t in operands[1:])):
         if any(t.dtype != torch.float32 for t in operands):
             raise TypeError(f"the {kind.name} kernels take float32, got {[t.dtype for t in operands]}")

@@ -54,6 +54,12 @@ def bf16_products() -> bool:
     return _bf16_scopes > 0 or os.environ.get("ROBUSTBNNS_BF16") == "1"
 
 
+def plain_f32(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a plain f32 tensor: not another dtype, and not the
+    wrapper of a ``torch.func`` transform, whose data a kernel cannot read."""
+    return t.dtype == torch.float32 and not torch._C._functorch.is_functorch_wrapped_tensor(t)
+
+
 @contextlib.contextmanager
 def bf16_scope(enabled: bool = True):
     """Run the block's dense and conv products on bf16 operands (with

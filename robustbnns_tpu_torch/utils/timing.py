@@ -20,9 +20,11 @@ running count) rides in the range's inputs, which a profiler with
   loop's own sign, projection and clamp;
 - ``predictive.forward``: the predictive and its summed cross-entropy;
 - ``predictive.backward``: the input gradient (``torch.autograd.grad``);
-- ``conv_trunk``: the conv architectures' forward;
+- ``conv_trunk``: the conv architectures' forward, ``cct7``'s included;
 - ``resnet.stage1``, ``resnet.stage2``, ``resnet.stage3``: ``resnet20``'s
   three stages, inside ``conv_trunk``;
+- ``cct.attention``: each call of :func:`.ops.attention.attention`, ``cct7``'s
+  ``softmax(q·kᵀ·scale)·v`` of one encoder layer, inside ``conv_trunk``;
 - ``svi.step``: one SVI step, its draws, ELBO step and accuracy;
 - ``svi.draws``: the step's pull of its rows and its ELBO and accuracy noise;
 - ``svi.elbo.forward``, ``svi.elbo.backward``: the ELBO loss, its backward;
@@ -41,7 +43,10 @@ kernel's), each bumped by :func:`.ops.build.launch` after a launch that
 succeeded and read by :func:`.ops.launch_counts`; ``resnet.forwards``, one a
 ``resnet20`` forward, and ``resnet.cudnn_convs``, its convolutions that
 ``F.conv2d`` ran rather than a hand-written kernel (1 a forward in f32 on
-the card, 19 elsewhere).
+the card, 19 elsewhere); ``cct.forwards``, one a ``cct7`` forward, and
+``cct.attention`` and ``cct.plain_attention``, its attention calls by route
+(:mod:`.ops.attention`: the fused route on the card in f32, the plain route
+elsewhere; 7 a forward).
 """
 from __future__ import annotations
 
